@@ -1,0 +1,1 @@
+"""See the package docstring of axial_vs_tpu_torch."""
