@@ -66,6 +66,11 @@ class MSDeformAttn(nn.Module):
 
     def forward(self, query, input_flatten, spatial_shapes):
         """query, input_flatten (B, S, C); spatial_shapes ((H, W), ...)."""
+        return self.output_proj(self.sample(query, input_flatten,
+                                            spatial_shapes))
+
+    def sample(self, query, input_flatten, spatial_shapes):
+        """The attention before ``output_proj``: (B, Lq, C)."""
         b, lq, c = query.shape
         m, lv, p = self.n_heads, self.n_levels, self.n_points
         value = self.value_proj(input_flatten).reshape(b, -1, m, c // m)
@@ -78,10 +83,9 @@ class MSDeformAttn(nn.Module):
                                   dtype=torch.float32, device=query.device)
         locations = (ref[None, :, None, :, None, :]
                      + offsets.float() / normalizer[None, None, None, :, None, :])
-        out = ms_deform_attn(value.contiguous(), spatial_shapes,
-                             level_start_index(spatial_shapes),
-                             locations.contiguous(), weights.contiguous())
-        return self.output_proj(out)
+        return ms_deform_attn(value.contiguous(), spatial_shapes,
+                              level_start_index(spatial_shapes),
+                              locations.contiguous(), weights.contiguous())
 
 
 class MSDeformAttnEncoderLayer(nn.Module):

@@ -1,21 +1,22 @@
-"""Axial-trajectory attention, plain PyTorch (counterpart of
-``axial_vs_tpu/layers/trajectory_attention.py``; its opt-in Pallas kernel
-``ops/traj_pallas.py`` is not on the within-clip path and is not ported yet).
+"""Axial-trajectory attention (counterpart of
+``axial_vs_tpu/layers/trajectory_attention.py``).
 
 Two stages: a per-frame spatial softmax aggregates each query's trajectory
 through every frame, then a temporal softmax runs along the trajectory with
-the query's own-frame aggregation as the query. The axial layer applies it
-along the height axis on (B*W, T*H) sequences, then along the width axis on
-(B*H, T*W). Softmaxes run in f32. Names follow the upstream within-clip
-module (``q``, ``k``, ``v``, ``proj_q``, ``proj_kv``, ``proj``).
+the query's own-frame aggregation as the query. Everything between the
+q/k/v projections and the output projection is kernel K3
+(``ops/traj.py::trajectory_attention_core``), on every call. The axial layer
+applies it along the height axis on (B*W, T*H) sequences, then along the
+width axis on (B*H, T*W). Names follow the upstream within-clip module
+(``q``, ``k``, ``v``, ``proj_q``, ``proj_kv``, ``proj``).
 """
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norm import LayerNorm
+from ..ops.traj import trajectory_attention_core
 from .convbn import Linear
 
 
@@ -34,32 +35,10 @@ class TrajectoryAttention(nn.Module):
         self.proj = Linear(dim, dim, device=device)
 
     def forward(self, query, key, value, num_frames: int):
-        b, nt, c = query.shape
-        f, h = num_frames, self.num_heads
-        n, d = nt // f, c // h
-        scale = d ** -0.5
-        q = self.q(query).reshape(b, nt, h, d)
-        k = self.k(key).reshape(b, nt, h, d)
-        v = self.v(value).reshape(b, nt, h, d)
-
-        # stage 1: spatial softmax per frame -> per-frame aggregation
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).reshape(b, h, nt, f, n)
-        space_attn = F.softmax((scale * logits).float(), -1).to(v.dtype)
-        traj = torch.einsum("bhqfn,bfnhd->bqfhd", space_attn,
-                            v.reshape(b, f, n, h, d))
-        x = traj.reshape(b, nt, f, c)
-
-        # stage 2: temporal attention along the trajectory; the query is
-        # token s of frame g's own-frame aggregation (the frame diagonal)
-        x_diag = torch.diagonal(x.reshape(b, f, n, f, c), dim1=1, dim2=3)
-        x_diag = x_diag.permute(0, 3, 1, 2).reshape(b, nt, c)
-        q2 = self.proj_q(x_diag).reshape(b, nt, h, d) * scale
-        k2, v2 = self.proj_kv(x).chunk(2, dim=-1)
-        k2 = k2.reshape(b, nt, f, h, d)
-        v2 = v2.reshape(b, nt, f, h, d)
-        t_attn = F.softmax(torch.einsum("bshd,bsfhd->bshf", q2, k2).float(),
-                           -1).to(v2.dtype)
-        out = torch.einsum("bshf,bsfhd->bshd", t_attn, v2).reshape(b, nt, c)
+        out = trajectory_attention_core(
+            self.q(query), self.k(key), self.v(value), self.proj_q.weight,
+            self.proj_q.bias, self.proj_kv.weight, self.proj_kv.bias,
+            num_frames, self.num_heads)
         return self.proj(out)
 
 

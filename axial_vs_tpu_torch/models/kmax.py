@@ -6,7 +6,7 @@ decoder, on channels-last frames (B*T, H, W, 3) that are already normalized
 and padded. Submodule names follow the upstream detectron2 checkpoint:
 ``backbone``, ``sem_seg_head.wc_module``, ``sem_seg_head.pixel_decoder``,
 ``sem_seg_head.predictor``. So far only the within-clip video model with a
-ConvNeXt backbone is ported (no image kMaX, no other backbones).
+ConvNeXt or ResNet backbone is ported (no image kMaX, no other backbones).
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from torch import nn
 
 from ..ops.init import cast_for_inference, init_parameters
 from .backbones.convnext import ConvNeXt
+from .backbones.resnet import ResNet
+from .backbones.resnet import out_channels as resnet_channels
 from .pixel_decoder import KMaXPixelDecoder
 from .transformer_decoder import KMaXTransformerDecoder
 from .wc_module import WithinClipTrackingModule
@@ -48,7 +50,14 @@ class KMaXSegmenter(nn.Module):
 
 
 def build_backbone(cfg, device=None):
+    """(backbone, {res*: channels}) for a ``resnet*`` or ``convnext*``
+    backbone config."""
     name = cfg.model.backbone.name
+    out_features = tuple(cfg.model.backbone.out_features)
+    if name.startswith("resnet"):
+        depth = cfg.model.backbone.resnet.depth
+        return (ResNet(depth, out_features, device=device),
+                resnet_channels(depth))
     if not name.startswith("convnext"):
         raise NotImplementedError(f"backbone {name!r} is not ported yet")
     c = cfg.model.backbone.convnext
@@ -56,19 +65,34 @@ def build_backbone(cfg, device=None):
         raise NotImplementedError("ConvNeXtV2 (GRN) is not ported yet")
     backbone = ConvNeXt(depths=tuple(c.depths), dims=tuple(c.dims),
                         layer_scale_init_value=c.layer_scale_init_value,
-                        out_features=tuple(cfg.model.backbone.out_features),
-                        device=device)
+                        out_features=out_features, device=device)
     channels = {f"res{i + 2}": d for i, d in enumerate(c.dims)}
     return backbone, channels
 
 
-def build_segmenter(cfg, device, generator: torch.Generator,
+def materialize(model: nn.Module, device, generator, dtype):
+    """Allocate a model built on the meta device on ``device``, draw every
+    parameter from ``generator`` and, in bf16, keep the matrices bf16 at
+    rest and the vectors f32. Returns it in eval mode."""
+    if generator is None:
+        raise TypeError("pass a torch.Generator on the model's device: the "
+                        "random weights are drawn from it")
+    model = model.to_empty(device=device)
+    init_parameters(model, generator)
+    if dtype is not None:
+        cast_for_inference(model, dtype)
+    return model.eval()
+
+
+def build_segmenter(cfg, device=torch.device("cuda"),
+                    generator: torch.Generator | None = None,
                     num_frames: int | None = None):
     """Build the inference segmenter from a config tree (attribute access,
     the fields of ``axial_vs_tpu.config.get_default_config()``), on
-    ``device``, with every parameter drawn from ``generator`` (which must
-    live on ``device``). In bf16 the matrices are kept bf16 at rest and the
-    vectors f32."""
+    ``device`` (the card unless the caller asks for another), with every
+    parameter drawn from ``generator`` (required; it must live on
+    ``device``). In bf16 the matrices are kept bf16 at rest and the vectors
+    f32."""
     w = cfg.model.maxtron.wc
     if not w.enable:
         raise NotImplementedError("only the within-clip model is ported")
@@ -100,8 +124,4 @@ def build_segmenter(cfg, device, generator: torch.Generator,
         device=meta)
     model = KMaXSegmenter(backbone, wc_module, pixel_decoder, predictor,
                           dtype=dtype)
-    model = model.to_empty(device=device)
-    init_parameters(model, generator)
-    if dtype is not None:
-        cast_for_inference(model, dtype)
-    return model.eval()
+    return materialize(model, device, generator, dtype)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of the port.
 
-All sources under ``axial_vs_tpu_torch/csrc/`` are compiled by ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+All sources under ``axial_vs_tpu_torch/csrc/`` are compiled by ``nvcc``, one
+process per source in parallel, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The
 build runs at first use, into ``axial_vs_tpu_torch/_build/<hash>/``, keyed by
 a hash of the sources and flags, so a fresh checkout builds everything it
 needs and a second process reuses the library. Nothing here runs at import.
@@ -32,6 +33,9 @@ _SIGNATURES = {
                           ctypes.c_float, _P],
     "axvs_msda_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I,
                       _I, _I, _I, _P],
+    "axvs_traj_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      ctypes.c_float, _P],
+    "axvs_traj_smem_bytes": [_I, _I, _I],
 }
 
 _lib = None
@@ -70,14 +74,31 @@ def library() -> ctypes.CDLL:
         seconds = 0.0
     else:
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libaxvs_kernels.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        tag = os.getpid()
+        # one nvcc per source, all at once; then one link
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        tmp = out_dir / f"libaxvs_kernels.{tag}.tmp.so"
+        link = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                *[str(obj) for _, obj, _ in jobs]]
+        outs = [proc.communicate()[0] for _, _, proc in jobs]  # wait for all
+        log = "".join(outs)
+        for (cmd, _, proc), out in zip(jobs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{log}")
+        for _, obj, _ in jobs:
+            obj.unlink()
         (out_dir / "build.log").write_text(log)
         os.replace(tmp, so)
         seconds = time.perf_counter() - t0

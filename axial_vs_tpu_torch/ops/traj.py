@@ -1,0 +1,133 @@
+"""Middle section of two-stage trajectory attention (kernel K3), forward.
+
+Counterpart of ``axial_vs_tpu/ops/traj_pallas.py::fused_trajectory_attention``
+(its math is ``_traj_math``): everything between the q/k/v projections and
+the output projection of ``layers/trajectory_attention.py``. Per head:
+
+1. a spatial softmax over each frame's n keys (scaled by d^-0.5, in f32),
+   aggregating that frame's values: the trajectory x (B, N, f, C);
+2. the frame diagonal: token s keeps its own frame's aggregation;
+3. the stage-2 projections ``proj_q`` (of the diagonal) and ``proj_kv``
+   (of every frame's aggregation);
+4. a temporal softmax over the f frames (f32) and the weighted sum of v2.
+
+Rounding points are the TPU kernel's: the spatial probabilities are cast to
+the input dtype before the AV product; the AV product and the projections
+accumulate in f32 and are cast once, and the projections then get their bias
+added in the input dtype; the temporal logits, softmax and sum stay in f32,
+with one cast at the end. In f32 every cast is exact.
+
+The CUDA kernel is ``csrc/traj.cu``; ``trajectory_attention_core_plain`` is
+its plain PyTorch version. The wrapper takes the plain version for a tensor
+on the CPU only; a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import native
+
+#: the kernel's limits: head dim, frames, heads (one warp per head), and the
+#: shared memory one block may use on sm_90
+KERNEL_HEAD_DIM = 32
+KERNEL_MAX_FRAMES = 8
+KERNEL_MAX_HEADS = 8
+MAX_SHARED_BYTES = 232448
+#: bound on |kernel - plain| in bf16 ulps of max|out|. Both round at the
+#: same points but sum in another order, so a cast may round the other way:
+#: the output cast by 1 ulp of its value, and a flipped x, q2, k2 or v2
+#: element moves the f32 sum before that cast by much less than 1 ulp (it
+#: enters a convex combination, or one of 256 products). 2 ulp leaves room
+#: for both; it is 2^-6 of max|out| at most.
+TRAJ_ULPS = 2
+
+
+def trajectory_attention_core_plain(q, k, v, wq, bq, wkv, bkv,
+                                    num_frames: int, num_heads: int):
+    """Same contract as ``trajectory_attention_core``: f32 products, the
+    TPU kernel's casts to q's dtype."""
+    b, nt, c = q.shape
+    f, h = num_frames, num_heads
+    n, d = nt // f, c // h
+    scale = d ** -0.5
+    dt = q.dtype
+
+    # stage 1: spatial softmax per frame -> per-frame aggregation
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float().reshape(b, nt, h, d),
+                          k.float().reshape(b, nt, h, d))
+    attn = F.softmax(scale * logits.reshape(b, h, nt, f, n), -1).to(dt)
+    traj = torch.einsum("bhqfn,bfnhd->bqfhd", attn.float(),
+                        v.float().reshape(b, f, n, h, d)).to(dt)
+    x = traj.reshape(b, nt, f, c)
+
+    # stage 2: the query is token s of frame g's own-frame aggregation
+    x_diag = torch.diagonal(x.reshape(b, f, n, f, c), dim1=1, dim2=3)
+    x_diag = x_diag.permute(0, 3, 1, 2).reshape(b, nt, c)
+    q2 = (x_diag.float() @ wq.float().T).to(dt) + bq.to(dt)
+    kv2 = (x.float() @ wkv.float().T).to(dt) + bkv.to(dt)
+    k2, v2 = kv2.chunk(2, dim=-1)
+    q2 = (q2 * scale).float().reshape(b, nt, h, d)
+    t_logits = torch.einsum("bshd,bsfhd->bshf", q2,
+                            k2.float().reshape(b, nt, f, h, d))
+    t_attn = F.softmax(t_logits, -1)
+    out = torch.einsum("bshf,bsfhd->bshd", t_attn,
+                       v2.float().reshape(b, nt, f, h, d))
+    return out.reshape(b, nt, c).to(dt)
+
+
+def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
+                              num_heads: int):
+    """q, k, v (B, N, C) after their projections, tokens frame-major
+    (N = num_frames * n); wq (C, C), bq (C,), wkv (2C, C), bkv (2C,): the
+    ``proj_q`` and ``proj_kv`` Linear parameters in torch's (out, in)
+    layout. Returns (B, N, C) in q's dtype, before the output projection."""
+    b, nt, c = q.shape
+    f, h = int(num_frames), int(num_heads)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} differ")
+    if f <= 0 or nt % f or c % h:
+        raise ValueError(f"N={nt} tokens, C={c}: not {f} frames of whole "
+                         f"rows, or not {h} whole heads")
+    if (wq.shape != (c, c) or bq.shape != (c,) or wkv.shape != (2 * c, c)
+            or bkv.shape != (2 * c,)):
+        raise ValueError("stage-2 weights do not match C")
+    if q.device.type == "cpu":
+        return trajectory_attention_core_plain(q, k, v, wq, bq, wkv, bkv, f, h)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bf16 q, k, v, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("q, k, v must be contiguous and on one device")
+    if c // h != KERNEL_HEAD_DIM or h > KERNEL_MAX_HEADS or f > KERNEL_MAX_FRAMES:
+        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, "
+                         f"at most {KERNEL_MAX_HEADS} heads and "
+                         f"{KERNEL_MAX_FRAMES} frames; got d={c // h}, h={h}, "
+                         f"f={f}")
+    # no-ops for matrices kept bf16 at rest; the biases are cast per call
+    wq, bq, wkv, bkv = (t.to(device=q.device, dtype=torch.bfloat16).contiguous()
+                        for t in (wq, bq, wkv, bkv))
+    tensors = (q, k, v, wq, bq, wkv, bkv)
+    if any(t.data_ptr() % 32 for t in tensors):
+        raise ValueError("the CUDA kernel needs 32-byte aligned tensors")
+    lib = native.library()
+    smem = lib.axvs_traj_smem_bytes(nt // f, f, h)
+    if not 0 < smem <= MAX_SHARED_BYTES:
+        raise ValueError(f"n={nt // f} tokens per frame at f={f} need {smem} B "
+                         f"of shared memory, more than {MAX_SHARED_BYTES}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = lib.axvs_traj_fwd(*(t.data_ptr() for t in tensors),
+                                   out.data_ptr(), b, nt, f, h,
+                                   float((c // h) ** -0.5), stream)
+    native.check(status, "axvs_traj_fwd")
+    trajectory_attention_core.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+trajectory_attention_core.launches = 0

@@ -4,8 +4,11 @@
 ``axial_vs_tpu.models.kmax.build_segmenter`` as nested dicts of numpy arrays
 and returns the ``state_dict`` of ``axial_vs_tpu_torch.models.kmax``'s
 segmenter (the upstream torch layout). It is the inverse of
-``axial_vs_tpu/utils/torch_convert.py::convert_maxtron_wc`` for a ConvNeXt
-backbone. Layout changes:
+``axial_vs_tpu/utils/torch_convert.py::convert_maxtron_wc``; ``resnet`` is
+the inverse of its ``convert_torchvision_resnet``. ``tube_link_vis`` maps
+``axial_vs_tpu.models.tube_link.detector.TubeLinkVIS``'s variables, whose
+names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``). Layout
+changes:
 
 - conv kernels HWIO (kh, kw, I, O) -> OIHW; 1-D (k, I, O) -> (O, I, k);
   a depthwise (7, 7, 1, C) -> (C, 1, 7, 7);
@@ -111,6 +114,27 @@ def convnext(params) -> dict:
         m = re.fullmatch(r"out_norm(\d)", key)
         if m:
             sd.update(_prefix(f"norm{m.group(1)}", _norm(p)))
+    return sd
+
+
+def resnet(params, stats) -> dict:
+    """``params/batch_stats["backbone"]`` of a ResNet -> torchvision names."""
+    def convbn(conv, bn, p, s):
+        return {**_prefix(conv, _conv(p["conv"])),
+                **_prefix(bn, _bn(p["norm"], s["norm"]))}
+
+    sd = convbn("conv1", "bn1", params["stem"], stats["stem"])
+    for key, bp in params.items():
+        m = re.fullmatch(r"res(\d)_block(\d+)", key)
+        if not m:
+            continue
+        pre = f"layer{int(m.group(1)) - 1}.{m.group(2)}"
+        for name, cp in bp.items():
+            i = name[4:]  # conv{i}
+            sd.update(convbn(f"{pre}.downsample.0", f"{pre}.downsample.1",
+                             cp, stats[key][name]) if name == "shortcut"
+                      else convbn(f"{pre}.conv{i}", f"{pre}.bn{i}", cp,
+                                  stats[key][name]))
     return sd
 
 
@@ -284,7 +308,9 @@ def convert_variables(variables) -> dict:
     arrays; ``load_state_dict`` copies them into the model's dtypes)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    sd = _prefix("backbone", convnext(params["backbone"]))
+    backbone = params["backbone"]
+    sd = _prefix("backbone", resnet(backbone, stats["backbone"])
+                 if "stem" in backbone else convnext(backbone))
     if "wc_module" in params:
         sd.update(_prefix("sem_seg_head.wc_module",
                           wc_module(params["wc_module"])))
@@ -293,6 +319,74 @@ def convert_variables(variables) -> dict:
     sd.update(_prefix("sem_seg_head.predictor", transformer_decoder(
         params["transformer_decoder"], stats.get("transformer_decoder", {}))))
     return sd
+
+
+# ---- Tube-Link --------------------------------------------------------------
+
+def tube_link_pixel_decoder(p) -> dict:
+    """``params["head"]["pixel_decoder"]`` (no batch stats)."""
+    sd = {}
+    for key, v in p.items():
+        m = re.fullmatch(r"(input|lateral|output)_(conv|norm)(\d)", key)
+        li = re.fullmatch(r"layer(\d+)_(\w+)", key)
+        if m:
+            kind, part, i = m.groups()
+            name = (f"input_{part}s.{i}" if kind == "input"
+                    else f"{kind}_{part}")
+            sd.update(_prefix(name, _conv(v) if part == "conv" else _norm(v)))
+        elif key in ("level_encoding", "level_3d_encoding"):
+            sd[key] = np.asarray(v)
+        elif key == "mask_feature":
+            sd.update(_prefix(key, _conv(v)))
+        elif li and li.group(2) == "attn":
+            sd.update(_prefix(f"layers.{li.group(1)}.attn", {
+                **msdeform_attn(v), "gamma": np.asarray(v["gamma"]),
+                **_prefix("temporal_encoder",
+                          temporal_encoder(v["temporal_encoder"]))}))
+        elif li:
+            i, name = li.groups()
+            sd.update(_prefix(f"layers.{i}.{name}",
+                              _norm(v) if name.startswith("norm")
+                              else _linear(v)))
+        else:
+            raise KeyError(f"unexpected pixel_decoder entry {key!r}")
+    return sd
+
+
+def _attention(p) -> dict:
+    return {k: v for name in ("q_proj", "k_proj", "v_proj", "out_proj")
+            for k, v in _prefix(name, _linear(p[name])).items()}
+
+
+def tube_link_head(p) -> dict:
+    """``params["head"]`` of ``Mask2FormerVideoHeadTube``."""
+    sd = _prefix("pixel_decoder", tube_link_pixel_decoder(p["pixel_decoder"]))
+    for key, v in p.items():
+        li = re.fullmatch(r"layer(\d+)_(\w+)", key)
+        if key in ("level_embed", "query_feat", "query_embed"):
+            sd[key] = np.asarray(v)
+        elif key == "post_norm":
+            sd.update(_prefix(key, _norm(v)))
+        elif key == "cls_embed" or key.startswith("mask_embed"):
+            sd.update(_prefix(key, _linear(v)))
+        elif li:
+            i, name = li.groups()
+            sd.update(_prefix(
+                f"layers.{i}.{name}",
+                _attention(v) if name.endswith("attn")
+                else _norm(v) if name.startswith("norm") else _linear(v)))
+        elif key != "pixel_decoder":
+            raise KeyError(f"unexpected head entry {key!r}")
+    return sd
+
+
+def tube_link_vis(variables) -> dict:
+    """``TubeLinkVIS`` variables {"params", "batch_stats"} -> port
+    state_dict (ResNet backbone)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    return {**_prefix("backbone", resnet(params["backbone"],
+                                         stats["backbone"])),
+            **_prefix("head", tube_link_head(params["head"]))}
 
 
 def load_into(model, state_dict: dict):

@@ -5,8 +5,9 @@ the fixture, at run time). On a machine with a card and without JAX, run:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance: both sides sum in f32 and round to bf16 once, so they agree to
-within 2 bf16 ulp of the output's largest magnitude.
+Tolerance: both sides sum in f32 and round to bf16 at the same points, so
+they agree to within 2 bf16 ulp of the output's largest magnitude (K3:
+``ops/traj.py::TRAJ_ULPS``, derived there).
 """
 import math
 
@@ -23,9 +24,14 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _bound(want):
+def _ulp(want):
+    """One bf16 ulp at the output's largest magnitude."""
     scale = want.float().abs().max().item()
-    return 2 * 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+    return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
+def _bound(want):
+    return 2 * _ulp(want)
 
 
 @pytest.mark.parametrize("shape", [(2, 24, 42, 1536), (1, 37, 53, 200),
@@ -69,3 +75,38 @@ def test_ms_deform_attn_kernel(gen, d, shapes):
     want = ms_deform_attn_plain(value, shapes, starts, loc, w)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+
+
+def traj_inputs(gen, b, f, n, c=256):
+    """q, k, v (b, f*n, c) ~ N(0, 1) and the stage-2 Linear parameters at
+    their xavier-uniform / U(+-1/sqrt(c)) scales, bf16 matrices."""
+    def u(*shape, bound):
+        return (torch.rand(*shape, generator=gen, device="cuda") * 2 - 1) * bound
+
+    q, k, v = (torch.randn(b, f * n, c, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    wq = u(c, c, bound=(6 / (2 * c)) ** 0.5).bfloat16()
+    wkv = u(2 * c, c, bound=(6 / (3 * c)) ** 0.5).bfloat16()
+    return q, k, v, wq, u(c, bound=c ** -0.5), wkv, u(2 * c, bound=c ** -0.5)
+
+
+@pytest.mark.parametrize("b,f,n", [(48, 2, 84),   # widest within-clip row
+                                   (23, 5, 40),   # widest Tube-Link row
+                                   (40, 5, 23),   # ragged: N = 115
+                                   (3, 3, 7)])    # f = 3, small n
+def test_trajectory_attention_core_kernel(gen, b, f, n):
+    from axial_vs_tpu_torch.ops.traj import (
+        TRAJ_ULPS, trajectory_attention_core, trajectory_attention_core_plain)
+
+    args = traj_inputs(gen, b, f, n)
+    before = trajectory_attention_core.launches
+    got = trajectory_attention_core(*args, f, 8)
+    assert trajectory_attention_core.launches == before + 1
+    want = trajectory_attention_core_plain(*args, f, 8)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TRAJ_ULPS * _ulp(want)
+    q, k, v = (t.float() for t in args[:3])
+    with pytest.raises(TypeError):
+        trajectory_attention_core(q, k, v, *args[3:], f, 8)
+    assert trajectory_attention_core.launches == before + 1

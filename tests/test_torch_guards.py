@@ -1,6 +1,9 @@
 """Guards for the PyTorch port (axial_vs_tpu_torch): the weight converters
 round-trip, the package imports without JAX, CPU tensors take the kernels'
-plain versions without launching anything, and the bf16 segmenter runs."""
+plain versions without launching anything, the builders default to the card,
+the bf16 segmenter and Tube-Link detector run, and chip_smoke.py's configs
+are the benches' configs."""
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -14,8 +17,12 @@ from axial_vs_tpu.utils.torch_convert import (convert_maxtron_wc,
 from axial_vs_tpu_torch.models.kmax import build_segmenter
 from axial_vs_tpu_torch.ops.convnext_cuda import (dwconv7x7_layernorm,
                                                   dwconv7x7_layernorm_plain)
+from axial_vs_tpu_torch.models.tube_link.detector import (
+    TubeLinkVISInference, build_tube_link_vis)
 from axial_vs_tpu_torch.ops.msda import (level_start_index, ms_deform_attn,
                                          ms_deform_attn_plain)
+from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+                                         trajectory_attention_core_plain)
 from axial_vs_tpu_torch.utils.convert import convert_variables
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -98,7 +105,16 @@ def _k2_inputs(rng):
     return value, shapes, level_start_index(shapes), loc, w
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def _k3_inputs(rng):
+    c, f = 64, 3
+    q, k, v = (torch.from_numpy(rng.randn(2, f * 5, c).astype(np.float32))
+               for _ in range(3))
+    w = [torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.1)
+         for s in ((c, c), (c,), (2 * c, c), (2 * c,))]
+    return (q, k, v, *w, f, 8)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_cpu_tensors_take_plain_version(rng, kernel):
     """On CPU tensors a wrapper returns its plain version's result and does
     not count a launch (nothing is built or loaded)."""
@@ -108,6 +124,8 @@ def test_cpu_tensors_take_plain_version(rng, kernel):
         "K1": (dwconv7x7_layernorm, dwconv7x7_layernorm_plain,
                _k1_inputs(rng)),
         "K2": (ms_deform_attn, ms_deform_attn_plain, _k2_inputs(rng)),
+        "K3": (trajectory_attention_core, trajectory_attention_core_plain,
+               _k3_inputs(rng)),
     }[kernel]
     before = wrapper.launches
     torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0, atol=0)
@@ -146,14 +164,8 @@ def test_smoke_config_is_the_bench_config():
     """chip_smoke.py builds bench.py's default configuration from plain
     objects (it imports nothing of the JAX package); every value it sets is
     the one the repo's config tree gives with bench.py's overrides."""
-    import importlib.util
-
     from axial_vs_tpu.config import get_default_config
 
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     cfg = get_default_config()  # bench.py:93-109, the ConvNeXt-L default
     cfg.model.backbone.name = "convnext_large"
     cfg.model.backbone.convnext.depths = [3, 3, 27, 3]
@@ -163,10 +175,88 @@ def test_smoke_config_is_the_bench_config():
     cfg.input.image_size = [769, 1345]
     cfg.input.num_clip_frames = 2
     cfg.model.maxtron.wc.enable = True
-    leaves = dict(_leaves(smoke.wc_convnext_large_config()))
-    assert len(leaves) >= 25
+    _assert_config_leaves(_smoke().wc_convnext_large_config(), cfg, 25)
+
+
+def _smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _assert_config_leaves(plain, cfg, at_least):
+    leaves = dict(_leaves(plain))
+    assert len(leaves) >= at_least
     for path, value in leaves.items():
         node = cfg
         for key in path.split("."):
             node = node[key]
         assert node == value, path
+
+
+def test_smoke_tube_link_config_is_the_bench_config():
+    """chip_smoke.py's Tube-Link R50 configuration is the repo's default
+    config with tools/bench_tube_link.py:38-44's overrides."""
+    from axial_vs_tpu.config import get_default_config
+
+    cfg = get_default_config()
+    cfg.model.meta_architecture = "TubeLinkVIS"
+    cfg.model.backbone.name = "resnet50"
+    cfg.model.num_classes = 40  # YTVIS-19
+    cfg.model.dtype = "bfloat16"
+    cfg.model.tube_link.clip_len = 5
+    cfg.input.num_clip_frames = 5
+    _assert_config_leaves(_smoke().tube_link_r50_config(), cfg, 15)
+
+
+@pytest.mark.parametrize("builder", [build_segmenter, build_tube_link_vis])
+def test_builders_default_to_the_card(builder):
+    """The entry points build on the card unless the caller passes another
+    device, and draw the weights only from a generator they are given."""
+    params = inspect.signature(builder).parameters
+    assert params["device"].default == torch.device("cuda")
+    with pytest.raises(TypeError):
+        builder(_config(), torch.device("cpu"))
+
+
+def _tube_link_config(dtype):
+    from axial_vs_tpu.config import get_default_config
+
+    cfg = get_default_config()
+    cfg.model.backbone.name = "resnet18"
+    cfg.model.backbone.resnet.depth = 18
+    cfg.model.num_classes = 5
+    cfg.model.dtype = dtype
+    tl = cfg.model.tube_link
+    tl.num_queries, tl.feat_channels, tl.out_channels = 8, 32, 32
+    tl.num_decoder_layers = 2
+    cfg.input.num_clip_frames = 3
+    return cfg
+
+
+def test_bf16_tube_link_runs_on_cpu(rng):
+    """The bf16 Tube-Link VIS path end to end at a small size: bf16
+    matrices and f32 vectors at rest, finite bf16 outputs, a whole 7-frame
+    video in 3 tubes (the last one shifted back) with top-k instances."""
+    model = build_tube_link_vis(_tube_link_config("bfloat16"),
+                                torch.device("cpu"),
+                                torch.Generator().manual_seed(0))
+    assert model.backbone.conv1.weight.dtype == torch.bfloat16
+    assert model.backbone.bn1.weight.dtype == torch.float32
+    x = torch.from_numpy(rng.randn(7, 32, 48, 3).astype(np.float32))
+    with torch.inference_mode():
+        out = model(x[:3], return_query=True)
+    assert len(out["cls_preds"]) == 3
+    for k, shape in {"cls_preds": (1, 8, 6), "mask_preds": (1, 3, 8, 8, 12)}.items():
+        v = out[k][-1]
+        assert v.shape == shape and v.dtype == torch.bfloat16
+        assert torch.isfinite(v.float()).all(), k
+    res = TubeLinkVISInference(model, clip_len=3, topk=10).run_video(x)
+    assert res["masks"].shape == (10, 7, 8, 12)
+    assert np.isfinite(res["masks"]).all()
+    assert ((res["labels"] >= 0) & (res["labels"] < 5)).all()
+    assert np.all(res["scores"][:-1] >= res["scores"][1:])

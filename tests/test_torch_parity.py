@@ -349,3 +349,25 @@ def test_segmenter(rng):
     assert got["pred_masks"].shape == (2, 2, 16, 24, 16)
     for k in ("pred_logits", "pred_masks", "pred_mask_embeddings"):
         close(got[k], want[k], TOL_SLICE)
+
+
+def test_segmenter_resnet(rng):
+    """The WC segmenter with a ResNet backbone (``bench.py --backbone
+    resnet50``'s family), here R18 at small widths: no K1 on this path."""
+    from axial_vs_tpu.models.kmax import build_segmenter as jax_build
+    from axial_vs_tpu_torch.models.kmax import build_segmenter
+
+    cfg = small_config()
+    cfg.model.backbone.name = "resnet18"
+    cfg.model.backbone.resnet.depth = 18
+    jm = jax_build(cfg, num_frames=2, train=False)
+    x = rng.randn(4, 65, 97, 3).astype(np.float32)
+    v = jax_init(jm, jnp.asarray(x), train=False)
+    want = jax_apply(jm, v, jnp.asarray(x), train=False)
+    model = build_segmenter(cfg, torch.device("cpu"),
+                            torch.Generator().manual_seed(0), num_frames=2)
+    with torch.no_grad():
+        got = port(model, convert.convert_variables(v))(t(x))
+    assert got["pred_masks"].shape == (2, 2, 17, 25, 16)
+    for k in ("pred_logits", "pred_masks", "pred_mask_embeddings"):
+        close(got[k], want[k], TOL_SLICE)
