@@ -5,9 +5,17 @@ Parameter names follow timm's ConvNeXt (``stem.0``/``stem.1``,
 ``stages.{i}.downsample.{0,1}``, ``stages.{i}.blocks.{j}.{conv_dw, norm,
 mlp.fc1, mlp.fc2, gamma}``) plus the detectron2 per-stage output norms
 ``norm{i}``. The stem is a VALID 4x4/4 conv: trailing rows and columns that
-cannot fill a window are dropped (769x1345 -> 192x336). Each block opens with
-kernel K1 (fused 7x7 depthwise conv + LayerNorm). This is the inference
+cannot fill a window are dropped (769x1345 -> 192x336). This is the inference
 path; the ConvNeXtV2 GRN block is not ported yet.
+
+``block_kernel`` picks a block's route at inference, as the JAX package's env
+gates do (``AXIALVS_FUSED_MLP``, ``AXIALVS_FUSED_BLOCK``, the latter winning):
+- ``"dwln"`` (the default): kernel K1 (fused 7x7 depthwise conv + LayerNorm),
+  then the MLP as two Linear layers;
+- ``"mlp"``: K1, then kernel K5 (the MLP tail with layer scale and residual);
+- ``"block"``: kernel K4, the whole block in one launch.
+The parameters are the same on every route. In training mode every route
+runs ``"dwln"``, as in JAX, where the fused kernels have no gradient.
 """
 from __future__ import annotations
 
@@ -18,9 +26,11 @@ from torch import nn
 
 from ...layers.convbn import Conv, Linear
 from ...ops.act import gelu
-from ...ops.convnext_cuda import dwconv7x7_layernorm
+from ...ops.convnext_cuda import (convnext_block_fused, convnext_mlp_residual,
+                                  dwconv7x7_layernorm)
 from ...ops.norm import LayerNorm
 
+BLOCK_KERNELS = ("dwln", "mlp", "block")
 _TN02 = ("trunc_normal", 0.02)
 _ZERO = ("constant", 0.0)
 
@@ -41,10 +51,14 @@ class ConvNeXtBlock(nn.Module):
     """x + gamma * MLP(LN(dwconv7x7(x))), on (N, H, W, C)."""
 
     def __init__(self, dim: int, layer_scale_init_value: float = 1e-6,
-                 device=None):
+                 block_kernel: str = "dwln", device=None):
         super().__init__()
         if layer_scale_init_value <= 0:
             raise NotImplementedError("blocks without layer scale")
+        if block_kernel not in BLOCK_KERNELS:
+            raise ValueError(f"block_kernel {block_kernel!r} not in "
+                             f"{BLOCK_KERNELS}")
+        self.block_kernel = block_kernel
         self.conv_dw = Conv(dim, dim, 7, padding=3, groups=dim,
                             weight_init=_TN02, device=device)
         self.norm = LayerNorm(dim, eps=1e-6, device=device)
@@ -53,16 +67,25 @@ class ConvNeXtBlock(nn.Module):
         self._inits = {"gamma": ("constant", layer_scale_init_value)}
 
     def forward(self, x):
-        y = dwconv7x7_layernorm(x, self.conv_dw.weight, self.conv_dw.bias,
-                                self.norm.weight, self.norm.bias,
-                                eps=self.norm.eps)
+        route = "dwln" if self.training else self.block_kernel
+        dw, norm, fc1, fc2 = self.conv_dw, self.norm, self.mlp.fc1, self.mlp.fc2
+        if route == "block":
+            return convnext_block_fused(
+                x, dw.weight, dw.bias, norm.weight, norm.bias, fc1.weight,
+                fc1.bias, fc2.weight, fc2.bias, self.gamma, eps=norm.eps)
+        y = dwconv7x7_layernorm(x, dw.weight, dw.bias, norm.weight, norm.bias,
+                                eps=norm.eps)
+        if route == "mlp":
+            return convnext_mlp_residual(y, x, fc1.weight, fc1.bias,
+                                         fc2.weight, fc2.bias, self.gamma)
         y = self.mlp(y)
         return x + y * self.gamma.to(y.dtype)
 
 
 class ConvNeXtStage(nn.Module):
     def __init__(self, in_dim: int, dim: int, depth: int,
-                 layer_scale_init_value: float, downsample: bool, device=None):
+                 layer_scale_init_value: float, downsample: bool,
+                 block_kernel: str = "dwln", device=None):
         super().__init__()
         if downsample:
             self.downsample = nn.Sequential(
@@ -72,7 +95,8 @@ class ConvNeXtStage(nn.Module):
         else:
             self.downsample = nn.Identity()
         self.blocks = nn.Sequential(*[
-            ConvNeXtBlock(dim, layer_scale_init_value, device=device)
+            ConvNeXtBlock(dim, layer_scale_init_value, block_kernel,
+                          device=device)
             for _ in range(depth)])
 
     def forward(self, x):
@@ -86,7 +110,7 @@ class ConvNeXt(nn.Module):
                  dims: Sequence[int] = (96, 192, 384, 768),
                  layer_scale_init_value: float = 1e-6,
                  out_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
-                 device=None):
+                 block_kernel: str = "dwln", device=None):
         super().__init__()
         self.out_features = tuple(out_features)
         self.stem = nn.Sequential(
@@ -96,7 +120,7 @@ class ConvNeXt(nn.Module):
         self.stages = nn.ModuleList([
             ConvNeXtStage(dims[max(i - 1, 0)], dims[i], depths[i],
                           layer_scale_init_value, downsample=i > 0,
-                          device=device)
+                          block_kernel=block_kernel, device=device)
             for i in range(4)])
         for i in range(4):
             if f"res{i + 2}" in self.out_features:

@@ -49,9 +49,11 @@ class KMaXSegmenter(nn.Module):
         return head.predictor(multi_scale, pano, dtype=self.dtype)
 
 
-def build_backbone(cfg, device=None):
+def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
     """(backbone, {res*: channels}) for a ``resnet*`` or ``convnext*``
-    backbone config."""
+    backbone config. ``block_kernel`` is the ConvNeXt blocks' route at
+    inference (``"dwln"``, ``"mlp"`` or ``"block"``, see
+    ``backbones/convnext.py``); a ResNet has no such blocks."""
     name = cfg.model.backbone.name
     out_features = tuple(cfg.model.backbone.out_features)
     if name.startswith("resnet"):
@@ -65,7 +67,8 @@ def build_backbone(cfg, device=None):
         raise NotImplementedError("ConvNeXtV2 (GRN) is not ported yet")
     backbone = ConvNeXt(depths=tuple(c.depths), dims=tuple(c.dims),
                         layer_scale_init_value=c.layer_scale_init_value,
-                        out_features=out_features, device=device)
+                        out_features=out_features, block_kernel=block_kernel,
+                        device=device)
     channels = {f"res{i + 2}": d for i, d in enumerate(c.dims)}
     return backbone, channels
 
@@ -86,20 +89,24 @@ def materialize(model: nn.Module, device, generator, dtype):
 
 def build_segmenter(cfg, device=torch.device("cuda"),
                     generator: torch.Generator | None = None,
-                    num_frames: int | None = None):
+                    num_frames: int | None = None, *,
+                    block_kernel: str = "dwln"):
     """Build the inference segmenter from a config tree (attribute access,
     the fields of ``axial_vs_tpu.config.get_default_config()``), on
     ``device`` (the card unless the caller asks for another), with every
     parameter drawn from ``generator`` (required; it must live on
     ``device``). In bf16 the matrices are kept bf16 at rest and the vectors
-    f32."""
+    f32. ``block_kernel`` is the ConvNeXt blocks' route at inference:
+    ``"dwln"`` (K1 + two Linear layers, the default), ``"mlp"`` (K1 + K5) or
+    ``"block"`` (K4)."""
     w = cfg.model.maxtron.wc
     if not w.enable:
         raise NotImplementedError("only the within-clip model is ported")
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
     t = num_frames or cfg.input.num_clip_frames
     meta = torch.device("meta")
-    backbone, channels = build_backbone(cfg, device=meta)
+    backbone, channels = build_backbone(cfg, device=meta,
+                                        block_kernel=block_kernel)
     wc_module = WithinClipTrackingModule(
         channels, conv_dims=w.conv_dims, nheads=w.nheads,
         dim_feedforward=w.dim_feedforward, num_stages=w.num_stages,

@@ -43,3 +43,18 @@ def resize_bilinear(x, size, align_corners: bool = False):
     """Resize the (H, W) axes of a channels-last ``(..., H, W, C)`` tensor."""
     x = _interp_axis(x, x.ndim - 3, int(size[0]), align_corners)
     return _interp_axis(x, x.ndim - 2, int(size[1]), align_corners)
+
+
+def resize_bilinear_np(x: np.ndarray, size, align_corners: bool = False) -> np.ndarray:
+    """Host (numpy) version of ``resize_bilinear`` for preprocessing: the
+    same coordinate rules on a ``(..., H, W, C)`` array, blended in its
+    dtype."""
+    for axis, out in ((x.ndim - 3, int(size[0])), (x.ndim - 2, int(size[1]))):
+        if x.shape[axis] == out:
+            continue
+        lo, hi, w_hi = _axis_weights(x.shape[axis], out, align_corners)
+        shape = [1] * x.ndim
+        shape[axis] = out
+        w = w_hi.reshape(shape).astype(x.dtype)
+        x = np.take(x, lo, axis=axis) * (1 - w) + np.take(x, hi, axis=axis) * w
+    return x

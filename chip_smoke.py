@@ -7,16 +7,26 @@ Phases, in order; any failure exits non-zero before the last line:
   3. K1      - dwconv7x7+LayerNorm kernel against its plain version
   4. K2      - deformable-attention kernel against its plain version
   5. K3      - trajectory-attention kernel against its plain version
-  6. WC slice - the ConvNeXt-L within-clip (WC) forward at 769x1345, T=2,
+  6. K5, K4  - the fused ConvNeXt MLP tail and the fused ConvNeXt block
+               against their plain versions at the four ConvNeXt-L stage
+               shapes, beside the default route's eager chain
+  7. WC slice - the ConvNeXt-L within-clip (WC) forward at 769x1345, T=2,
                bf16, random weights from a seed: 3 clips, finite outputs,
                and the kernel launch counts of that run
-  7. WC reference - the same weights on a small clip, the card's bf16 run
+  8. WC reference - the same weights on a small clip, the card's bf16 run
                against an f32 run of the plain versions on the CPU
-  8. Tube-Link slice - the Tube-Link R50 VIS inference at 360x640, tubes of
+  9. VIPSeg eval - the same model built on the fused-block route (K4):
+               ``evaluate_vipseg`` on two synthetic 720x1280 VIPSeg-format
+               videos (6 and 18 frames), VPQ@{1,2,4,6} and STQ in [0, 1],
+               the id maps, and the launch counts of that run
+ 10. mlp route - one clip through the model built on the K1 + K5 route
+ 11. fused references - both fused routes on the small clip against the
+               f32 CPU run of the plain versions
+ 12. Tube-Link slice - the Tube-Link R50 VIS inference at 360x640, tubes of
                5 frames, bf16, random weights from a seed: a 15-frame video
                (3 tubes) through ``TubeLinkVISInference.run_video``, 30
                instances, and the launch counts of that run
-  9. Tube-Link reference - the pixel decoder on a small tube, the card's
+ 13. Tube-Link reference - the pixel decoder on a small tube, the card's
                bf16 run against an f32 run of the plain versions on the CPU
 The line before the last is one JSON object with each kernel's route,
 source, launches, error, times and bound; the last line is
@@ -28,15 +38,19 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 T, H, W = 2, 769, 1345  # 2-frame clips at the VIPSeg eval size
 CONVNEXT_L_DEPTHS = (3, 3, 27, 3)
+CONVNEXT_L_BLOCKS = sum(CONVNEXT_L_DEPTHS)  # K1, K4 or K5 calls per clip
 KERNEL_SHAPES_K1 = [  # (N, H, W, C): the four ConvNeXt-L stages at 769x1345
     (2, 192, 336, 192), (2, 96, 168, 384), (2, 48, 84, 768), (2, 24, 42, 1536),
     (1, 37, 53, 200),  # odd H and W, C not a power of two
@@ -68,11 +82,35 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
 
 
-def bound_ms(flops: float, nbytes: float, peak: float):
+def bound_ms(flops: float, nbytes: float, peak: float, f32_flops: float = 0.0):
     """(least ms, what bounds it): the larger of the operations over the
-    peak rate of their type and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    peak rate of their type and the bytes over the memory rate. Work of two
+    types (``flops`` at ``peak`` and ``f32_flops`` on the CUDA cores) may
+    overlap, so the slower type alone bounds the operations."""
+    t_ops = max(flops / peak, f32_flops / PEAK_F32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def counted_kernels():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        convnext_block_fused, convnext_mlp_residual, dwconv7x7_layernorm)
+    from axial_vs_tpu_torch.ops.msda import ms_deform_attn
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    return {"K1": dwconv7x7_layernorm, "K2": ms_deform_attn,
+            "K3": trajectory_attention_core, "K4": convnext_block_fused,
+            "K5": convnext_mlp_residual}
+
+
+def reset_counts():
+    for fn in counted_kernels().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counted_kernels().items()}
 
 
 def cuda_ms(torch, fn, launches: int = 10, repeats: int = 5) -> float:
@@ -302,14 +340,112 @@ def phase_k3(torch, gen):
                                 totals["wc"][:3]))}
 
 
+def _mlp_params(torch, gen, c):
+    """The block MLP's parameters at unit-variance-preserving scales, bf16
+    matrices in torch's (out, in) layout; gamma ~ U(-1, 1), so that the
+    residual does not hide the kernel's work (at the upstream 1e-6 it would)."""
+    def r(*shape, scale):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    w1 = r(4 * c, c, scale=c ** -0.5).bfloat16()
+    w2 = r(c, 4 * c, scale=(4 * c) ** -0.5).bfloat16()
+    gamma = torch.rand(c, generator=gen, device="cuda") * 2 - 1
+    return w1, r(4 * c, scale=0.1), w2, r(c, scale=0.1), gamma
+
+
+def _default_chain(F, gelu, y, x, w1, b1, w2, b2, gamma):
+    """The default route's MLP tail, as ``ConvNeXtBlock`` runs it eagerly:
+    F.linear, gelu, F.linear, then the scaled residual."""
+    h = gelu(F.linear(y, w1, b1.to(y.dtype)))
+    return x + F.linear(h, w2, b2.to(y.dtype)) * gamma.to(y.dtype)
+
+
+def _mlp_work(n, h, w, c, block: bool):
+    """(bf16 tensor-core FLOPs, f32 FLOPs, bytes) of one K5 or K4 call: x
+    (and for K5 the shortcut) read once, out written once, the bf16 weights
+    and f32 vectors read once; K4 adds the 7x7 taps and the LayerNorm."""
+    p = n * h * w
+    flops = 16 * p * c * c
+    if block:
+        return (flops, (2 * 49 + 10) * p * c,
+                2 * p * c * 2 + 16 * c * c + 49 * c * 2 + 9 * c * 4)
+    return flops, 0, 3 * p * c * 2 + 16 * c * c + 6 * c * 4
+
+
+def phase_k4_k5(torch, gen):
+    """K5 and K4 at the four ConvNeXt-L stage shapes. Returns their result
+    dicts, per clip (36 calls)."""
+    import torch.nn.functional as F
+
+    from axial_vs_tpu_torch.ops.act import gelu
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        convnext_block_fused, convnext_block_fused_plain, convnext_mlp_residual,
+        convnext_mlp_residual_plain, dwconv7x7_layernorm)
+
+    rows = {"K5": [], "K4": []}
+    for n, h, w, c in KERNEL_SHAPES_K1[:4]:
+        x, sc = (torch.randn(n, h, w, c, generator=gen, device="cuda").bfloat16()
+                 for _ in range(2))
+        wt = (torch.randn(c, 1, 7, 7, generator=gen, device="cuda") * 0.1).bfloat16()
+        dw = (wt, *(torch.randn(c, generator=gen, device="cuda") * 0.1
+                    + (1.0 if i == 1 else 0.0) for i in range(3)))
+        mlp = _mlp_params(torch, gen, c)
+        cases = {
+            "K5": (lambda: convnext_mlp_residual(x, sc, *mlp),
+                   lambda: convnext_mlp_residual_plain(x, sc, *mlp),
+                   lambda: _default_chain(F, gelu, x, sc, *mlp)),
+            "K4": (lambda: convnext_block_fused(x, *dw, *mlp),
+                   lambda: convnext_block_fused_plain(x, *dw, *mlp),
+                   lambda: _default_chain(F, gelu, dwconv7x7_layernorm(x, *dw),
+                                          x, *mlp)),
+        }
+        for key, (kernel, plain, chain) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            bound = 2 * bf16_ulp(scale)  # f32 sums reassociated, same casts
+            ms = cuda_ms(torch, kernel)
+            plain_ms = cuda_ms(torch, plain, launches=3)
+            chain_ms = cuda_ms(torch, chain)
+            work = _mlp_work(n, h, w, c, key == "K4")
+            call_bound, by = bound_ms(work[0], work[2], PEAK_BF16, work[1])
+            log(f"{key} {(n, h, w, c)}: max_abs_err {err:.6g} (bound 2 bf16 ulp "
+                f"of max|out| {scale:.4g} = {bound:.6g}); kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, default route's chain {chain_ms:.4f} "
+                f"ms, bound {call_bound:.4f} ms ({by}, {work[0] / 1e9:.1f} "
+                f"GFLOP, {work[2] / 1e6:.1f} MB)")
+            if not (err <= bound and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{key} disagrees at {(n, h, w, c)}")
+            rows[key].append((err, ms, plain_ms, chain_ms, call_bound, by))
+    out = {}
+    for key, r in rows.items():
+        ms, plain_ms, chain_ms, bound = (
+            sum(d * t[i] for d, t in zip(CONVNEXT_L_DEPTHS, r)) for i in (1, 2, 3, 4))
+        by = {t[5] for t in r}
+        log(f"{key} per clip (3/3/27/3 calls at the stage shapes): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, default route's chain "
+            f"{chain_ms:.4f} ms, bound {bound:.4f} ms ({'/'.join(sorted(by))})")
+        out[key] = {"max_abs_err": max(t[0] for t in r), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": "operations" if by == {"operations"} else "bytes",
+                    "library_ms": None, "default_route_ms": chain_ms,
+                    "per": f"WC clip ({CONVNEXT_L_BLOCKS} calls)"}
+    return out["K5"], out["K4"]
+
+
 def wc_convnext_large_config():
     """The configuration ``bench.py`` builds by default (the repo's default
     config with bench.py's overrides), as plain objects: ConvNeXt-L, the
-    within-clip module, the kMaX decoders, 124 VIPSeg classes, bf16."""
+    within-clip module, the kMaX decoders, 124 VIPSeg classes, bf16, and
+    the default input normalisation and video test thresholds that
+    ``evaluate_vipseg`` reads."""
     from types import SimpleNamespace as N
 
     return N(
-        input=N(num_clip_frames=T, image_size=[H, W]),
+        input=N(num_clip_frames=T, image_size=[H, W],
+                pixel_mean=[123.675, 116.28, 103.53],
+                pixel_std=[58.395, 57.12, 57.375]),
         model=N(
             dtype="bfloat16", num_classes=124,
             backbone=N(name="convnext_large",
@@ -324,7 +460,13 @@ def wc_convnext_large_config():
                            temporal_attn_type="axial_trajectory",
                            spatial_in_features=["res3", "res4", "res5"],
                            temporal_in_features=["res4", "res5"],
-                           enc_n_points=4)),
+                           enc_n_points=4),
+                       test=N(pixel_confidence_threshold=0.3,
+                              class_threshold_thing=0.1,
+                              class_threshold_stuff=0.3,
+                              overlap_threshold=0.8, reorder_class_weight=1.0,
+                              reorder_mask_weight=1.0, mem_weight=0.0,
+                              cost_limit=0.5)),
             kmax=N(pixel_dec=N(in_features=["res2", "res3", "res4", "res5"],
                                dec_layers=[1, 5, 1, 1],
                                dec_channels=[512, 256, 128, 64],
@@ -351,9 +493,6 @@ REFERENCE_BOUND = 0.1
 def phase_slice(torch):
     """Returns the launch counts of the 3-clip run."""
     from axial_vs_tpu_torch.models.kmax import build_segmenter
-    from axial_vs_tpu_torch.ops.convnext_cuda import dwconv7x7_layernorm
-    from axial_vs_tpu_torch.ops.msda import ms_deform_attn
-    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -375,18 +514,14 @@ def phase_slice(torch):
         torch.cuda.synchronize()
         log(f"slice: warm-up clip {time.perf_counter() - t0:.2f} s")
         torch.cuda.reset_peak_memory_stats()
-        dwconv7x7_layernorm.launches = 0
-        ms_deform_attn.launches = 0
-        trajectory_attention_core.launches = 0
+        reset_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         outs = [model(x) for x in clips]
         end.record()
         end.synchronize()
-        launches = {"K1": dwconv7x7_layernorm.launches,
-                    "K2": ms_deform_attn.launches,
-                    "K3": trajectory_attention_core.launches}
+        launches = read_counts()
     ms = start.elapsed_time(end)
     for i, out in enumerate(outs):
         for k, shape in OUTPUT_SHAPES.items():
@@ -402,8 +537,8 @@ def phase_slice(torch):
         raise AssertionError("distinct clips gave identical pred_masks")
     log(f"slice: 3 clips of {T}x{H}x{W}: outputs finite, shapes "
         f"{[OUTPUT_SHAPES[k] for k in OUTPUTS]}")
-    want = {"K1": sum(CONVNEXT_L_DEPTHS) * 3, "K2": 2 * 3,
-            "K3": 4 * K3_WC_CALLS * 3}
+    want = {"K1": CONVNEXT_L_BLOCKS * 3, "K2": 2 * 3,
+            "K3": 4 * K3_WC_CALLS * 3, "K4": 0, "K5": 0}
     log(f"slice: launches in the 3-clip run: {launches} (want {want})")
     log(f"slice (informational): {3 * T / (ms / 1000):.3f} frames/s "
         f"({ms / 3:.2f} ms per clip, CUDA events, batch of 1 clip, eager); "
@@ -413,41 +548,295 @@ def phase_slice(torch):
     return model, launches
 
 
-def phase_reference(torch, model):
-    """A small clip through a copy of the model on the card (bf16, kernels)
-    and in f32 on the CPU (the kernels' plain versions). In the copy the
-    ConvNeXt layer scales (1e-6 at init) are set to 0.1, so that K1's
-    branch reaches the outputs; K2's does at the upstream inits."""
+def phase_reference(torch, models):
+    """A small clip through copies of the models on the card (bf16,
+    kernels) and in f32 on the CPU (the kernels' plain versions), once per
+    ``(route, model)`` in ``models``. The models share their weights, so one
+    CPU run of the first one's route is the reference of all (the fused
+    routes compute the same function: K1 then K5 is K4). In the copies the
+    ConvNeXt layer scales (1e-6 at init) are set to 0.1, so that the block
+    kernels' work reaches the outputs; K2's does at the upstream inits.
+    Returns {route: {output: max |diff| / max |ref|}}."""
     import copy
 
     from axial_vs_tpu_torch.models.backbones.convnext import ConvNeXtBlock
 
-    dev = torch.device("cuda")
-    card_model = copy.deepcopy(model)
-    with torch.no_grad():
-        for m in card_model.modules():
-            if isinstance(m, ConvNeXtBlock):
-                m.gamma.fill_(0.1)
-    ref_model = copy.deepcopy(card_model).float().cpu()
+    def scaled(model):
+        card = copy.deepcopy(model)
+        with torch.no_grad():
+            for m in card.modules():
+                if isinstance(m, ConvNeXtBlock):
+                    m.gamma.fill_(0.1)
+        return card
+
+    first = models[0][1].state_dict()
+    for route, model in models[1:]:
+        if any(not torch.equal(v, first[k]) for k, v in model.state_dict().items()):
+            raise AssertionError(f"the {route} model's weights differ")
+    ref_model = scaled(models[0][1]).float().cpu()
     ref_model.dtype = None
-    g = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn(T, 129, 193, 3, generator=g, device=dev)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(T, 129, 193, 3, generator=g, device="cuda")
     with torch.inference_mode():
-        got = card_model(x)
         want = ref_model(x.cpu())
-    worst = {}
-    for k in OUTPUTS:
-        a, b = got[k].float().cpu(), want[k]
-        if a.shape != b.shape:
-            raise AssertionError(f"reference {k}: {a.shape} != {b.shape}")
-        worst[k] = ((a - b).abs().max() / b.abs().max().clamp_min(1e-6)).item()
-    log("reference (129x193 clip, card bf16 vs CPU f32 plain versions): "
-        "max |diff| / max |ref| " + ", ".join(
-            f"{k} {v:.4g}" for k, v in worst.items())
-        + f"; bound {REFERENCE_BOUND}")
-    for k, v in worst.items():
-        if not v <= REFERENCE_BOUND:
-            raise AssertionError(f"reference {k}: {v:.4g} > {REFERENCE_BOUND}")
+    del ref_model
+    results = {}
+    for route, model in models:
+        card_model = scaled(model)
+        with torch.inference_mode():
+            got = card_model(x)
+        del card_model
+        worst = {}
+        for k in OUTPUTS:
+            a, b = got[k].float().cpu(), want[k]
+            if a.shape != b.shape:
+                raise AssertionError(f"reference {k}: {a.shape} != {b.shape}")
+            worst[k] = ((a - b).abs().max() / b.abs().max().clamp_min(1e-6)).item()
+        log(f"reference, {route} route (129x193 clip, card bf16 vs CPU f32 "
+            "plain versions): max |diff| / max |ref| " + ", ".join(
+                f"{k} {v:.4g}" for k, v in worst.items())
+            + f"; bound {REFERENCE_BOUND}")
+        for k, v in worst.items():
+            if not v <= REFERENCE_BOUND:
+                raise AssertionError(f"reference {route} {k}: {v:.4g} > "
+                                     f"{REFERENCE_BOUND}")
+        results[route] = worst
+    return results
+
+
+EVAL_HW = (720, 1280)      # VIPSeg's common frame size
+EVAL_LENGTHS = (6, 18)     # frames per video; 18 > 16 takes the windowed path
+EVAL_CLIPS = 3 + 8 + 1     # clips of 2: 6 frames; windows of 16 and 2 frames
+VIPSEG_CLASSES, VIPSEG_THINGS = 124, 58
+EVAL_THING, EVAL_STUFF = 3, 100  # the synthetic videos' categories
+
+
+def write_vipseg_videos(root: str, seed: int = 0):
+    """Synthetic VIPSeg-format videos from a seed, as the repo's test
+    fixture draws them: a moving thing box (segment 1) and a static thing
+    (segment 4) over a stuff background (segment 2) on a noise image; jpg
+    frames, panoptic pngs (``id2rgb``) and a panoVIPSeg JSON with 124
+    categories (0-57 things, as many as VIPSeg has). Returns the roots and
+    the JSON path, and the categories."""
+    from PIL import Image
+
+    from axial_vs_tpu_torch.data.panoptic_utils import id2rgb
+
+    rng = np.random.RandomState(seed)
+    h, w = EVAL_HW
+    img_root, pan_root = os.path.join(root, "imgs"), os.path.join(root, "panomasks")
+    videos = []
+    for v, n_frames in enumerate(EVAL_LENGTHS):
+        vid = f"video{v}"
+        os.makedirs(os.path.join(img_root, vid))
+        os.makedirs(os.path.join(pan_root, vid))
+        base = rng.randint(0, 160, (h, w, 3)).astype(np.uint8)
+        images, annotations = [], []
+        for f in range(n_frames):
+            img, pan = base.copy(), np.full((h, w), 2, np.int32)
+            x0, y0 = (40 + 25 * f + 60 * v) % (w - 220), (60 + 12 * f) % (h - 260)
+            img[y0:y0 + 240, x0:x0 + 200] = [200, 60 + (10 * f) % 19, 40]
+            pan[y0:y0 + 240, x0:x0 + 200] = 1
+            img[50:170, w - 260:w - 60] = [30, 200, 180]
+            pan[50:170, w - 260:w - 60] = 4
+            Image.fromarray(img).save(os.path.join(img_root, vid, f"{f:05d}.jpg"),
+                                      quality=90)
+            Image.fromarray(id2rgb(pan)).save(
+                os.path.join(pan_root, vid, f"{f:05d}.png"))
+            images.append(dict(id=f"{vid}_{f}", file_name=f"{f:05d}.jpg",
+                               height=h, width=w))
+            annotations.append(dict(
+                image_id=f"{vid}_{f}", file_name=f"{f:05d}.png", segments_info=[
+                    dict(id=1, category_id=EVAL_THING, iscrowd=0, isthing=True),
+                    dict(id=4, category_id=EVAL_THING, iscrowd=0, isthing=True),
+                    dict(id=2, category_id=EVAL_STUFF, iscrowd=0, isthing=False)]))
+        videos.append(dict(video_id=vid, images=images, annotations=annotations))
+    categories = [dict(id=i, name=f"class{i}", isthing=int(i < VIPSEG_THINGS))
+                  for i in range(VIPSEG_CLASSES)]
+    json_file = os.path.join(root, "panoVIPSeg_val.json")
+    with open(json_file, "w") as f:
+        json.dump(dict(videos=videos, categories=categories), f)
+    return (img_root, pan_root, json_file), categories
+
+
+#: share of the pixels on which the card's id map must equal the CPU's: a
+#: pixel whose slot probability lies within f32 rounding of the pixel
+#: threshold may flip
+FINALIZE_AGREEMENT = 0.999
+
+
+def check_finalize(torch, cfg, model, name: str):
+    """The finalize of ``evaluate_vipseg``'s pipeline (resize to the frame
+    size, panoptic inference, dataset-id remap) on the card against the
+    same pipeline on the CPU, on clip outputs drawn from a seed at the
+    eval's sizes: blob-shaped mask logits and 24 slots of a confident class,
+    so that segments are accepted, merged and rejected."""
+    import torch.nn.functional as F
+
+    from axial_vs_tpu_torch.engine.evaluator_loop import wc_pipeline
+
+    card = wc_pipeline(cfg, model, name)
+    host = wc_pipeline(cfg, torch.nn.Linear(1, 1), name)  # only its finalize runs
+    g = torch.Generator().manual_seed(8)
+    _, n, k = OUTPUT_SHAPES["pred_logits"]
+    logits = torch.randn(n, k, generator=g) * 2
+    logits[torch.arange(24), torch.randint(0, k - 1, (24,), generator=g)] += 10
+    coarse = torch.randn(T, n, 24, 42, generator=g) * 4
+    masks = F.interpolate(coarse, size=OUTPUT_SHAPES["pred_masks"][2:4],
+                          mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    got, _ = card._finalize(logits.cuda(), masks.cuda(), EVAL_HW, EVAL_HW)
+    want, _ = host._finalize(logits, masks, EVAL_HW, EVAL_HW)
+    got = got.cpu()
+    agree = (got == want).double().mean().item()
+    segments = [len(torch.unique(ids[ids >= 0])) for ids in (got, want)]
+    log(f"eval: finalize of drawn outputs at {T}x{EVAL_HW[0]}x{EVAL_HW[1]}, card "
+        f"against CPU: {segments[0]} and {segments[1]} segments, id maps equal "
+        f"on {agree:.6f} of the pixels (bound {FINALIZE_AGREEMENT})")
+    if tuple(got.shape) != (T,) + EVAL_HW or min(segments) < 3 \
+            or not agree >= FINALIZE_AGREEMENT:
+        raise AssertionError("the card's finalize disagrees with the CPU's")
+
+
+def phase_eval(torch, root: str):
+    """``evaluate_vipseg`` over the two synthetic videos with the full-size
+    model on the fused-block route. Returns the model and the launch
+    counts."""
+    from types import SimpleNamespace as N
+
+    from PIL import Image
+
+    from axial_vs_tpu_torch.data.vipseg import (register_vipseg_video,
+                                                set_panoptic_metadata)
+    from axial_vs_tpu_torch.engine.evaluator_loop import evaluate_vipseg
+    from axial_vs_tpu_torch.models.kmax import build_segmenter
+    from axial_vs_tpu_torch.models.video_inference import WCInferencePipeline
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    paths, categories = write_vipseg_videos(os.path.join(root, "vipseg"))
+    name = "chip_smoke_vipseg_val"
+    set_panoptic_metadata(register_vipseg_video(name, *paths), categories)
+    cfg = wc_convnext_large_config()
+    cfg.datasets = N(test=[name])
+    cfg.output_dir = os.path.join(root, "eval_out")
+    log(f"eval: wrote {len(EVAL_LENGTHS)} videos of {EVAL_LENGTHS} frames at "
+        f"{EVAL_HW[0]}x{EVAL_HW[1]}, {time.perf_counter() - t0:.2f} s")
+    model = build_segmenter(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                            num_frames=T, block_kernel="block")
+    with torch.inference_mode():
+        model(torch.zeros(T, H, W, 3, device=dev))  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # CUDA events around each clip forward and each finalize (informational)
+    spans = {"_clip_forward": [], "_finalize": []}
+    originals = {k: getattr(WCInferencePipeline, k) for k in spans}
+
+    def timed(key):
+        def wrapper(self, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[key](self, *args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return wrapper
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for key in spans:
+        setattr(WCInferencePipeline, key, timed(key))
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = evaluate_vipseg(cfg, model, compute_stq=True)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for key, fn in originals.items():
+            setattr(WCInferencePipeline, key, fn)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    forward_ms, finalize_ms = (sum(a.elapsed_time(b) for a, b in spans[k])
+                               for k in ("_clip_forward", "_finalize"))
+
+    values = {"vpq": res["vpq"], "stq": res["stq"]["STQ"],
+              **{f"vpq@{k}": res["per_window"][k]["all"]["pq"]
+                 for k in sorted(res["per_window"])}}
+    if set(res["per_window"]) != {1, 2, 4, 6}:
+        raise AssertionError(f"windows {sorted(res['per_window'])}")
+    for k, v in values.items():
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"eval: {k} = {v}")
+    n_segments = 0
+    for v, n_frames in enumerate(EVAL_LENGTHS):
+        vdir = os.path.join(cfg.output_dir, "pan_pred", f"video{v}")
+        pngs = sorted(p for p in os.listdir(vdir) if p.endswith(".png"))
+        maps = [np.asarray(Image.open(os.path.join(vdir, p))) for p in pngs]
+        if len(maps) != n_frames or any(m.shape != EVAL_HW + (3,) for m in maps):
+            raise AssertionError(f"video{v}: id maps {[m.shape for m in maps]}")
+        with open(os.path.join(vdir, "pred.json")) as f:
+            n_segments += sum(len(a["segments_info"]) for a in json.load(f)["annotations"])
+    frames = sum(EVAL_LENGTHS)
+    # at the upstream inits no class passes its threshold, so the id maps
+    # above are all void; the finalize is held to the CPU on drawn outputs
+    check_finalize(torch, cfg, model, name)
+    want = {"K1": 0, "K2": 2 * EVAL_CLIPS, "K3": 4 * K3_WC_CALLS * EVAL_CLIPS,
+            "K4": CONVNEXT_L_BLOCKS * EVAL_CLIPS, "K5": 0}
+    log("eval: " + ", ".join(f"{k} {v:.6g}" for k, v in values.items())
+        + f"; id maps ({frames} frames) of {EVAL_HW[0]}x{EVAL_HW[1]}, "
+        f"{n_segments} predicted segment-frames")
+    log(f"eval: launches in the evaluation: {launches} (want {want})")
+    total_ms = start.elapsed_time(end)
+    log(f"eval (informational): {frames / wall:.3f} frames/s wall "
+        f"({wall:.3f} s; CUDA events {total_ms:.2f} ms), forward "
+        f"{forward_ms / EVAL_CLIPS:.2f} ms per clip ({EVAL_CLIPS} clips, "
+        f"{forward_ms / total_ms:.3f} of the evaluation), finalize "
+        f"{finalize_ms:.2f} ms in {len(spans['_finalize'])} calls "
+        f"({finalize_ms / total_ms:.3f} of it), peak memory {peak:.3f} GiB")
+    if launches != want:
+        raise AssertionError(f"kernel launch counts {launches}")
+    return model, launches
+
+
+def phase_mlp_route(torch):
+    """One clip through the full-size model built on the K1 + K5 route.
+    Returns the model and the launch counts."""
+    from axial_vs_tpu_torch.models.kmax import build_segmenter
+
+    dev = torch.device("cuda")
+    model = build_segmenter(wc_convnext_large_config(), dev,
+                            torch.Generator(device=dev).manual_seed(0),
+                            num_frames=T, block_kernel="mlp")
+    x = torch.randn(T, H, W, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.inference_mode():
+        model(x)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model(x)
+        end.record()
+        end.synchronize()
+        launches = read_counts()
+    for k, shape in OUTPUT_SHAPES.items():
+        v = out[k]
+        if tuple(v.shape) != shape or not torch.isfinite(v.float()).all():
+            raise AssertionError(f"mlp route {k}: {tuple(v.shape)}, want "
+                                 f"{shape}, finite")
+    want = {"K1": CONVNEXT_L_BLOCKS, "K2": 2, "K3": 4 * K3_WC_CALLS, "K4": 0,
+            "K5": CONVNEXT_L_BLOCKS}
+    log(f"mlp route: one {T}x{H}x{W} clip, outputs finite, shapes "
+        f"{[OUTPUT_SHAPES[k] for k in OUTPUTS]}; launches {launches} (want "
+        f"{want}); {start.elapsed_time(end):.2f} ms (informational)")
+    if launches != want:
+        raise AssertionError(f"kernel launch counts {launches}")
+    return model, launches
 
 
 def tube_link_r50_config():
@@ -484,9 +873,6 @@ def phase_tube_link(torch):
     5) through ``run_video``. Returns the model and the launch counts."""
     from axial_vs_tpu_torch.models.tube_link.detector import (
         TubeLinkVISInference, build_tube_link_vis)
-    from axial_vs_tpu_torch.ops.convnext_cuda import dwconv7x7_layernorm
-    from axial_vs_tpu_torch.ops.msda import ms_deform_attn
-    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
 
     dev = torch.device("cuda")
     cfg = tube_link_r50_config()
@@ -510,18 +896,14 @@ def phase_tube_link(torch):
         torch.cuda.synchronize()
         log(f"tube-link: warm-up tube {time.perf_counter() - t0:.2f} s")
         torch.cuda.reset_peak_memory_stats()
-        for counted in (dwconv7x7_layernorm, ms_deform_attn,
-                        trajectory_attention_core):
-            counted.launches = 0
+        reset_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         res = pipeline.run_video(videos[0])
         end.record()
         end.synchronize()
-        launches = {"K1": dwconv7x7_layernorm.launches,
-                    "K2": ms_deform_attn.launches,
-                    "K3": trajectory_attention_core.launches}
+        launches = read_counts()
         video_ms = start.elapsed_time(end)
         peak = torch.cuda.max_memory_allocated() / 2**30
         other = pipeline.run_video(videos[1])
@@ -554,7 +936,7 @@ def phase_tube_link(torch):
                 raise AssertionError(f"tube {k}: {tuple(v.shape)} {v.dtype}")
     if np.array_equal(res["masks"], other["masks"]):
         raise AssertionError("distinct videos gave identical masks")
-    want = {"K1": 0, "K2": 6 * 3, "K3": 4 * K3_TL_CALLS * 3}
+    want = {"K1": 0, "K2": 6 * 3, "K3": 4 * K3_TL_CALLS * 3, "K4": 0, "K5": 0}
     log(f"tube-link: {TL_VIDEO}x{TL_H}x{TL_W} video in 3 tubes: {n_inst} "
         f"instances, masks {want_shape} finite, labels in [0, "
         f"{cfg.model.num_classes}), distinct videos give distinct masks")
@@ -632,30 +1014,40 @@ def main() -> int:
     card = phase_device(torch)
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1 = phase_k1(torch, gen)
-    k2 = phase_k2(torch, gen)
-    k3 = phase_k3(torch, gen)
-    model, wc = phase_slice(torch)
-    phase_reference(torch, model)
+    results = {"K1": phase_k1(torch, gen), "K2": phase_k2(torch, gen),
+               "K3": phase_k3(torch, gen)}
+    results["K5"], results["K4"] = phase_k4_k5(torch, gen)
+    paths = {}
+    model, paths["wc_3_clips"] = phase_slice(torch)
+    phase_reference(torch, [("dwln", model)])
     del model
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        block_model, paths["vipseg_eval_2_videos"] = phase_eval(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mlp_model, paths["mlp_route_1_clip"] = phase_mlp_route(torch)
+    phase_reference(torch, [("block", block_model), ("mlp", mlp_model)])
+    del block_model, mlp_model
     torch.cuda.empty_cache()
-    model, tube = phase_tube_link(torch)
+    model, paths["tube_link_3_tubes"] = phase_tube_link(torch)
     phase_tube_link_reference(torch, model)
     kernels = []
-    for key, k, name, source, replaces in (
-            ("K1", k1, "dwconv7x7_layernorm", "dwconv_ln.cu",
-             "convnext_pallas.py:82"),
-            ("K2", k2, "ms_deform_attn", "msda.cu", "msda_pallas.py:120"),
-            ("K3", k3, "trajectory_attention_core", "traj.cu",
-             "traj_pallas.py:145")):
+    for key, name, source, replaces in (
+            ("K1", "dwconv7x7_layernorm", "dwconv_ln.cu", "convnext_pallas.py:109"),
+            ("K2", "ms_deform_attn", "msda.cu", "msda_pallas.py:130"),
+            ("K3", "trajectory_attention_core", "traj.cu", "traj_pallas.py:164"),
+            ("K4", "convnext_block_fused", "convnext_block.cu",
+             "convnext_pallas.py:318"),
+            ("K5", "convnext_mlp_residual", "convnext_mlp.cu",
+             "convnext_pallas.py:178")):
+        by_path = {path: counts[key] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"axial_vs_tpu_torch/csrc/{source}",
             "replaces": f"axial_vs_tpu/ops/{replaces}",
-            "launches": wc[key] + tube[key],
-            "launches_by_path": {"wc_3_clips": wc[key],
-                                 "tube_link_3_tubes": tube[key]},
-            **k})
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **results[key]})
     log(card)  # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ the fixture, at run time). On a machine with a card and without JAX, run:
 
 Tolerance: both sides sum in f32 and round to bf16 at the same points, so
 they agree to within 2 bf16 ulp of the output's largest magnitude (K3:
-``ops/traj.py::TRAJ_ULPS``, derived there).
+``ops/traj.py::TRAJ_ULPS``, derived there). For K4 and K5 a bf16 cast of an
+intermediate (the normalised tile, the hidden activation) may round the
+other way; such an element enters one of C or 4C products and moves the
+output far less than one of its ulps.
 """
 import math
 
@@ -75,6 +78,74 @@ def test_ms_deform_attn_kernel(gen, d, shapes):
     want = ms_deform_attn_plain(value, shapes, starts, loc, w)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+
+
+def mlp_inputs(gen, c, hidden=None):
+    """The ConvNeXt MLP's parameters at unit-variance-preserving scales and
+    gamma ~ U(-1, 1) (at the upstream 1e-6 the residual would hide the
+    kernel's work): bf16 matrices in torch's (out, in) layout, f32 vectors."""
+    hidden = hidden or 4 * c
+
+    def r(*shape, scale):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    w1 = r(hidden, c, scale=c ** -0.5).bfloat16()
+    w2 = r(c, hidden, scale=hidden ** -0.5).bfloat16()
+    gamma = torch.rand(c, generator=gen, device="cuda") * 2 - 1
+    return w1, r(hidden, scale=0.1), w2, r(c, scale=0.1), gamma
+
+
+#: the four ConvNeXt-L stages of a 2x769x1345 clip, and ragged small shapes
+#: (rows and W not multiples of the kernels' 16-row tiles)
+CONVNEXT_SHAPES = [(2, 192, 336, 192), (2, 96, 168, 384), (2, 48, 84, 768),
+                   (2, 24, 42, 1536), (2, 23, 40, 48), (1, 5, 7, 32),
+                   (1, 9, 21, 640)]
+
+
+@pytest.mark.parametrize("shape", CONVNEXT_SHAPES)
+def test_convnext_mlp_residual_kernel(gen, shape):
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        convnext_mlp_residual, convnext_mlp_residual_plain)
+
+    c = shape[-1]
+    x, sc = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    params = mlp_inputs(gen, c)
+    before = convnext_mlp_residual.launches
+    got = convnext_mlp_residual(x, sc, *params)
+    assert convnext_mlp_residual.launches == before + 1
+    want = convnext_mlp_residual_plain(x, sc, *params)
+    torch.cuda.synchronize()
+    assert got.shape == shape
+    assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+    with pytest.raises(TypeError):
+        convnext_mlp_residual(x.float(), sc.float(), *params)
+    assert convnext_mlp_residual.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", CONVNEXT_SHAPES)
+def test_convnext_block_fused_kernel(gen, shape):
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        convnext_block_fused, convnext_block_fused_plain)
+
+    n, h, w, c = shape
+    x = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn(c, 1, 7, 7, generator=gen, device="cuda") * 0.1).bfloat16()
+    b, lw, lb = (torch.randn(c, generator=gen, device="cuda") * 0.1
+                 for _ in range(3))
+    args = (x, wt, b, lw + 1, lb, *mlp_inputs(gen, c))
+    before = convnext_block_fused.launches
+    got = convnext_block_fused(*args)
+    assert convnext_block_fused.launches == before + 1
+    want = convnext_block_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == shape
+    assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+    with pytest.raises(ValueError):  # C not a multiple of 16
+        convnext_block_fused(x[..., :c - 8].contiguous(), wt[:c - 8],
+                             *(t[:c - 8] for t in args[2:5]),
+                             *mlp_inputs(gen, c - 8))
+    assert convnext_block_fused.launches == before + 1
 
 
 def traj_inputs(gen, b, f, n, c=256):

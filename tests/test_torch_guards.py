@@ -15,8 +15,9 @@ import torch
 from axial_vs_tpu.utils.torch_convert import (convert_maxtron_wc,
                                               stack_convnext_for_scan)
 from axial_vs_tpu_torch.models.kmax import build_segmenter
-from axial_vs_tpu_torch.ops.convnext_cuda import (dwconv7x7_layernorm,
-                                                  dwconv7x7_layernorm_plain)
+from axial_vs_tpu_torch.ops.convnext_cuda import (
+    convnext_block_fused, convnext_block_fused_plain, convnext_mlp_residual,
+    convnext_mlp_residual_plain, dwconv7x7_layernorm, dwconv7x7_layernorm_plain)
 from axial_vs_tpu_torch.models.tube_link.detector import (
     TubeLinkVISInference, build_tube_link_vis)
 from axial_vs_tpu_torch.ops.msda import (level_start_index, ms_deform_attn,
@@ -82,15 +83,20 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "assert not any(k == 'axial_vs_tpu' or k.startswith('axial_vs_tpu.') "
         "for k in sys.modules), 'the port imported the JAX package'\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    names = set(proc.stdout.split())
+    assert len(names) >= 30
+    for module in ("data.vipseg", "data.catalog", "data.panoptic_utils",
+                   "evaluation.vpq", "evaluation.vipseg_evaluator",
+                   "evaluation.stq", "engine.evaluator_loop",
+                   "models.postprocess", "models.video_inference"):
+        assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
-def _k1_inputs(rng):
-    c = 24
+def _k1_inputs(rng, c=24):
     return (torch.from_numpy(rng.randn(2, 6, 9, c).astype(np.float32)),
             torch.from_numpy(rng.randn(c, 1, 7, 7).astype(np.float32)),
             *(torch.from_numpy(rng.randn(c).astype(np.float32))
@@ -105,6 +111,21 @@ def _k2_inputs(rng):
     return value, shapes, level_start_index(shapes), loc, w
 
 
+def _mlp_inputs(rng, c=32):
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.2)
+            for s in ((4 * c, c), (4 * c,), (c, 4 * c), (c,), (c,))]
+
+
+def _k5_inputs(rng):
+    x, sc = (torch.from_numpy(rng.randn(2, 5, 7, 32).astype(np.float32))
+             for _ in range(2))
+    return (x, sc, *_mlp_inputs(rng))
+
+
+def _k4_inputs(rng):
+    return (*_k1_inputs(rng, c=32), *_mlp_inputs(rng))
+
+
 def _k3_inputs(rng):
     c, f = 64, 3
     q, k, v = (torch.from_numpy(rng.randn(2, f * 5, c).astype(np.float32))
@@ -114,7 +135,7 @@ def _k3_inputs(rng):
     return (q, k, v, *w, f, 8)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
 def test_cpu_tensors_take_plain_version(rng, kernel):
     """On CPU tensors a wrapper returns its plain version's result and does
     not count a launch (nothing is built or loaded)."""
@@ -126,6 +147,10 @@ def test_cpu_tensors_take_plain_version(rng, kernel):
         "K2": (ms_deform_attn, ms_deform_attn_plain, _k2_inputs(rng)),
         "K3": (trajectory_attention_core, trajectory_attention_core_plain,
                _k3_inputs(rng)),
+        "K4": (convnext_block_fused, convnext_block_fused_plain,
+               _k4_inputs(rng)),
+        "K5": (convnext_mlp_residual, convnext_mlp_residual_plain,
+               _k5_inputs(rng)),
     }[kernel]
     before = wrapper.launches
     torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0, atol=0)
@@ -163,7 +188,9 @@ def _leaves(ns, prefix=""):
 def test_smoke_config_is_the_bench_config():
     """chip_smoke.py builds bench.py's default configuration from plain
     objects (it imports nothing of the JAX package); every value it sets is
-    the one the repo's config tree gives with bench.py's overrides."""
+    the one the repo's config tree gives with bench.py's overrides, the
+    evaluation's fields (``input.pixel_mean/std``, ``model.maxtron.test.*``)
+    included."""
     from axial_vs_tpu.config import get_default_config
 
     cfg = get_default_config()  # bench.py:93-109, the ConvNeXt-L default
@@ -175,7 +202,7 @@ def test_smoke_config_is_the_bench_config():
     cfg.input.image_size = [769, 1345]
     cfg.input.num_clip_frames = 2
     cfg.model.maxtron.wc.enable = True
-    _assert_config_leaves(_smoke().wc_convnext_large_config(), cfg, 25)
+    _assert_config_leaves(_smoke().wc_convnext_large_config(), cfg, 35)
 
 
 def _smoke():

@@ -371,3 +371,206 @@ def test_segmenter_resnet(rng):
     assert got["pred_masks"].shape == (2, 2, 17, 25, 16)
     for k in ("pred_logits", "pred_masks", "pred_mask_embeddings"):
         close(got[k], want[k], TOL_SLICE)
+
+
+# ------------------- K1, K4, K5 in bf16 against the Pallas kernels ---------
+#
+# The JAX package's kernels run in Pallas interpret mode on the CPU (about
+# 1.5 s per call at these shapes) and are the oracle of the port's plain
+# versions, which the card's kernels are held to in chip_smoke.py and
+# tests/test_torch_cuda.py. Weights are drawn bf16-exact, since the port
+# keeps every matrix (the depthwise taps too) bf16 at rest. Tolerance: both
+# sides accumulate in f32 and round at the same points, so they agree to 2
+# bf16 ulp of max|out| (TOL_ULPS); a bf16 cast of an intermediate that rounds
+# the other way moves the output by far less than one of its ulps.
+
+TOL_ULPS = 2
+
+
+def bf16_exact(a):
+    """f32 values that bf16 represents exactly (round to nearest)."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def bf16_ulp(scale):
+    return 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7)
+
+
+def close_ulps(got, want, ulps=TOL_ULPS):
+    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    bound = ulps * bf16_ulp(float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= bound, (err, bound)
+    return bound
+
+
+def interpret():
+    from jax.experimental.pallas import tpu as pltpu
+
+    return pltpu.force_tpu_interpret_mode()
+
+
+def block_params(rng, c, hidden=None, gamma=0.5):
+    """A ConvNeXt block's parameters in the JAX layouts, bf16-exact, at
+    scales where every part of the block moves the output: unit-variance
+    MLP weights, LayerNorm scale ~1, layer scale ``gamma``."""
+    hidden = hidden or 4 * c
+    r = lambda *s, scale=0.1: bf16_exact(rng.randn(*s) * scale)  # noqa: E731
+    return dict(
+        dwconv={"kernel": r(7, 7, 1, c), "bias": r(c)},
+        norm={"scale": 1 + r(c), "bias": r(c)},
+        pwconv1={"kernel": r(c, hidden, scale=c ** -0.5), "bias": r(hidden)},
+        pwconv2={"kernel": r(hidden, c, scale=hidden ** -0.5), "bias": r(c)},
+        gamma=np.full(c, gamma, np.float32) if np.isscalar(gamma) else gamma)
+
+
+@pytest.mark.parametrize("p,c", [(70, 32), (203, 48)])
+def test_convnext_mlp_residual_matches_pallas(rng, p, c):
+    """K5's plain version against the Pallas kernel, with a ragged row tail
+    and the hidden axis in several chunks."""
+    from axial_vs_tpu.ops.convnext_pallas import convnext_mlp_residual as jk
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        convnext_mlp_residual, convnext_mlp_residual_plain)
+
+    x, sc = (bf16_exact(rng.randn(p, c)) for _ in range(2))
+    w = block_params(rng, c, gamma=bf16_exact(rng.rand(c) * 2 - 1))
+    w1, b1 = w["pwconv1"]["kernel"], w["pwconv1"]["bias"]
+    w2, b2 = w["pwconv2"]["kernel"], w["pwconv2"]["bias"]
+    with interpret():
+        want = jk(jnp.asarray(x, jnp.bfloat16), jnp.asarray(sc, jnp.bfloat16),
+                  w1, b1, w2, b2, w["gamma"], rows=32, hidden_chunk=64)
+    want = np.asarray(want.astype(jnp.float32))
+    args = (t(x).bfloat16(), t(sc).bfloat16(), t(w1.T.copy()), t(b1),
+            t(w2.T.copy()), t(b2), t(w["gamma"]))
+    got = convnext_mlp_residual_plain(*args)
+    assert got.dtype == torch.bfloat16
+    bound = close_ulps(got, want)
+    assert np.abs(want - sc).max() > 10 * bound  # the MLP is visible
+    torch.testing.assert_close(convnext_mlp_residual(*args), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 13, 32), (1, 5, 7, 48)])
+def test_dwconv_and_block_match_pallas(rng, shape):
+    """K1's and K4's plain versions against the Pallas kernels in bf16
+    (K1's rounding points were held only against the f32 XLA branch
+    before), at H and W that do not fill the kernels' tiles."""
+    from axial_vs_tpu.ops.convnext_pallas import (
+        convnext_block_fused as jblock, dwconv7x7_layernorm as jdwln)
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        convnext_block_fused_plain, dwconv7x7_layernorm_plain)
+
+    c = shape[-1]
+    x = bf16_exact(rng.randn(*shape))
+    w = block_params(rng, c, gamma=bf16_exact(rng.rand(c) * 2 - 1))
+    jargs = (w["dwconv"]["kernel"], w["dwconv"]["bias"], w["norm"]["scale"],
+             w["norm"]["bias"])
+    mlp = (w["pwconv1"]["kernel"], w["pwconv1"]["bias"], w["pwconv2"]["kernel"],
+           w["pwconv2"]["bias"], w["gamma"])
+    with interpret():
+        xb = jnp.asarray(x, jnp.bfloat16)
+        want_dwln = np.asarray(jdwln(xb, *jargs).astype(jnp.float32))
+        want_block = np.asarray(jblock(xb, *jargs, *mlp, hidden_chunk=64)
+                                .astype(jnp.float32))
+    dw = (t(w["dwconv"]["kernel"].transpose(3, 2, 0, 1).copy()),
+          t(w["dwconv"]["bias"]), t(w["norm"]["scale"]), t(w["norm"]["bias"]))
+    tmlp = (t(mlp[0].T.copy()), t(mlp[1]), t(mlp[2].T.copy()), t(mlp[3]),
+            t(mlp[4]))
+    close_ulps(dwconv7x7_layernorm_plain(t(x).bfloat16(), *dw), want_dwln)
+    bound = close_ulps(convnext_block_fused_plain(t(x).bfloat16(), *dw, *tmlp),
+                       want_block)
+    assert np.abs(want_block - x).max() > 10 * bound
+
+
+def _fused_routes(monkeypatch, route):
+    """Turn the JAX ConvNeXt block's Pallas routes on, as on a TPU."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setenv("AXIALVS_FUSED_DWLN", "1")
+    monkeypatch.setenv("AXIALVS_FUSED_MLP", "1" if route == "mlp" else "0")
+    monkeypatch.setenv("AXIALVS_FUSED_BLOCK", "1" if route == "block" else "0")
+
+
+def _bf16_tree(tree, rng):
+    """Every leaf bf16-exact; ConvNeXt blocks get block_params' scales and
+    LayerNorm scales are ~1."""
+    def walk(d):
+        if "pwconv1" in d and "dwconv" in d:
+            c = np.asarray(d["norm"]["scale"]).shape[0]
+            return block_params(rng, c)
+        return {k: walk(v) if isinstance(v, dict)
+                else bf16_exact(1 + v if k == "scale" else v)
+                for k, v in d.items()}
+    return walk(tree)
+
+
+@pytest.mark.parametrize("route", ["dwln", "mlp", "block"])
+def test_convnext_block_routes_match_jax(rng, monkeypatch, route):
+    """The port's ConvNeXtBlock on each ``block_kernel`` route against the
+    JAX block on the same route (its env gates, its Pallas kernels in
+    interpret mode), bf16 input, gamma 0.5."""
+    from axial_vs_tpu.models.backbones.convnext import ConvNeXtBlock as J
+    from axial_vs_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+    from axial_vs_tpu_torch.ops.init import cast_for_inference
+
+    _fused_routes(monkeypatch, route)
+    shape = (2, 9, 13, 32)
+    x = bf16_exact(rng.randn(*shape))
+    jm = J(dim=shape[-1], dtype=jnp.bfloat16)
+    params = block_params(rng, shape[-1])
+    with interpret():
+        want = jm.apply({"params": params}, jnp.asarray(x, jnp.bfloat16))
+    want = np.asarray(want.astype(jnp.float32))
+    model = port(ConvNeXtBlock(shape[-1], block_kernel=route),
+                 convert.convnext_block(params))
+    cast_for_inference(model, torch.bfloat16)
+    with torch.no_grad():
+        got = model(t(x).bfloat16())
+    bound = close_ulps(got, want)
+    assert np.abs(want - x).max() > 10 * bound
+
+
+#: the backbone's bound, of each output's scale. The stem here is exact in
+#: bf16 on both sides, so res2 agrees to TOL_ULPS on the fused routes; from
+#: res3 on, the two frameworks' bf16 downsampling convs (2x2/2 over 4C
+#: inputs, outside the kernels) round differently, and that drift alone
+#: reached 1.4e-2 of scale at res4 in this test.
+TOL_BACKBONE = 2e-2
+
+
+@pytest.mark.parametrize("route", ["dwln", "mlp", "block"])
+def test_convnext_backbone_routes_match_jax(rng, monkeypatch, route):
+    """A depth-1/1/1/1 ConvNeXt on each route against the JAX backbone, in
+    bf16 with gamma 0.5."""
+    from axial_vs_tpu.models.backbones.convnext import ConvNeXt as J
+    from axial_vs_tpu_torch.models.backbones.convnext import ConvNeXt
+    from axial_vs_tpu_torch.ops.init import cast_for_inference
+
+    _fused_routes(monkeypatch, route)
+    depths, dims = (1, 1, 1, 1), (32, 48, 64, 80)
+    # multiples of 1/8 and stem taps in {0, +-1/32}: the JAX stem sums four
+    # bf16 partial products and rounds each; with these values every partial
+    # sum is exact in bf16
+    x = np.clip(np.round(rng.randn(2, 65, 97, 3) * 4), -8, 8) / 8
+    jm = J(depths=depths, dims=dims, dtype=jnp.bfloat16)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                            jnp.asarray(x, jnp.bfloat16)))
+    params = _bf16_tree(jax.tree.map(
+        lambda s: np.asarray(rng.randn(*s.shape) * 0.1, np.float32),
+        shapes["params"]), rng)
+    stem = params["downsample0_conv"]
+    stem["kernel"] = (rng.randint(-1, 2, stem["kernel"].shape) / 32).astype(np.float32)
+    with interpret():
+        want = jm.apply({"params": params}, jnp.asarray(x, jnp.bfloat16))
+    model = port(ConvNeXt(depths, dims, block_kernel=route),
+                 convert.convnext(params))
+    cast_for_inference(model, torch.bfloat16)
+    with torch.no_grad():
+        got = model(t(x).float().bfloat16())
+    for k in want:
+        w = np.asarray(want[k].astype(jnp.float32))
+        g = got[k].float().numpy()
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= TOL_BACKBONE * np.abs(w).max(), k
+        if k == "res2" and route != "dwln":
+            close_ulps(g, w)
