@@ -39,6 +39,11 @@ _SIGNATURES = {
     "axvs_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "axvs_convnext_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _I, ctypes.c_float, _P],
+    "axvs_corner_reduce_multi": [ctypes.POINTER(_P), _I, _P, _P, _I, _I, _P],
+    "axvs_corner_reduce_v5": [ctypes.POINTER(_P), _I, _I, _P, _P, _I, _I, _I,
+                              _P],
+    "axvs_pack_corner_table": [_P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I,
+                               _P],
 }
 
 _lib = None

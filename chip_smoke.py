@@ -28,6 +28,12 @@ Phases, in order; any failure exits non-zero before the last line:
                instances, and the launch counts of that run
  13. Tube-Link reference - the pixel decoder on a small tube, the card's
                bf16 run against an f32 run of the plain versions on the CPU
+ 14. MSDA bench - ``axial_vs_tpu_torch.tools.bench_msda`` at the WC shape:
+               one checking pass over its six formulations (each against
+               ``prod``, K2), their launch counts and ms per layer; K6, K7
+               and K8 against their plain versions at the WC and ragged
+               shapes, with their times, bounds and library calls (an
+               einsum for K6/K7, one advanced-index gather for K8)
 The line before the last is one JSON object with each kernel's route,
 source, launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -97,11 +103,20 @@ def counted_kernels():
     from axial_vs_tpu_torch.ops.convnext_cuda import (
         convnext_block_fused, convnext_mlp_residual, dwconv7x7_layernorm)
     from axial_vs_tpu_torch.ops.msda import ms_deform_attn
+    from axial_vs_tpu_torch.ops.msda_reduce import (
+        pack_corner_table, weighted_corner_reduce_multi,
+        weighted_corner_reduce_v5)
     from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
 
     return {"K1": dwconv7x7_layernorm, "K2": ms_deform_attn,
             "K3": trajectory_attention_core, "K4": convnext_block_fused,
-            "K5": convnext_mlp_residual}
+            "K5": convnext_mlp_residual, "K6": weighted_corner_reduce_multi,
+            "K7": weighted_corner_reduce_v5, "K8": pack_corner_table}
+
+
+def expect(**launches):
+    """Wanted launch counts of a run: the ones given, every other kernel 0."""
+    return {k: launches.get(k, 0) for k in counted_kernels()}
 
 
 def reset_counts():
@@ -537,8 +552,7 @@ def phase_slice(torch):
         raise AssertionError("distinct clips gave identical pred_masks")
     log(f"slice: 3 clips of {T}x{H}x{W}: outputs finite, shapes "
         f"{[OUTPUT_SHAPES[k] for k in OUTPUTS]}")
-    want = {"K1": CONVNEXT_L_BLOCKS * 3, "K2": 2 * 3,
-            "K3": 4 * K3_WC_CALLS * 3, "K4": 0, "K5": 0}
+    want = expect(K1=CONVNEXT_L_BLOCKS * 3, K2=2 * 3, K3=4 * K3_WC_CALLS * 3)
     log(f"slice: launches in the 3-clip run: {launches} (want {want})")
     log(f"slice (informational): {3 * T / (ms / 1000):.3f} frames/s "
         f"({ms / 3:.2f} ms per clip, CUDA events, batch of 1 clip, eager); "
@@ -784,8 +798,8 @@ def phase_eval(torch, root: str):
     # at the upstream inits no class passes its threshold, so the id maps
     # above are all void; the finalize is held to the CPU on drawn outputs
     check_finalize(torch, cfg, model, name)
-    want = {"K1": 0, "K2": 2 * EVAL_CLIPS, "K3": 4 * K3_WC_CALLS * EVAL_CLIPS,
-            "K4": CONVNEXT_L_BLOCKS * EVAL_CLIPS, "K5": 0}
+    want = expect(K2=2 * EVAL_CLIPS, K3=4 * K3_WC_CALLS * EVAL_CLIPS,
+                  K4=CONVNEXT_L_BLOCKS * EVAL_CLIPS)
     log("eval: " + ", ".join(f"{k} {v:.6g}" for k, v in values.items())
         + f"; id maps ({frames} frames) of {EVAL_HW[0]}x{EVAL_HW[1]}, "
         f"{n_segments} predicted segment-frames")
@@ -829,8 +843,8 @@ def phase_mlp_route(torch):
         if tuple(v.shape) != shape or not torch.isfinite(v.float()).all():
             raise AssertionError(f"mlp route {k}: {tuple(v.shape)}, want "
                                  f"{shape}, finite")
-    want = {"K1": CONVNEXT_L_BLOCKS, "K2": 2, "K3": 4 * K3_WC_CALLS, "K4": 0,
-            "K5": CONVNEXT_L_BLOCKS}
+    want = expect(K1=CONVNEXT_L_BLOCKS, K2=2, K3=4 * K3_WC_CALLS,
+                  K5=CONVNEXT_L_BLOCKS)
     log(f"mlp route: one {T}x{H}x{W} clip, outputs finite, shapes "
         f"{[OUTPUT_SHAPES[k] for k in OUTPUTS]}; launches {launches} (want "
         f"{want}); {start.elapsed_time(end):.2f} ms (informational)")
@@ -936,7 +950,7 @@ def phase_tube_link(torch):
                 raise AssertionError(f"tube {k}: {tuple(v.shape)} {v.dtype}")
     if np.array_equal(res["masks"], other["masks"]):
         raise AssertionError("distinct videos gave identical masks")
-    want = {"K1": 0, "K2": 6 * 3, "K3": 4 * K3_TL_CALLS * 3, "K4": 0, "K5": 0}
+    want = expect(K2=6 * 3, K3=4 * K3_TL_CALLS * 3)
     log(f"tube-link: {TL_VIDEO}x{TL_H}x{TL_W} video in 3 tubes: {n_inst} "
         f"instances, masks {want_shape} finite, labels in [0, "
         f"{cfg.model.num_classes}), distinct videos give distinct masks")
@@ -1008,6 +1022,199 @@ def phase_tube_link_reference(torch, model):
                                  f"{TL_REFERENCE_BOUND}")
 
 
+#: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
+#: of max|prod|. K2 rounds nothing before its f32 sum; the table variants
+#: round each slot weight (bilinear times attention weight) to bf16, and
+#: ``pallas_v3`` each product too; ``sample_loop`` accumulates 12 samples
+#: in bf16. ``giant_gather_only`` sums unweighted rows: not the op's value.
+MSDA_BENCH_ULPS = {"pallas_v3": 4, "pallas_v4": 4, "pallas_v5": 4,
+                   "sample_loop": 16}
+#: launches of one checking pass over the six variants: prod runs K2; the
+#: five table variants K8 once per level; v3 K6; v4 and v5 K7 once each
+MSDA_BENCH_LAUNCHES = {"K2": 1, "K6": 1, "K7": 2, "K8": 15}
+
+
+def _reduce_cases(torch, gen, bm):
+    """K6 and K7 inputs: the bench's own gathered rows at the WC shape, and
+    random rows at a ragged shape (R no multiple of 32, N = 6 samples in
+    L = 2 levels of P = 3, D = 40). Yields (name, samples, merged, w)."""
+    args = (*bm.build_inputs(np.random.RandomState(0), device="cuda"),
+            bm.SHAPES)
+    flat, idx, wgt = bm.table(*args)
+    samples = bm.sample_gathers(flat, idx)
+    merged_gathers = lambda: bm.level_gathers(  # noqa: E731  (pallas_v5's)
+        flat, idx, len(bm.SHAPES), bm.P)
+    log("msda bench parts at the WC shape (informational, CUDA events): "
+        f"_prep (3 K8 launches, the cat, indices and weights) "
+        f"{cuda_ms(torch, lambda: bm.table(*args), launches=3):.4f} ms; "
+        f"{len(samples)} sample gathers "
+        f"{cuda_ms(torch, lambda: bm.sample_gathers(flat, idx), launches=3):.4f}"
+        f" ms; {len(bm.SHAPES)} merged gathers "
+        f"{cuda_ms(torch, merged_gathers, launches=3):.4f} ms")
+    merged = [torch.cat(samples[lvl * bm.P:(lvl + 1) * bm.P], dim=1)
+              for lvl in range(len(bm.SHAPES))]
+    yield "wc", samples, merged, wgt
+    del samples, merged
+    r, n, p, d = 1001, 6, 3, 40
+    samples = [torch.randn(r, 4 * d, generator=gen, device="cuda").bfloat16()
+               for _ in range(n)]
+    w = torch.randn(r, 4 * n, generator=gen, device="cuda").bfloat16()
+    yield "ragged", samples, [torch.cat(samples[i:i + p], dim=1)
+                              for i in range(0, n, p)], w
+
+
+def corner_gather(torch, v, width: int, m: int):
+    """K8's function as one PyTorch call: the advanced index
+    ``v4[:, sidx, midx]`` is (B, S, M, 4, D), lanes (m, k, d), and its
+    reshape to (B, S, M*4D) a view. Returns the call; its index tensors are
+    built here, outside its time."""
+    b, s, md = v.shape
+    offsets = torch.tensor((0, 1, width, width + 1), device=v.device)
+    sidx = (torch.arange(s, device=v.device)[:, None, None] + offsets) % s
+    midx = torch.arange(m, device=v.device)[None, :, None]
+    v4 = v.reshape(b, s, m, md // m)
+    return lambda: v4[:, sidx, midx].reshape(b, s, 4 * md)
+
+
+def phase_msda_bench(torch, gen):
+    """The MSDA bench at the WC shape (``bench_msda.run``): one checking pass
+    over its six formulations, counted, each held to ``prod`` within
+    ``MSDA_BENCH_ULPS``; then each variant's ms per layer. K6 and K7 are
+    held to their plain versions within 1 bf16 ulp of max|out| (both sum the
+    same terms in f32 in the same order) and K8 bitwise, at the WC shape and
+    a ragged one. Returns the checking pass's launch counts, K6-K8's
+    result dicts and each variant's ms per layer."""
+    from axial_vs_tpu_torch.ops.msda_reduce import (
+        pack_corner_table, pack_corner_table_plain,
+        weighted_corner_reduce_multi, weighted_corner_reduce_multi_plain,
+        weighted_corner_reduce_v5, weighted_corner_reduce_v5_plain)
+    from axial_vs_tpu_torch.tools import bench_msda as bm
+
+    shape = (f"levels {bm.SHAPES}, B={bm.B} M={bm.M} D={bm.D} P={bm.P}, "
+             f"{bm.B * bm.M * sum(h * w for h, w in bm.SHAPES)} rows")
+    reset_counts()
+    checked = bm.run(iters=0)
+    launches = read_counts()
+    scale = checked["prod"]["max_abs"]
+    for name, r in checked.items():
+        ulps = MSDA_BENCH_ULPS.get(name)
+        bound = None if ulps is None else ulps * bf16_ulp(scale)
+        log(f"msda bench {name}: max |diff| vs prod {r['max_abs_diff']:.6g} "
+            + (f"(bound {ulps} bf16 ulp of max|prod| {scale:.4g} = {bound:.6g})"
+               if bound is not None else "(not compared)")
+            + f"; launches {r['launches']}")
+        if bound is not None and not r["max_abs_diff"] <= bound:
+            raise AssertionError(f"msda bench {name} disagrees with prod")
+    want = expect(**MSDA_BENCH_LAUNCHES)
+    log(f"msda bench: launches in the checking pass: {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"kernel launch counts {launches}")
+    timed = bm.run(iters=20)
+    for name, r in timed.items():
+        log(f"msda bench {name}: {r['ms']:.4f} ms per layer ({shape}; CUDA "
+            "events over 20 calls)")
+
+    results = {}
+    for case, samples, merged, w in _reduce_cases(torch, gen, bm):
+        r, d = samples[0].shape[0], samples[0].shape[1] // 4
+        p = merged[0].shape[1] // (4 * d)
+        kernels = {
+            "K6": (lambda: weighted_corner_reduce_multi(samples, w),
+                   lambda: weighted_corner_reduce_multi_plain(samples, w)),
+            "K7": (lambda: weighted_corner_reduce_v5(samples, w, 1),
+                   lambda: weighted_corner_reduce_v5_plain(samples, w, 1)),
+            "K7 p": (lambda: weighted_corner_reduce_v5(merged, w, p),
+                     lambda: weighted_corner_reduce_v5_plain(merged, w, p)),
+        }
+        times = {}
+        for key, (kernel, plain) in kernels.items():
+            got, want_out = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want_out.float()).abs().max().item()
+            bound = bf16_ulp(want_out.float().abs().max().item())
+            log(f"{key}{'=' + str(p) if key == 'K7 p' else ''} {case} (R={r}, "
+                f"N={len(samples)}, D={d}): max_abs_err {err:.6g} (bound 1 "
+                f"bf16 ulp of max|out| = {bound:.6g})")
+            if not err <= bound:
+                raise AssertionError(f"{key} disagrees on the {case} case")
+            if case == "wc":
+                times[key] = (err, cuda_ms(torch, kernel),
+                              cuda_ms(torch, plain, launches=3))
+        if case != "wc":
+            continue
+        # each input read once, the output written once; a multiply and an
+        # add per gathered element on the CUDA cores
+        nbytes = (sum(g.numel() for g in samples) + w.numel() + r * d) * 2
+        flops = 2 * sum(g.numel() for g in samples)
+        bound, by = bound_ms(0, nbytes, PEAK_BF16, flops)
+        stacked = torch.stack(samples, dim=1).reshape(r, len(samples), 4, d)
+        w3 = w.reshape(r, len(samples), 4)
+        lib = lambda: torch.einsum("rnkd,rnk->rd", stacked, w3)  # noqa: E731
+        lib_err = (lib().float() - kernels["K7"][1]().float()).abs().max().item()
+        lib_ms = cuda_ms(torch, lib)
+        del stacked
+        log(f"MSDA reduce at the WC shape, per call: K6 {times['K6'][1]:.4f} "
+            f"ms (plain {times['K6'][2]:.4f}), K7 p=1 {times['K7'][1]:.4f} ms "
+            f"(plain {times['K7'][2]:.4f}), K7 p={p} {times['K7 p'][1]:.4f} ms "
+            f"(plain {times['K7 p'][2]:.4f}); bound {bound:.4f} ms ({by}, "
+            f"{nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP f32); library "
+            f"call einsum('rnkd,rnk->rd') on pre-stacked rows {lib_ms:.4f} ms, "
+            f"max |diff| {lib_err:.6g} against K7's plain version")
+        for key, t in (("K6", times["K6"]), ("K7", times["K7"])):
+            results[key] = {"max_abs_err": t[0], "ms": t[1], "plain_ms": t[2],
+                            "bound_ms": bound, "bound_by": by,
+                            "library_ms": lib_ms, "library_err": lib_err,
+                            "per": "MSDA layer (1 call)"}
+        results["K7"].update(p4_ms=times["K7 p"][1], p4_plain_ms=times["K7 p"][2],
+                             max_abs_err=max(times["K7"][0], times["K7 p"][0]))
+    del samples, merged, w
+
+    # K8 on each level's slice of the whole value (batch rows apart)
+    value, _, _ = bm.build_inputs(np.random.RandomState(0), device="cuda")
+    cases = [("wc", value.reshape(value.shape[0], value.shape[1], -1),
+              bm.SHAPES, bm.M),
+             ("ragged", torch.randn(2, 5 * 517 + 12, 3 * 40, generator=gen,
+                                    device="cuda").bfloat16(),
+              ((5, 517), (3, 4)), 3)]
+    for case, v, levels, m in cases:
+        ms = plain_ms = lib_ms = nbytes = 0.0
+        start = 0
+        for h, w in levels:
+            vl = v[:, start:start + h * w]
+            start += h * w
+            got = pack_corner_table(vl, w, m)
+            want_out = pack_corner_table_plain(vl, w, m)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want_out):
+                raise AssertionError(f"K8 differs from the roll build at level "
+                                     f"{(h, w)} ({case})")
+            if case == "wc":
+                lib = corner_gather(torch, vl, w, m)
+                if not torch.equal(lib(), got):
+                    raise AssertionError(f"K8 differs from the library gather "
+                                         f"at level {(h, w)}")
+                ms += cuda_ms(torch, lambda: pack_corner_table(vl, w, m))
+                plain_ms += cuda_ms(torch, lambda: pack_corner_table_plain(
+                    vl, w, m), launches=3)
+                lib_ms += cuda_ms(torch, lib)
+                nbytes += (vl.numel() + got.numel()) * 2
+        log(f"K8 {case} levels {levels}, M={m}, D={v.shape[-1] // m}: bitwise "
+            "equal to the roll build")
+        if case == "wc":
+            bound, by = bound_ms(0, nbytes, PEAK_BF16)
+            log(f"K8 per layer (3 calls): kernel {ms:.4f} ms, plain (the "
+                f"roll + cat chain) {plain_ms:.4f} ms, library call (one "
+                f"advanced-index gather, bitwise equal) {lib_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
+            results["K8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by,
+                             "library_ms": lib_ms, "per": "MSDA layer (3 calls)"}
+    del value, cases
+    torch.cuda.empty_cache()
+    return launches, {k: results[k] for k in ("K6", "K7", "K8")}, {
+        name: r["ms"] for name, r in timed.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1032,6 +1239,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     model, paths["tube_link_3_tubes"] = phase_tube_link(torch)
     phase_tube_link_reference(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    paths["msda_bench"], reduces, variant_ms = phase_msda_bench(torch, gen)
+    results.update(reduces)
     kernels = []
     for key, name, source, replaces in (
             ("K1", "dwconv7x7_layernorm", "dwconv_ln.cu", "convnext_pallas.py:109"),
@@ -1040,7 +1251,12 @@ def main() -> int:
             ("K4", "convnext_block_fused", "convnext_block.cu",
              "convnext_pallas.py:318"),
             ("K5", "convnext_mlp_residual", "convnext_mlp.cu",
-             "convnext_pallas.py:178")):
+             "convnext_pallas.py:178"),
+            ("K6", "weighted_corner_reduce_multi", "msda_reduce.cu",
+             "msda_pallas.py:68"),
+            ("K7", "weighted_corner_reduce_v5", "msda_reduce.cu",
+             "msda_pallas.py:225"),
+            ("K8", "pack_corner_table", "msda_reduce.cu", "msda_pallas.py:287")):
         by_path = {path: counts[key] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
@@ -1048,6 +1264,8 @@ def main() -> int:
             "replaces": f"axial_vs_tpu/ops/{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **results[key]})
+    log("msda bench, ms per layer: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in variant_ms.items()))
     log(card)  # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

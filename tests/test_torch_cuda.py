@@ -10,7 +10,9 @@ they agree to within 2 bf16 ulp of the output's largest magnitude (K3:
 ``ops/traj.py::TRAJ_ULPS``, derived there). For K4 and K5 a bf16 cast of an
 intermediate (the normalised tile, the hidden activation) may round the
 other way; such an element enters one of C or 4C products and moves the
-output far less than one of its ulps.
+output far less than one of its ulps. K6 and K7 round at the same points
+as their plain versions and sum the same terms in the same order: 1 ulp.
+K8 copies: bitwise.
 """
 import math
 
@@ -181,3 +183,81 @@ def test_trajectory_attention_core_kernel(gen, b, f, n):
     with pytest.raises(TypeError):
         trajectory_attention_core(q, k, v, *args[3:], f, 8)
     assert trajectory_attention_core.launches == before + 1
+
+
+#: (R, N, P, D) of the MSDA reduces: the WC bench shape (R = 2*8*21168
+#: rows, 3 levels of 4 points) and a ragged one (R no multiple of 32, 2
+#: levels of 3 points, D = 40)
+REDUCE_SHAPES = [(338688, 12, 4, 32), (1001, 6, 3, 40)]
+
+
+def _rows(gen, r, lanes, count):
+    return [torch.randn(r, lanes, generator=gen, device="cuda").bfloat16()
+            for _ in range(count)]
+
+
+@pytest.mark.parametrize("r,n,p,d", REDUCE_SHAPES)
+def test_weighted_corner_reduce_multi_kernel(gen, r, n, p, d):
+    """K6 against its plain version: the same bf16 products summed in f32
+    in the same order, so at most 1 bf16 ulp of max|out| apart."""
+    from axial_vs_tpu_torch.ops.msda_reduce import (
+        weighted_corner_reduce_multi, weighted_corner_reduce_multi_plain)
+
+    gs = _rows(gen, r, 4 * d, n)
+    w = _rows(gen, r, 4 * n, 1)[0]
+    before = weighted_corner_reduce_multi.launches
+    got = weighted_corner_reduce_multi(gs, w)
+    assert weighted_corner_reduce_multi.launches == before + 1
+    want = weighted_corner_reduce_multi_plain(gs, w)
+    torch.cuda.synchronize()
+    assert got.shape == (r, d)
+    assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
+    with pytest.raises(TypeError):
+        weighted_corner_reduce_multi([g.float() for g in gs], w)
+    assert weighted_corner_reduce_multi.launches == before + 1
+
+
+@pytest.mark.parametrize("slot_major", [False, True])
+@pytest.mark.parametrize("r,n,p,d", REDUCE_SHAPES)
+def test_weighted_corner_reduce_v5_kernel(gen, r, n, p, d, slot_major):
+    """K7 with one sample per array (the v4 reduce) and with p merged
+    samples per level, against its plain version (1 bf16 ulp)."""
+    from axial_vs_tpu_torch.ops.msda_reduce import (
+        weighted_corner_reduce_v5, weighted_corner_reduce_v5_plain)
+
+    w = torch.randn(r, 4 * n, generator=gen, device="cuda")  # cast inside
+    for pp in (1, p):
+        gs = _rows(gen, r, pp * 4 * d, n // pp)
+        before = weighted_corner_reduce_v5.launches
+        got = weighted_corner_reduce_v5(gs, w, pp, slot_major)
+        assert weighted_corner_reduce_v5.launches == before + 1
+        want = weighted_corner_reduce_v5_plain(gs, w, pp, slot_major)
+        torch.cuda.synchronize()
+        assert got.shape == (r, d)
+        assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
+
+
+@pytest.mark.parametrize("levels,m,d", [
+    (((24, 42), (48, 84), (96, 168)), 8, 32),  # the WC levels
+    (((5, 517), (3, 4)), 3, 40)])              # W + 1 wider than a block
+def test_pack_corner_table_kernel(gen, levels, m, d):
+    """K8 on each level's slice of the whole value (batch rows apart) and
+    on a contiguous copy, bitwise equal to the roll build."""
+    from axial_vs_tpu_torch.ops.msda_reduce import (pack_corner_table,
+                                                    pack_corner_table_plain)
+
+    s = sum(h * w for h, w in levels)
+    value = torch.randn(2, s, m * d, generator=gen, device="cuda").bfloat16()
+    start = 0
+    for h, w in levels:
+        v = value[:, start:start + h * w]
+        start += h * w
+        want = pack_corner_table_plain(v, w, m)
+        for x in (v, v.contiguous()):
+            before = pack_corner_table.launches
+            got = pack_corner_table(x, w, m)
+            assert pack_corner_table.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (h, w)
+    with pytest.raises(TypeError):
+        pack_corner_table(value.float(), levels[0][1], m)

@@ -22,6 +22,10 @@ from axial_vs_tpu_torch.models.tube_link.detector import (
     TubeLinkVISInference, build_tube_link_vis)
 from axial_vs_tpu_torch.ops.msda import (level_start_index, ms_deform_attn,
                                          ms_deform_attn_plain)
+from axial_vs_tpu_torch.ops.msda_reduce import (
+    pack_corner_table, pack_corner_table_plain, weighted_corner_reduce_multi,
+    weighted_corner_reduce_multi_plain, weighted_corner_reduce_v5,
+    weighted_corner_reduce_v5_plain)
 from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
                                          trajectory_attention_core_plain)
 from axial_vs_tpu_torch.utils.convert import convert_variables
@@ -92,7 +96,8 @@ def test_port_imports_without_jax():
     for module in ("data.vipseg", "data.catalog", "data.panoptic_utils",
                    "evaluation.vpq", "evaluation.vipseg_evaluator",
                    "evaluation.stq", "engine.evaluator_loop",
-                   "models.postprocess", "models.video_inference"):
+                   "models.postprocess", "models.video_inference",
+                   "ops.msda_reduce", "tools.bench_msda"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
@@ -126,6 +131,23 @@ def _k4_inputs(rng):
     return (*_k1_inputs(rng, c=32), *_mlp_inputs(rng))
 
 
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16()
+
+
+def _k6_inputs(rng):
+    return [_bf16(rng, 7, 32) for _ in range(3)], _bf16(rng, 7, 12)
+
+
+def _k7_inputs(rng):
+    return ([_bf16(rng, 7, 64) for _ in range(3)], _bf16(rng, 7, 24), 2,
+            True)
+
+
+def _k8_inputs(rng):
+    return _bf16(rng, 2, 15, 16), 5, 2
+
+
 def _k3_inputs(rng):
     c, f = 64, 3
     q, k, v = (torch.from_numpy(rng.randn(2, f * 5, c).astype(np.float32))
@@ -135,7 +157,8 @@ def _k3_inputs(rng):
     return (q, k, v, *w, f, 8)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
+@pytest.mark.parametrize("kernel",
+                         ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"])
 def test_cpu_tensors_take_plain_version(rng, kernel):
     """On CPU tensors a wrapper returns its plain version's result and does
     not count a launch (nothing is built or loaded)."""
@@ -151,11 +174,38 @@ def test_cpu_tensors_take_plain_version(rng, kernel):
                _k4_inputs(rng)),
         "K5": (convnext_mlp_residual, convnext_mlp_residual_plain,
                _k5_inputs(rng)),
+        "K6": (weighted_corner_reduce_multi, weighted_corner_reduce_multi_plain,
+               _k6_inputs(rng)),
+        "K7": (weighted_corner_reduce_v5, weighted_corner_reduce_v5_plain,
+               _k7_inputs(rng)),
+        "K8": (pack_corner_table, pack_corner_table_plain, _k8_inputs(rng)),
     }[kernel]
     before = wrapper.launches
     torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0, atol=0)
     assert wrapper.launches == before == 0
     assert native._lib is None
+
+
+def test_msda_bench_defaults_to_the_card():
+    """The MSDA bench runs on the card unless asked for the CPU: ``run``
+    and ``main`` default to ``cuda`` (and fail here, where there is none);
+    on request it runs on the CPU at a small shape, every variant checked
+    against ``prod``, with no kernel launched."""
+    from axial_vs_tpu_torch.tools import bench_msda
+
+    assert inspect.signature(bench_msda.run).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_msda.main([])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_msda.run(iters=0)
+    res = bench_msda.run(iters=1, device="cpu", shapes=((5, 6), (3, 4)), b=1,
+                         m=2, d=8, p=3)
+    assert list(res) == list(bench_msda.VARIANTS)
+    for name, r in res.items():
+        assert r["ms"] > 0 and set(r["launches"].values()) == {0}, name
+        if name != "giant_gather_only":  # unweighted: not the op's value
+            assert r["max_abs_diff"] <= 0.05, (name, r)
 
 
 def test_bf16_segmenter_runs_on_cpu(rng):
