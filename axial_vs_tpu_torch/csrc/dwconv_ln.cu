@@ -6,10 +6,11 @@
 //   out = LayerNorm_C(dwconv7x7_same(x) + bias) * ln_w + ln_b
 // with f32 accumulation, eps as given, and zero padding outside the image.
 //
-// What bounds it on an H100: memory. Each call reads the activation once and
-// writes it once (bf16): 1.15 GB over the 36 calls of a ConvNeXt-L clip at
-// 2x769x1345, computed from the shapes, against 49 multiply-adds per element,
-// far below the card's ridge of ~295 bf16 operations per byte.
+// What bounds it on an H100: operations on the CUDA cores. Each call reads
+// the activation once and writes it once (bf16, 4 bytes an element) and does
+// 49 f32 multiply-adds per element: 98 flops over 4 bytes, about 24.5 a byte,
+// above the CUDA cores' ridge of about 20 (67 TFLOP/s of f32 over 3.35 TB/s).
+// The tensor cores' bf16 ridge (~295) does not apply: none of this runs there.
 //
 // Design: one block per TW consecutive output pixels of one image row, each
 // thread owns two adjacent channels (one 4-byte bf16x2 load per tap). For

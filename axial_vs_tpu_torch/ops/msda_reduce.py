@@ -25,7 +25,6 @@ version for CPU tensors only; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
@@ -82,18 +81,6 @@ def pack_corner_table_plain(v, width: int, n_heads: int = 8):
     return torch.cat(rolled, dim=-1).reshape(b, s, 4 * md)
 
 
-def _on_cpu(tensors) -> bool:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
-
-
 def _check_rows(gs, w, lanes: int, n_cols: int):
     """Shapes of the reduces' inputs: gs (R, lanes) each, w (R, n_cols)."""
     if not gs or lanes % 4:
@@ -122,29 +109,18 @@ def _check_kernel_inputs(gs, w, d: int):
             raise ValueError("gathered rows must be 16-byte aligned")
 
 
-def _launch(name: str, *args, device):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = getattr(native.library(), name)(*args, stream)
-    native.check(status, name)
-
-
-def _pointers(gs):
-    return (ctypes.c_void_p * len(gs))(*[g.data_ptr() for g in gs])
-
-
 def weighted_corner_reduce_multi(gs: Sequence[torch.Tensor], w):
     """gs: N gathered corner rows (R, 4D); w (R, 4N) sample-major slot
     weights -> (R, D) in gs' dtype. bf16 on the card."""
     gs = list(gs)
     _check_rows(gs, w, gs[0].shape[-1] if gs else 0, 4 * len(gs))
-    if _on_cpu([*gs, w]):
+    if native.on_cpu([*gs, w]):
         return weighted_corner_reduce_multi_plain(gs, w)
     r, d = gs[0].shape[0], gs[0].shape[1] // 4
     _check_kernel_inputs(gs, w, d)
     out = torch.empty(r, d, dtype=torch.bfloat16, device=w.device)
-    _launch("axvs_corner_reduce_multi", _pointers(gs), len(gs), w.data_ptr(),
-            out.data_ptr(), r, d, device=w.device)
+    native.launch("axvs_corner_reduce_multi", native.pointers(gs), len(gs),
+                  w.data_ptr(), out.data_ptr(), r, d, device=w.device)
     weighted_corner_reduce_multi.launches += 1
     return out
 
@@ -161,14 +137,15 @@ def weighted_corner_reduce_v5(gs: Sequence[torch.Tensor], w, p: int,
     if lanes % (4 * p):
         raise ValueError(f"{lanes} lanes do not hold {p} samples")
     _check_rows(gs, w, lanes, 4 * p * len(gs))
-    if _on_cpu([*gs, w]):
+    if native.on_cpu([*gs, w]):
         return weighted_corner_reduce_v5_plain(gs, w, p, slot_major)
     r, d = gs[0].shape[0], lanes // (4 * p)
     w = w.to(torch.bfloat16)
     _check_kernel_inputs(gs, w, d)
     out = torch.empty(r, d, dtype=torch.bfloat16, device=w.device)
-    _launch("axvs_corner_reduce_v5", _pointers(gs), len(gs), p, w.data_ptr(),
-            out.data_ptr(), r, d, int(slot_major), device=w.device)
+    native.launch("axvs_corner_reduce_v5", native.pointers(gs), len(gs), p,
+                  w.data_ptr(), out.data_ptr(), r, d, int(slot_major),
+                  device=w.device)
     weighted_corner_reduce_v5.launches += 1
     return out
 
@@ -180,7 +157,7 @@ def pack_corner_table(v, width: int, n_heads: int = 8):
     whole value)."""
     if v.dim() != 3 or v.shape[2] % n_heads or width < 1:
         raise ValueError(f"v {tuple(v.shape)}, {n_heads} heads, width {width}")
-    if _on_cpu([v]):
+    if native.on_cpu([v]):
         return pack_corner_table_plain(v, width, n_heads)
     b, s, md = v.shape
     d = md // n_heads
@@ -191,8 +168,8 @@ def pack_corner_table(v, width: int, n_heads: int = 8):
         raise ValueError("v needs contiguous 16-byte-aligned rows and D a "
                          f"multiple of 8 (strides {v.stride()}, D = {d})")
     out = torch.empty(b, s, 4 * md, dtype=v.dtype, device=v.device)
-    _launch("axvs_pack_corner_table", v.data_ptr(), out.data_ptr(), b, s,
-            v.stride(0), n_heads, d, width, device=v.device)
+    native.launch("axvs_pack_corner_table", v.data_ptr(), out.data_ptr(), b,
+                  s, v.stride(0), n_heads, d, width, device=v.device)
     pack_corner_table.launches += 1
     return out
 

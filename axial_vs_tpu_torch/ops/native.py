@@ -44,6 +44,15 @@ _SIGNATURES = {
                               _P],
     "axvs_pack_corner_table": [_P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I,
                                _P],
+    "axvs_scale_copy": [_P, _P, ctypes.c_longlong, _P],
+    "axvs_sum_n": [ctypes.POINTER(_P), _I, _P, ctypes.c_longlong, _P],
+    "axvs_column_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "axvs_slab_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "axvs_dwconv_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            ctypes.c_float, _I, _P],
+    "axvs_overlap_vpu": [_P, _P, _I, _I, _I, _P],
+    "axvs_overlap_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "axvs_overlap_both": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -124,3 +133,33 @@ def check(status: int, name: str) -> None:
     """Raise if a C launcher returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def on_cpu(tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version's case),
+    False when all lie on one CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def launch(name: str, *args, device) -> None:
+    """Call the C launcher ``name`` on ``device``'s current stream (passed
+    last) and raise on its CUDA error code."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(library(), name)(*args, stream)
+    check(status, name)
+
+
+def pointers(tensors):
+    """A C array of the tensors' data pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])

@@ -29,7 +29,6 @@ host's, not a card's.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -38,6 +37,7 @@ from ..ops.msda import level_start_index, ms_deform_attn
 from ..ops.msda_reduce import (fold_slots, pack_corner_table,
                                weighted_corner_reduce_multi,
                                weighted_corner_reduce_v5)
+from .timing import require_device, time_ms
 
 SHAPES = ((24, 42), (48, 84), (96, 168))  # res5, res4, res3 at 769x1345
 B, M, D, P = 2, 8, 32, 4
@@ -200,36 +200,13 @@ def _launches():
     return {k: fn.launches for k, fn in counted_kernels().items()}
 
 
-def _time_ms(fn, device, iters: int) -> float:
-    """ms per call over ``iters`` back-to-back calls after one warm-up:
-    CUDA events on the card, the host clock on the CPU."""
-    fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) / iters * 1e3
-
-
 def run(variants=None, iters: int = 20, device="cuda", shapes=SHAPES, b: int = B, m: int = M, d: int = D, p: int = P):
     """Check and time each variant. Returns {name: {"max_abs": max |out|,
     "max_abs_diff": max |out - prod|, "launches": {kernel: launches of its
     checking call},
     "ms": ms per MSDA layer (None when ``iters`` is 0)}}. ``prod`` runs
     first as the reference, also when it is not asked for."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
-                           "host")
+    device = require_device(device)
     names = list(variants or VARIANTS)
     unknown = sorted(set(names) - set(VARIANTS))
     if unknown:
@@ -252,7 +229,7 @@ def run(variants=None, iters: int = 20, device="cuda", shapes=SHAPES, b: int = B
                 "max_abs": out.float().abs().max().item(),
                 "max_abs_diff": (out.float() - ref).abs().max().item(),
                 "launches": launches,
-                "ms": _time_ms(lambda fn=fn: fn(value, loc, aw, shapes),
+                "ms": time_ms(lambda fn=fn: fn(value, loc, aw, shapes),
                                device, iters) if iters > 0 else None}
     return results
 

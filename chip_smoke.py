@@ -34,6 +34,17 @@ Phases, in order; any failure exits non-zero before the last line:
                and K8 against their plain versions at the WC and ragged
                shapes, with their times, bounds and library calls (an
                einsum for K6/K7, one advanced-index gather for K8)
+ 15. probes - the four probe tools of ``axial_vs_tpu_torch/tools`` at their
+               default shapes, each variant checked against its plain
+               version: ``bench_pallas_bw`` (P4: copy and 12-input sum at
+               338,688 rows, bitwise; the column gather over 4 tables,
+               bitwise), ``exp_vmem_gather`` (P2: the slab gather with 1, 4
+               and 8 rows in flight at tube_l0 and kmax_l0, 1 bf16 ulp),
+               ``exp_dwconv_variants`` (P1: 8 variants and K1 at ConvNeXt-L
+               stages 0 and 2, 1 bf16 ulp; K1 2) and ``bench_overlap`` (P3:
+               vpu 1 ulp, mxu 2 ulp, both, interleave, and the overlap
+               efficiency); their launches, times, bounds, plain versions'
+               and library calls' times
 The line before the last is one JSON object with each kernel's route,
 source, launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,11 +118,17 @@ def counted_kernels():
         pack_corner_table, weighted_corner_reduce_multi,
         weighted_corner_reduce_v5)
     from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+    from axial_vs_tpu_torch.tools import bench_overlap, bench_pallas_bw
+    from axial_vs_tpu_torch.tools.exp_dwconv_variants import dwconv_variant
+    from axial_vs_tpu_torch.tools.exp_vmem_gather import slab_gather
 
     return {"K1": dwconv7x7_layernorm, "K2": ms_deform_attn,
             "K3": trajectory_attention_core, "K4": convnext_block_fused,
             "K5": convnext_mlp_residual, "K6": weighted_corner_reduce_multi,
-            "K7": weighted_corner_reduce_v5, "K8": pack_corner_table}
+            "K7": weighted_corner_reduce_v5, "K8": pack_corner_table,
+            "P1": dwconv_variant, "P2": slab_gather,
+            **bench_overlap.counted_kernels(),
+            **bench_pallas_bw.counted_kernels()}
 
 
 def expect(**launches):
@@ -1215,6 +1232,217 @@ def phase_msda_bench(torch, gen):
         name: r["ms"] for name, r in timed.items()}
 
 
+#: timed calls of each probe variant in the probes phase (after its checking
+#: call and one warm-up)
+PROBE_ITERS = 10
+#: P1's two stages (the JAX tool's defaults) and its eight kernel variants
+PROBE_STAGES = ("stage0", "stage2")
+
+
+def _probe_p4(torch, bw):
+    """P4 at its defaults: copy and sum12 at 338,688 rows, then the gather
+    over the JAX tool's four tables; all bitwise equal to the plain
+    versions. Returns the P4 entries."""
+    streams = bw.run(iters=PROBE_ITERS)
+    tables = bw.run(iters=PROBE_ITERS, gather=True)
+    for name, r in {**streams, **tables}.items():
+        log(f"P4 {name}: max_abs_err {r['max_abs_diff']:.6g} (bitwise); "
+            f"kernel {r['ms']:.4f} ms, {r['graph_ms']:.4f} in a CUDA graph "
+            f"({r['nbytes'] / r['graph_ms'] / 1e6:.1f} GB/s), plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+            f"({r['library_graph_ms']:.4f} in a graph)"
+            + (f", {r['elems'] / r['graph_ms'] / 1e6:.2f} G elems/s"
+               if "elems" in r else ""))
+        if r["max_abs_diff"] != 0 or (r["library_diff"] not in (None, 0.0)):
+            raise AssertionError(f"P4 {name} differs from its plain version")
+    entries = {}
+    for key, r, per in (("P4-copy", streams["copy"], "338,688 x 128 bf16"),
+                        ("P4-sum12", streams["sum12"],
+                         "12 arrays of 338,688 x 128 bf16"),
+                        ("P4-gather", tables["S=16384 float32"],
+                         "S=16384 f32 table, (16384, 128) int32 indices")):
+        bound, by = bound_ms(0, r["nbytes"], PEAK_BF16)
+        entries[key] = {"max_abs_err": r["max_abs_diff"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": bound,
+                        "bound_by": by, "library_ms": r["library_ms"],
+                        "graph_ms": r["graph_ms"],
+                        "library_graph_ms": r["library_graph_ms"], "per": per}
+    entries["P4-sum12"]["library"] = "eager chain of 11 bf16 torch.add"
+    entries["P4-gather"]["tables_graph_ms"] = {k: r["graph_ms"]
+                                               for k, r in tables.items()}
+    log("P4 share of the bound (CUDA graph): " + ", ".join(
+        f"{k} {e['bound_ms'] / e['graph_ms']:.3f}" for k, e in entries.items()))
+    return entries
+
+
+def _probe_p2(torch, vg):
+    """P2 at tube_l0 and kmax_l0: xla (the plain version) and the kernel with
+    1, 4 and 8 rows in flight, each within 1 bf16 ulp of xla."""
+    res = vg.run(iters=PROBE_ITERS)
+    for shape, by_variant in res.items():
+        for variant, r in by_variant.items():
+            log(f"P2 {shape} {variant}: max |diff| vs xla {r['max_abs_diff']:.6g}"
+                f" (bound 1 bf16 ulp = {r['bound']:.6g}); {r['ms']:.4f} ms, "
+                f"{r['graph_ms']:.4f} in a CUDA graph "
+                f"({r['points'] / r['graph_ms'] / 1e3:.0f} M rows/s)")
+            if not r["max_abs_diff"] <= r["bound"]:
+                raise AssertionError(f"P2 {variant} disagrees at {shape}")
+    kmax = res["kmax_l0"]
+    kernel = [kmax[v] for v in ("pl_u1", "pl_u4", "pl_u8")]
+    s, nq, p, _ = vg.SHAPES["kmax_l0"]
+    bound, by = bound_ms(0, vg.nbytes(s, nq, p), PEAK_BF16, 2 * nq * p * 128)
+    return {"max_abs_err": max(r["max_abs_diff"] for r in kernel),
+            "ms": statistics.mean(r["ms"] for r in kernel),
+            "plain_ms": kmax["xla"]["ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "graph_ms": statistics.mean(r["graph_ms"] for r in kernel),
+            "plain_graph_ms": kmax["xla"]["graph_ms"],
+            "per": "one kmax_l0 call (S=16128, NQ=21168, P=4), mean of "
+                   "pl_u1/u4/u8",
+            "variants_graph_ms": {shape: {v: r["graph_ms"]
+                                          for v, r in rv.items()}
+                                  for shape, rv in res.items()}}
+
+
+def _probe_p1(torch, dv):
+    """P1 at stages 0 and 2: K1 (``ship``) and the 8 variants, each against
+    its plain version (1 bf16 ulp; K1 2), with plain and conv2d times."""
+    res = dv.run(stages=PROBE_STAGES, iters=PROBE_ITERS)
+    for stage, by_variant in res.items():
+        for variant, r in by_variant.items():
+            vs_ship = ("--" if r["diff_vs_ship"] is None
+                       else f"{r['diff_vs_ship']:.6g}")
+            log(f"P1 {stage} {variant}: max_abs_err {r['max_abs_diff']:.6g} "
+                f"(bound {r['bound']:.6g}), vs ship {vs_ship}; {r['ms']:.4f} ms"
+                f", {r['graph_ms']:.4f} in a CUDA graph "
+                f"({r['flops'] / r['graph_ms'] / 1e9:.2f} TFLOP/s)")
+            if not r["max_abs_diff"] <= r["bound"]:
+                raise AssertionError(f"P1 {variant} disagrees at {stage}")
+    shape = dv.STAGES["stage0"]
+    args = dv.build_inputs(np.random.RandomState(0), shape, "cuda")
+    plain = {v: cuda_ms(torch, lambda v=v: dv.plain_version(v)(*args),
+                        launches=2, repeats=1) for v in dv.VARIANTS}
+    # the noln function as one library call: a depthwise conv2d on the
+    # channels-last view (cuDNN, bf16 out)
+    x_nchw = args[0].permute(0, 3, 1, 2)
+    conv = lambda: torch.nn.functional.conv2d(  # noqa: E731
+        x_nchw, args[1], args[2].bfloat16(), padding=3, groups=shape[3])
+    conv_err = (conv().permute(0, 2, 3, 1).float() - dv.plain_version("noln")(
+        *args).float()).abs().max().item()
+    conv_ms = cuda_ms(torch, conv)
+    del args, x_nchw
+    elems = math.prod(shape)
+    bound, by = bound_ms(0, 4 * elems + shape[3] * (49 * 2 + 12), PEAK_BF16,
+                         2 * 49 * elems)
+    stage0 = res["stage0"]
+    log(f"P1 stage0 {shape}: plain versions {', '.join(f'{v} {t:.2f}' for v, t in plain.items())} ms;"
+        f" bound {bound:.4f} ms ({by}); conv2d (noln's function) {conv_ms:.4f}"
+        f" ms, max |diff| {conv_err:.6g} from noln's plain version")
+    return {"max_abs_err": max(r["max_abs_diff"] for rv in res.values()
+                               for v, r in rv.items() if v != "ship"),
+            "ms": statistics.mean(stage0[v]["ms"] for v in dv.VARIANTS),
+            "graph_ms": statistics.mean(stage0[v]["graph_ms"]
+                                        for v in dv.VARIANTS),
+            "plain_ms": statistics.mean(plain.values()), "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "per": f"one stage-0 call {shape}, mean of the 8 variants",
+            "noln_conv2d_ms": conv_ms,
+            "variants_graph_ms": {stage: {v: r["graph_ms"]
+                                          for v, r in rv.items()}
+                                  for stage, rv in res.items()}}
+
+
+def _probe_p3(torch, ov):
+    """P3 at its defaults (27 tiles of (672, 768)): vpu, mxu, both and
+    interleave against the plain versions, the overlap efficiency, and the
+    mxu work's library call."""
+    res = ov.run(iters=PROBE_ITERS)
+    summary = res.pop("summary")
+    for name, r in res.items():
+        log(f"P3 {name}: " + ", ".join(
+            f"{k} max |diff| {d:.6g} (bound {r['bound'][k]:.6g})"
+            for k, d in r["diff"].items())
+            + f"; {r['ms']:.4f} ms, {r['graph_ms']:.4f} in a CUDA graph")
+        if not r["ok"]:
+            raise AssertionError(f"P3 {name} disagrees with its plain version")
+    x, t, w1, w2 = ov.build_inputs(np.random.RandomState(0), device="cuda")
+    lib = ov.library_mxu(t, w1, w2)
+    want = ov.mxu_work(t, w1, w2).float()
+    lib_err = (lib().float() - want).abs().max().item()
+    lib_ms = cuda_ms(torch, lib)
+    plain = {"P3-vpu": lambda: ov.overlap_vpu_plain(x),
+             "P3-mxu": lambda: ov.overlap_mxu_plain(t, w1, w2),
+             "P3-both": lambda: ov.overlap_both_plain(x, t, w1, w2),
+             "P3-interleave": lambda: ov.overlap_interleave_plain(x, t, w1, w2)}
+    mxu_flops, vpu_flops = ov.flops()
+    nbytes = 2 * (x.numel() + t.numel() + w1.numel() + w2.numel())
+    out_bytes = 2 * ov.TILES * x.numel()
+    bounds = {"P3-vpu": bound_ms(0, 2 * x.numel() + out_bytes, PEAK_BF16,
+                                 vpu_flops),
+              "P3-mxu": bound_ms(mxu_flops, nbytes - 2 * x.numel() + out_bytes,
+                                 PEAK_BF16),
+              "P3-both": bound_ms(mxu_flops, nbytes + 2 * out_bytes, PEAK_BF16,
+                                  vpu_flops)}
+    bounds["P3-interleave"] = bounds["P3-both"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"P3 on {sms} SMs, grid of {ov.TILES}: sum={summary['sum']:.4f}  "
+        f"max={summary['max']:.4f}  both={summary['both']:.4f}  "
+        f"overlap_efficiency={summary['overlap_efficiency']:.3f}; mxu library "
+        f"call (two torch.matmul over the tiles) {lib_ms:.4f} ms, max |diff| "
+        f"{lib_err:.6g} from the plain version; bounds (whole card) "
+        + ", ".join(f"{k} {b[0]:.4f} ms ({b[1]})" for k, b in bounds.items())
+        + f"; on the {ov.TILES} SMs the grid holds: mxu "
+        f"{mxu_flops / PEAK_BF16 * 1e3 * sms / ov.TILES:.4f} ms, vpu "
+        f"{vpu_flops / PEAK_F32 * 1e3 * sms / ov.TILES:.4f} ms")
+    entries = {}
+    for key, name in (("P3-vpu", "vpu"), ("P3-mxu", "mxu"), ("P3-both", "both"),
+                      ("P3-interleave", "interleave")):
+        entries[key] = {
+            "max_abs_err": max(res[name]["diff"].values()),
+            "ms": res[name]["ms"], "graph_ms": res[name]["graph_ms"],
+            "plain_ms": cuda_ms(torch, plain[key], launches=3, repeats=1),
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": lib_ms if key == "P3-mxu" else None,
+            "per": f"grid of {ov.TILES} tiles of (672, 768); the plain "
+                   "version computes one tile and broadcasts it"}
+    entries["P3-both"].update(overlap_efficiency=summary["overlap_efficiency"],
+                              sms=sms)
+    return entries
+
+
+def phase_probes(torch):
+    """The probe tools' ``run`` at their default shapes, counted as one
+    path: every variant checked against its plain version within the
+    tool's bound. Returns the path's launch counts and the P entries."""
+    from axial_vs_tpu_torch.tools import (bench_overlap, bench_pallas_bw,
+                                          exp_dwconv_variants,
+                                          exp_vmem_gather)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = _probe_p4(torch, bench_pallas_bw)
+    results["P2"] = _probe_p2(torch, exp_vmem_gather)
+    results["P1"] = _probe_p1(torch, exp_dwconv_variants)
+    results.update(_probe_p3(torch, bench_overlap))
+    launches = read_counts()
+    # a checking call; eager: a warm-up and the timed calls; CUDA graph: a
+    # warm-up and the captured calls (the graph's replays are not counted)
+    calls = 3 + 2 * PROBE_ITERS
+    want = expect(
+        K1=len(PROBE_STAGES) * (calls + 1),  # ship: the reference call too
+        P1=len(PROBE_STAGES) * len(exp_dwconv_variants.VARIANTS) * calls,
+        P2=len(exp_vmem_gather.SHAPES) * 3 * calls,
+        **{k: calls for k in bench_overlap.counted_kernels()},
+        **{"P4-copy": calls, "P4-sum12": calls,
+           "P4-gather": len(bench_pallas_bw.GATHER_CASES) * calls})
+    log(f"probes: {time.perf_counter() - t0:.1f} s; launches {launches} "
+        f"(want {want})")
+    if launches != want:
+        raise AssertionError(f"kernel launch counts {launches}")
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 def main() -> int:
     import torch
 
@@ -1243,25 +1471,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["msda_bench"], reduces, variant_ms = phase_msda_bench(torch, gen)
     results.update(reduces)
+    paths["probes"], probes = phase_probes(torch)
+    results.update(probes)
     kernels = []
+    ops = "axial_vs_tpu/ops/"
     for key, name, source, replaces in (
-            ("K1", "dwconv7x7_layernorm", "dwconv_ln.cu", "convnext_pallas.py:109"),
-            ("K2", "ms_deform_attn", "msda.cu", "msda_pallas.py:130"),
-            ("K3", "trajectory_attention_core", "traj.cu", "traj_pallas.py:164"),
+            ("K1", "dwconv7x7_layernorm", "dwconv_ln.cu",
+             ops + "convnext_pallas.py:109"),
+            ("K2", "ms_deform_attn", "msda.cu", ops + "msda_pallas.py:130"),
+            ("K3", "trajectory_attention_core", "traj.cu",
+             ops + "traj_pallas.py:164"),
             ("K4", "convnext_block_fused", "convnext_block.cu",
-             "convnext_pallas.py:318"),
+             ops + "convnext_pallas.py:318"),
             ("K5", "convnext_mlp_residual", "convnext_mlp.cu",
-             "convnext_pallas.py:178"),
+             ops + "convnext_pallas.py:178"),
             ("K6", "weighted_corner_reduce_multi", "msda_reduce.cu",
-             "msda_pallas.py:68"),
+             ops + "msda_pallas.py:68"),
             ("K7", "weighted_corner_reduce_v5", "msda_reduce.cu",
-             "msda_pallas.py:225"),
-            ("K8", "pack_corner_table", "msda_reduce.cu", "msda_pallas.py:287")):
+             ops + "msda_pallas.py:225"),
+            ("K8", "pack_corner_table", "msda_reduce.cu",
+             ops + "msda_pallas.py:287"),
+            ("P1", "dwconv_variant", "dwconv_variants.cu",
+             "tools/exp_dwconv_variants.py:224"),
+            ("P2", "slab_gather", "slab_gather.cu",
+             "tools/exp_vmem_gather.py:86"),
+            ("P3-vpu", "overlap_vpu", "overlap.cu", "tools/bench_overlap.py:81"),
+            ("P3-mxu", "overlap_mxu", "overlap.cu", "tools/bench_overlap.py:81"),
+            ("P3-both", "overlap_both", "overlap.cu",
+             "tools/bench_overlap.py:81"),
+            ("P3-interleave", "overlap_interleave", "overlap.cu",
+             "tools/bench_overlap.py:81"),
+            ("P4-copy", "scale_copy", "bandwidth.cu",
+             "tools/bench_pallas_bw.py:40"),
+            ("P4-sum12", "sum_n", "bandwidth.cu", "tools/bench_pallas_bw.py:53"),
+            ("P4-gather", "column_gather", "bandwidth.cu",
+             "tools/bench_pallas_bw.py:89")):
         by_path = {path: counts[key] for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"axial_vs_tpu_torch/csrc/{source}",
-            "replaces": f"axial_vs_tpu/ops/{replaces}",
+            "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **results[key]})
     log("msda bench, ms per layer: " + ", ".join(

@@ -261,3 +261,114 @@ def test_pack_corner_table_kernel(gen, levels, m, d):
             assert torch.equal(got, want), (h, w)
     with pytest.raises(TypeError):
         pack_corner_table(value.float(), levels[0][1], m)
+
+
+# The probes P1-P4 (axial_vs_tpu_torch/tools/): each kernel against its plain
+# version on the same inputs. The copy, the 12-input sum, the column gather
+# and the slab gather round where their plain versions round and sum in the
+# same order: equal, held to 0 (the slab gather to 1 bf16 ulp, its bound in
+# the tool). The dwconv variants and the vpu chain may contract a product and
+# its sum into an FMA: 1 bf16 ulp of max|out|. The mxu work rounds its hidden
+# layer to bf16 after a dot summed in another order: 2 ulp.
+
+
+@pytest.mark.parametrize("rows", [338688, 1001])
+def test_probe_bandwidth_kernels(gen, rows):
+    from axial_vs_tpu_torch.tools.bench_pallas_bw import (
+        scale_copy, scale_copy_plain, sum_n, sum_n_plain)
+
+    xs = [torch.randn(rows, 128, generator=gen, device="cuda").bfloat16()
+          for _ in range(12)]
+    before = (scale_copy.launches, sum_n.launches)
+    assert torch.equal(scale_copy(xs[0]), scale_copy_plain(xs[0]))
+    for n in (12, 3):
+        assert torch.equal(sum_n(xs[:n]), sum_n_plain(xs[:n]))
+    assert (scale_copy.launches, sum_n.launches) == (before[0] + 1,
+                                                     before[1] + 2)
+    with pytest.raises(TypeError):
+        sum_n([x.float() for x in xs[:2]])
+
+
+@pytest.mark.parametrize("s,dtype", [(4096, torch.float32),
+                                     (16384, torch.float32),
+                                     (4096, torch.bfloat16),
+                                     (37, torch.bfloat16)])
+def test_probe_column_gather_kernel(gen, s, dtype):
+    from axial_vs_tpu_torch.tools.bench_pallas_bw import (column_gather,
+                                                          column_gather_plain)
+
+    t = torch.randn(s, 128, generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, s, (s + 5, 128), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    before = column_gather.launches
+    assert torch.equal(column_gather(t, idx), column_gather_plain(t, idx))
+    assert column_gather.launches == before + 1
+
+
+@pytest.mark.parametrize("unroll", [1, 4, 8])
+@pytest.mark.parametrize("s,nq,p", [(16128, 21168, 4), (50, 37, 3)])
+def test_probe_slab_gather_kernel(gen, unroll, s, nq, p):
+    from axial_vs_tpu_torch.tools.exp_vmem_gather import (slab_gather,
+                                                          slab_gather_plain)
+
+    slab = torch.randn(s, 128, generator=gen, device="cuda").bfloat16()
+    idx = torch.randint(0, s, (nq, p), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand(nq, p, generator=gen, device="cuda")
+    before = slab_gather.launches
+    got = slab_gather(idx, w, slab, unroll)
+    assert slab_gather.launches == before + 1
+    want = slab_gather_plain(idx, w, slab)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
+
+
+@pytest.mark.parametrize("variant", ["noln", "tree", "bf16mul", "f32once",
+                                     "dxpart", "acc2", "acc4", "dxonce"])
+@pytest.mark.parametrize("shape", [(2, 24, 42, 1536), (1, 11, 9, 16)])
+def test_probe_dwconv_variant_kernel(gen, variant, shape):
+    from axial_vs_tpu_torch.tools.exp_dwconv_variants import (
+        dwconv_variant, dwconv_variant_plain)
+
+    n, h, w, c = shape
+    x = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn(c, 1, 7, 7, generator=gen, device="cuda") * 0.1).bfloat16()
+    b, lw, lb = (torch.randn(c, generator=gen, device="cuda") * 0.1
+                 for _ in range(3))
+    before = dwconv_variant.launches
+    got = dwconv_variant(x, wt, b, lw + 1, lb, variant)
+    assert dwconv_variant.launches == before + 1
+    want = dwconv_variant_plain(x, wt, b, lw + 1, lb, variant)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
+
+
+@pytest.mark.parametrize("tokens,c,hidden,tiles", [(672, 768, 3072, 27),
+                                                   (40, 128, 256, 3)])
+def test_probe_overlap_kernels(gen, tokens, c, hidden, tiles):
+    from axial_vs_tpu_torch.tools import bench_overlap as bo
+
+    x, t = (torch.randn(tokens, c, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    w1 = (torch.randn(c, hidden, generator=gen, device="cuda") * 0.02).bfloat16()
+    w2 = (torch.randn(hidden, c, generator=gen, device="cuda") * 0.02).bfloat16()
+    want_v, want_m = bo.vpu_work(x), bo.mxu_work(t, w1, w2)
+
+    def err(got, want):
+        return (got.float() - want.float()).abs().max().item()
+
+    before = {k: fn.launches for k, fn in bo.counted_kernels().items()}
+    got_v = bo.overlap_vpu(x, tiles)
+    got_m = bo.overlap_mxu(t, w1, w2, tiles)
+    both = bo.overlap_both(x, t, w1, w2, tiles)
+    inter = bo.overlap_interleave(x, t, w1, w2, tiles)
+    torch.cuda.synchronize()
+    assert {k: fn.launches - before[k]
+            for k, fn in bo.counted_kernels().items()} == dict.fromkeys(
+                bo.counted_kernels(), 1)
+    for got in (got_v, both[0], inter[0]):
+        assert got.shape == (tiles, tokens, c)
+        assert err(got, want_v) <= _ulp(want_v)
+    for got in (got_m, both[1], inter[1]):
+        assert got.shape == (tiles, tokens, c)
+        assert err(got, want_m) <= 2 * _ulp(want_m)

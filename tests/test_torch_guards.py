@@ -1,8 +1,8 @@
 """Guards for the PyTorch port (axial_vs_tpu_torch): the weight converters
 round-trip, the package imports without JAX, CPU tensors take the kernels'
-plain versions without launching anything, the builders default to the card,
-the bf16 segmenter and Tube-Link detector run, and chip_smoke.py's configs
-are the benches' configs."""
+plain versions without launching anything, the builders and the bench and
+probe tools default to the card, the bf16 segmenter and Tube-Link detector
+run, and chip_smoke.py's configs are the benches' configs."""
 import inspect
 import subprocess
 import sys
@@ -28,6 +28,10 @@ from axial_vs_tpu_torch.ops.msda_reduce import (
     weighted_corner_reduce_v5_plain)
 from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
                                          trajectory_attention_core_plain)
+from axial_vs_tpu_torch.tools import bench_overlap as probe_overlap
+from axial_vs_tpu_torch.tools import bench_pallas_bw as probe_bw
+from axial_vs_tpu_torch.tools import exp_dwconv_variants as probe_dw
+from axial_vs_tpu_torch.tools import exp_vmem_gather as probe_gather
 from axial_vs_tpu_torch.utils.convert import convert_variables
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -97,7 +101,9 @@ def test_port_imports_without_jax():
                    "evaluation.vpq", "evaluation.vipseg_evaluator",
                    "evaluation.stq", "engine.evaluator_loop",
                    "models.postprocess", "models.video_inference",
-                   "ops.msda_reduce", "tools.bench_msda"):
+                   "ops.msda_reduce", "tools.bench_msda", "tools.timing",
+                   "tools.bench_pallas_bw", "tools.exp_vmem_gather",
+                   "tools.exp_dwconv_variants", "tools.bench_overlap"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
@@ -157,8 +163,54 @@ def _k3_inputs(rng):
     return (q, k, v, *w, f, 8)
 
 
+def _p2_inputs(rng):
+    return (torch.from_numpy(rng.randint(0, 10, (7, 3)).astype(np.int32)),
+            torch.from_numpy(rng.rand(7, 3).astype(np.float32)),
+            _bf16(rng, 10, 16), 4)
+
+
+def _p3_inputs(rng, kernel):
+    x, t = _bf16(rng, 8, 16), _bf16(rng, 8, 16)
+    w1, w2 = _bf16(rng, 16, 64), _bf16(rng, 64, 16)
+    return {"P3-vpu": (x, 2), "P3-mxu": (t, w1, w2, 2)}.get(
+        kernel, (x, t, w1, w2, 2))
+
+
+#: the probes' wrappers and plain versions (tools/)
+PROBES = {
+    "P1": (probe_dw.dwconv_variant, probe_dw.dwconv_variant_plain),
+    "P2": (probe_gather.slab_gather,
+           lambda idx, w, slab, unroll: probe_gather.slab_gather_plain(
+               idx, w, slab)),
+    "P3-vpu": (probe_overlap.overlap_vpu, probe_overlap.overlap_vpu_plain),
+    "P3-mxu": (probe_overlap.overlap_mxu, probe_overlap.overlap_mxu_plain),
+    "P3-both": (probe_overlap.overlap_both, probe_overlap.overlap_both_plain),
+    "P3-interleave": (probe_overlap.overlap_interleave,
+                      probe_overlap.overlap_interleave_plain),
+    "P4-copy": (probe_bw.scale_copy, probe_bw.scale_copy_plain),
+    "P4-sum12": (probe_bw.sum_n, probe_bw.sum_n_plain),
+    "P4-gather": (probe_bw.column_gather, probe_bw.column_gather_plain),
+}
+
+
+def _probe_inputs(rng, kernel):
+    if kernel == "P1":
+        return (*_k1_inputs(rng, c=16), "tree")
+    if kernel == "P2":
+        return _p2_inputs(rng)
+    if kernel.startswith("P3"):
+        return _p3_inputs(rng, kernel)
+    if kernel == "P4-copy":
+        return (_bf16(rng, 4, 128),)
+    if kernel == "P4-sum12":
+        return ([_bf16(rng, 4, 128) for _ in range(3)],)
+    return (torch.from_numpy(rng.randn(6, 128).astype(np.float32)),
+            torch.from_numpy(rng.randint(0, 6, (5, 128)).astype(np.int32)))
+
+
 @pytest.mark.parametrize("kernel",
-                         ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"])
+                         ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                          *PROBES])
 def test_cpu_tensors_take_plain_version(rng, kernel):
     """On CPU tensors a wrapper returns its plain version's result and does
     not count a launch (nothing is built or loaded)."""
@@ -179,6 +231,8 @@ def test_cpu_tensors_take_plain_version(rng, kernel):
         "K7": (weighted_corner_reduce_v5, weighted_corner_reduce_v5_plain,
                _k7_inputs(rng)),
         "K8": (pack_corner_table, pack_corner_table_plain, _k8_inputs(rng)),
+        **{k: (*PROBES[k], _probe_inputs(rng, k)) for k in PROBES
+           if k == kernel},
     }[kernel]
     before = wrapper.launches
     torch.testing.assert_close(wrapper(*args), plain(*args), rtol=0, atol=0)
@@ -206,6 +260,54 @@ def test_msda_bench_defaults_to_the_card():
         assert r["ms"] > 0 and set(r["launches"].values()) == {0}, name
         if name != "giant_gather_only":  # unweighted: not the op's value
             assert r["max_abs_diff"] <= 0.05, (name, r)
+
+
+#: each probe tool's ``run`` arguments for a small CPU run
+PROBE_RUNS = {
+    "bench_pallas_bw": dict(rows=64),
+    "bench_pallas_bw --gather": dict(gather=True),
+    "exp_vmem_gather": dict(shapes=["s"], sizes={"s": (50, 37, 4, 128)}),
+    "exp_dwconv_variants": dict(stages=["s"], sizes={"s": (1, 11, 9, 16)}),
+    "bench_overlap": dict(tokens=32, c=64, tiles=2),
+}
+
+
+def _probe_checks(name, res):
+    """(error, bound) of every checked output of a probe tool's run."""
+    if name.startswith("bench_pallas_bw"):
+        return [(r["max_abs_diff"], 0.0) for r in res.values()]
+    if name == "bench_overlap":
+        return [(d, r["bound"][k]) for n, r in res.items() if n != "summary"
+                for k, d in r["diff"].items()]
+    return [(r["max_abs_diff"], r["bound"]) for rv in res.values()
+            for r in rv.values()]
+
+
+@pytest.mark.parametrize("name", list(PROBE_RUNS))
+def test_probe_tool_defaults_to_the_card(name):
+    """Each probe tool runs on the card unless asked for the CPU: ``run``
+    and ``main`` default to ``cuda`` (and fail here, where there is none);
+    on request it runs on the CPU at a small shape, every output within its
+    bound of the plain version, with no kernel launched and nothing built."""
+    import importlib
+
+    from axial_vs_tpu_torch.ops import native
+
+    mod = importlib.import_module(
+        f"axial_vs_tpu_torch.tools.{name.split()[0]}")
+    assert inspect.signature(mod.run).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.run(iters=0)
+    wrappers = [w for w, _ in PROBES.values()] + [dwconv7x7_layernorm]
+    before = [w.launches for w in wrappers]
+    res = mod.run(iters=1, device="cpu", **PROBE_RUNS[name])
+    assert [w.launches for w in wrappers] == before == [0] * len(wrappers)
+    assert native._lib is None
+    checks = _probe_checks(name, res)
+    assert checks and all(err <= bound for err, bound in checks), checks
 
 
 def test_bf16_segmenter_runs_on_cpu(rng):
