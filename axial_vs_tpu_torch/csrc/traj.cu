@@ -1,4 +1,4 @@
-// Two-stage trajectory attention, middle section, forward, bf16.
+// Two-stage trajectory attention, middle section, forward, bf16 or f32.
 //
 // Replaces the TPU kernel axial_vs_tpu/ops/traj_pallas.py::
 // fused_trajectory_attention (Pallas body `_kernel`; math `_traj_math`). For
@@ -31,6 +31,17 @@
 // all f frames. The TPU design kept a whole row in VMEM, which at the widest
 // within-clip row (q, k, v of 168 x 256 bf16, 258 KB) exceeds one SM's
 // 227 KB; here a row's K and V live in shared memory one frame at a time.
+//
+// The f32 instantiation (the reference's default dtype) is a kernel of its
+// own, traj_fwd_f32_kernel: the same block and warp roles, every product an
+// f32 FMA on the CUDA cores (no TF32: the reference's f32 path is full f32).
+// Stage 1 has lane j of a warp own keys j, j + 32, ...: it holds a key's 32
+// dims in registers and scores it against the 16 queries of the tile (the
+// tile is in shared memory), then the exact softmax runs per query row and
+// the PV product runs with lanes over the head dim. Stage 2 has lane i own
+// output column i of the warp's head: it streams that column's rows of Wq and
+// Wkv from L2 as float4s and reuses each against the 16 tokens' trajectory in
+// shared memory; the softmax over the f frames is taken online.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -316,6 +327,199 @@ traj_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- f32 ----
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory of the f32 kernel, in bytes: the tile's trajectory x (F, TQ,
+// C), the query tile (TQ, C), and per warp the scores of the tile against
+// one frame's n keys (TQ, n).
+struct LayoutF32 {
+  size_t xs, qs, s, total;
+};
+
+__host__ __device__ inline LayoutF32 layout_f32(int n, int f, int h) {
+  const size_t c = (size_t)h * HD;
+  LayoutF32 L;
+  L.xs = 0;
+  L.qs = L.xs + (size_t)f * TQ * c * 4;
+  L.s = L.qs + (size_t)TQ * c * 4;
+  L.total = L.s + (size_t)h * TQ * n * 4;
+  return L;
+}
+
+__global__ void __launch_bounds__(MAX_H * 32)
+traj_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,    // (B, N, C)
+                    const float* __restrict__ wq,   // (C, C)  (out, in)
+                    const float* __restrict__ bq,   // (C,)
+                    const float* __restrict__ wkv,  // (2C, C) (out, in)
+                    const float* __restrict__ bkv,  // (2C,)
+                    float* __restrict__ out,        // (B, N, C)
+                    int N, int F, int H, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = N / F, C = H * HD;
+  const LayoutF32 L = layout_f32(n, F, H);
+  float* Xs = (float*)(smem + L.xs);
+  float* Qs = (float*)(smem + L.qs);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Sw = (float*)(smem + L.s) + (size_t)warp * TQ * n;
+  const int s0 = blockIdx.x * TQ;
+  const size_t base = (size_t)blockIdx.y * N * C;
+  const int hc = warp * HD;  // this warp's head columns
+  const int c4s = C / 4;
+
+  for (int i = threadIdx.x; i < TQ * c4s; i += blockDim.x) {
+    const int t = i / c4s, c4 = i % c4s;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s0 + t < N) val = *(const float4*)(q + base + (size_t)(s0 + t) * C + c4 * 4);
+    *(float4*)(Qs + t * C + c4 * 4) = val;
+  }
+  __syncthreads();
+
+  // ---- stage 1: per frame, spatial softmax and aggregation, this head ----
+  for (int g = 0; g < F; ++g) {
+    for (int j = lane; j < n; j += 32) {
+      float kr[HD];
+      const float* kp = k + base + (size_t)(g * n + j) * C + hc;
+#pragma unroll
+      for (int d = 0; d < HD; d += 4) {
+        const float4 t4 = *(const float4*)(kp + d);
+        kr[d] = t4.x;
+        kr[d + 1] = t4.y;
+        kr[d + 2] = t4.z;
+        kr[d + 3] = t4.w;
+      }
+      for (int t = 0; t < TQ; ++t) {
+        const float* qt = Qs + t * C + hc;
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; d += 4) {
+          const float4 q4 = *(const float4*)(qt + d);
+          acc = fmaf(q4.x, kr[d], acc);
+          acc = fmaf(q4.y, kr[d + 1], acc);
+          acc = fmaf(q4.z, kr[d + 2], acc);
+          acc = fmaf(q4.w, kr[d + 3], acc);
+        }
+        Sw[t * n + j] = scale * acc;
+      }
+    }
+    __syncwarp();
+    for (int t = 0; t < TQ; ++t) {  // exact softmax over the frame's n keys
+      float* srow = Sw + t * n;
+      float m = -INFINITY;
+      for (int j = lane; j < n; j += 32) m = fmaxf(m, srow[j]);
+      m = warp_max(m);
+      float sum = 0.f;
+      for (int j = lane; j < n; j += 32) {
+        const float e = expf(srow[j] - m);
+        srow[j] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < n; j += 32) srow[j] = srow[j] / sum;
+    }
+    __syncwarp();
+    float xo[TQ];
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) xo[t] = 0.f;
+    const float* vp = v + base + (size_t)g * n * C + hc + lane;
+    for (int j = 0; j < n; ++j) {
+      const float vj = vp[(size_t)j * C];
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) xo[t] = fmaf(Sw[t * n + j], vj, xo[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) Xs[((size_t)g * TQ + t) * C + hc + lane] = xo[t];
+    __syncwarp();  // Sw is overwritten by the next frame's scores
+  }
+  __syncthreads();  // every head of every frame is in Xs
+
+  // ---- stage 2: lane owns output column hc + lane of q2, k2 and v2 ----
+  const int col = hc + lane;
+  float q2[TQ];
+  {
+    float acc[TQ];
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) acc[t] = 0.f;
+    const float* wrow = wq + (size_t)col * C;
+    for (int c = 0; c < C; c += 4) {
+      const float4 w4 = *(const float4*)(wrow + c);
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const int gd = min((s0 + t) / n, F - 1);  // own frame; rows past N: any
+        const float4 x4 = *(const float4*)(Xs + ((size_t)gd * TQ + t) * C + c);
+        acc[t] = fmaf(x4.x, w4.x, acc[t]);
+        acc[t] = fmaf(x4.y, w4.y, acc[t]);
+        acc[t] = fmaf(x4.z, w4.z, acc[t]);
+        acc[t] = fmaf(x4.w, w4.w, acc[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) q2[t] = (acc[t] + bq[col]) * scale;
+  }
+
+  float m[TQ], l[TQ], o[TQ];  // online softmax over the frames
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    m[t] = -INFINITY;
+    l[t] = 0.f;
+    o[t] = 0.f;
+  }
+  const float* wk = wkv + (size_t)col * C;
+  const float* wv = wkv + (size_t)(C + col) * C;
+  const float bk = bkv[col], bv = bkv[C + col];
+  for (int g = 0; g < F; ++g) {
+    float ak[TQ], av[TQ];
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      ak[t] = 0.f;
+      av[t] = 0.f;
+    }
+    const float* xg = Xs + (size_t)g * TQ * C;
+    for (int c = 0; c < C; c += 4) {
+      const float4 k4 = *(const float4*)(wk + c);
+      const float4 v4 = *(const float4*)(wv + c);
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const float4 x4 = *(const float4*)(xg + (size_t)t * C + c);
+        ak[t] = fmaf(x4.x, k4.x, ak[t]);
+        ak[t] = fmaf(x4.y, k4.y, ak[t]);
+        ak[t] = fmaf(x4.z, k4.z, ak[t]);
+        ak[t] = fmaf(x4.w, k4.w, ak[t]);
+        av[t] = fmaf(x4.x, v4.x, av[t]);
+        av[t] = fmaf(x4.y, v4.y, av[t]);
+        av[t] = fmaf(x4.z, v4.z, av[t]);
+        av[t] = fmaf(x4.w, v4.w, av[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      const float logit = warp_sum(q2[t] * (ak[t] + bk));  // this head's dot
+      const float mn = fmaxf(m[t], logit);
+      const float corr = expf(m[t] - mn);
+      const float p = expf(logit - mn);
+      l[t] = l[t] * corr + p;
+      o[t] = o[t] * corr + p * (av[t] + bv);
+      m[t] = mn;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    if (s0 + t < N) out[base + (size_t)(s0 + t) * C + col] = o[t] / l[t];
+  }
+}
+
 template <int F>
 int launch(const void* q, const void* k, const void* v, const void* wq,
            const void* bq, const void* wkv, const void* bkv, void* out, int B,
@@ -364,4 +568,32 @@ extern "C" int axvs_traj_fwd(const void* q, const void* k, const void* v,
     case 7: return launch<7>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
     default: return launch<8>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
   }
+}
+
+// Shared memory the f32 kernel needs (-1 for a shape it does not take).
+extern "C" int axvs_traj_smem_bytes_f32(int n, int f, int h) {
+  if (n <= 0 || f <= 0 || f > MAX_F || h <= 0 || h > MAX_H) return -1;
+  const size_t bytes = layout_f32(n, f, h).total;
+  return bytes > 2147483647u ? -1 : (int)bytes;
+}
+
+// The same as axvs_traj_fwd with every tensor f32 (16-byte aligned).
+extern "C" int axvs_traj_fwd_f32(const void* q, const void* k, const void* v,
+                                 const void* wq, const void* bq, const void* wkv,
+                                 const void* bkv, void* out, int B, int N, int F,
+                                 int H, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || F > MAX_F || N % F != 0 ||
+      H <= 0 || H > MAX_H) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = layout_f32(N / F, F, H).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      traj_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + TQ - 1) / TQ, B);
+  traj_fwd_f32_kernel<<<grid, H * 32, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)wq,
+      (const float*)bq, (const float*)wkv, (const float*)bkv, (float*)out, N, F, H,
+      scale);
+  return (int)cudaGetLastError();
 }

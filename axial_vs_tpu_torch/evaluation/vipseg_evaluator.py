@@ -55,12 +55,13 @@ class VIPSegEvaluator:
 
     def __init__(self, categories: Dict[int, dict], label_divisor: int = 10000,
                  cost_limit: float = 0.5, mem_weight: float = 0.0,
-                 output_dir: str | None = None):
+                 output_dir: str | None = None, num_workers: int = 0):
         self.categories = categories
         self.label_divisor = label_divisor
         self.cost_limit = cost_limit
         self.mem_weight = mem_weight
         self.output_dir = output_dir
+        self.num_workers = num_workers  # VPQ's processes (0 or 1: this one)
         self._videos = []  # (gt_ids, pred_ids, gt_segments, pred_segments)
 
     # -- clip re-ID -----------------------------------------------------------
@@ -138,4 +139,9 @@ class VIPSegEvaluator:
 
     def evaluate(self, window_sizes=(1, 2, 4, 6)):
         return vpq_compute(self._videos, self.categories,
-                           window_sizes=window_sizes)
+                           window_sizes=window_sizes,
+                           num_workers=self.num_workers)
+
+    def reset(self):
+        """Drop the accumulated videos, for a new evaluation."""
+        self._videos = []

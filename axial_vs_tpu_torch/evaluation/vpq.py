@@ -12,7 +12,9 @@ intersection counts are the sums of its frames' counts, so each frame's
 """
 from __future__ import annotations
 
+import multiprocessing
 from collections import defaultdict
+from concurrent.futures import ProcessPoolExecutor
 from typing import Dict
 
 import numpy as np
@@ -133,18 +135,30 @@ def vpq_single_video(gt_ids: np.ndarray, pred_ids: np.ndarray,
     return stat
 
 
-def _video_stats(gt_ids, pred_ids, gt_segments, pred_segments, window_sizes):
+def _video_stats(job):
+    """One video's PQStat per window size; job: (gt_ids, pred_ids,
+    gt_segments, pred_segments, window_sizes)."""
+    gt_ids, pred_ids, gt_segments, pred_segments, window_sizes = job
     frames = _frame_intersections(gt_ids, pred_ids)
     return [vpq_single_video(gt_ids, pred_ids, gt_segments, pred_segments, k,
                              frames) for k in window_sizes]
 
 
-def vpq_compute(videos, categories: Dict[int, dict], window_sizes=(1, 2, 4, 6)):
+def vpq_compute(videos, categories: Dict[int, dict], window_sizes=(1, 2, 4, 6),
+                num_workers: int = 0):
     """videos: iterable of (gt_ids, pred_ids, gt_segments, pred_segments).
-    Returns {'vpq': mean over window sizes, 'per_window': {k: {'all',
-    'things', 'stuff'}}}."""
-    per_video = [_video_stats(g, p, gs, ps, window_sizes)
-                 for g, p, gs, ps in videos]
+    With ``num_workers`` > 1 the videos are counted in that many processes,
+    started fresh (``spawn``: the caller may run threads); the stats are
+    summed in the videos' order either way, so the result does not depend
+    on it. Returns {'vpq': mean over window sizes,
+    'per_window': {k: {'all', 'things', 'stuff'}}}."""
+    jobs = [(g, p, gs, ps, tuple(window_sizes)) for g, p, gs, ps in videos]
+    if num_workers > 1:
+        with ProcessPoolExecutor(max_workers=num_workers,
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            per_video = list(ex.map(_video_stats, jobs))
+    else:
+        per_video = [_video_stats(job) for job in jobs]
     per_window = {}
     for i, nframes in enumerate(window_sizes):
         stat = PQStat()

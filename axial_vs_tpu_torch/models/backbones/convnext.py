@@ -14,8 +14,10 @@ gates do (``AXIALVS_FUSED_MLP``, ``AXIALVS_FUSED_BLOCK``, the latter winning):
   then the MLP as two Linear layers;
 - ``"mlp"``: K1, then kernel K5 (the MLP tail with layer scale and residual);
 - ``"block"``: kernel K4, the whole block in one launch.
-The parameters are the same on every route. In training mode every route
-runs ``"dwln"``, as in JAX, where the fused kernels have no gradient.
+The parameters are the same on every route. In training mode a block runs
+its own modules (``conv_dw``, ``norm``, ``mlp``, ``gamma``) as plain,
+differentiable torch ops, as JAX trains through XLA: the kernels have no
+backward (and refuse to run where autograd would need one).
 """
 from __future__ import annotations
 
@@ -67,7 +69,10 @@ class ConvNeXtBlock(nn.Module):
         self._inits = {"gamma": ("constant", layer_scale_init_value)}
 
     def forward(self, x):
-        route = "dwln" if self.training else self.block_kernel
+        if self.training:
+            y = self.mlp(self.norm(self.conv_dw(x)))
+            return x + y * self.gamma.to(y.dtype)
+        route = self.block_kernel
         dw, norm, fc1, fc2 = self.conv_dw, self.norm, self.mlp.fc1, self.mlp.fc2
         if route == "block":
             return convnext_block_fused(

@@ -22,8 +22,11 @@ import torch.nn.functional as F
 
 from . import native
 
-#: the MLP kernels' limits on C (a multiple of 16: whole wmma tiles)
+#: the MLP kernels' limit on C (and C, the hidden width multiples of 16:
+#: 32-byte rows for the tensor maps and whole 16-deep products)
 MLP_MAX_C = 1536
+#: the dtypes K1, K2 and K3 take on the card (K4 and K5 take bf16 only)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def dwconv7x7_layernorm_plain(x, weight, bias, ln_weight, ln_bias,
@@ -44,41 +47,35 @@ def _check_channel_vectors(c, *vectors):
             raise ValueError(f"per-channel parameter {tuple(t.shape)} != ({c},)")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def dwconv7x7_layernorm(x, weight, bias, ln_weight, ln_bias, eps: float = 1e-6):
     """LayerNorm_C(dwconv7x7_same(x) + bias) * ln_weight + ln_bias.
 
-    x (N, H, W, C) bf16 NHWC; weight (C, 1, 7, 7) in torch's depthwise layout;
-    bias, ln_weight, ln_bias (C,). Returns (N, H, W, C) in x's dtype."""
+    x (N, H, W, C) NHWC, bf16 or f32 on the card; weight (C, 1, 7, 7) in
+    torch's depthwise layout; bias, ln_weight, ln_bias (C,). Returns (N, H,
+    W, C) in x's dtype."""
     n, h, w, c = x.shape
     if weight.shape != (c, 1, 7, 7):
         raise ValueError(f"weight {tuple(weight.shape)} != ({c}, 1, 7, 7)")
     _check_channel_vectors(c, bias, ln_weight, ln_bias)
-    if x.device.type == "cpu":
+    if native.on_cpu([x]):
         return dwconv7x7_layernorm_plain(x, weight, bias, ln_weight, ln_bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16 input, got {x.dtype}")
+    native.refuse_grad(x, weight, bias, ln_weight, ln_bias)
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA kernel takes bf16 or f32 input, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC")
     if c % 2 or c > 2048:
         raise ValueError(f"the CUDA kernel needs an even C <= 2048, got {c}")
-    # no-ops when the weights are kept bf16 and the norms f32 (inference)
-    weight = weight.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    # no-ops when the weights are kept in x's dtype and the norms f32
+    weight = weight.to(device=x.device, dtype=x.dtype).contiguous()
     bias, ln_weight, ln_bias = (
         t.to(device=x.device, dtype=torch.float32).contiguous()
         for t in (bias, ln_weight, ln_bias))
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        status = native.library().axvs_dwconv7x7_ln(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            ln_weight.data_ptr(), ln_bias.data_ptr(), out.data_ptr(),
-            n, h, w, c, float(eps), _stream(x))
-    native.check(status, "axvs_dwconv7x7_ln")
+    name = "axvs_dwconv7x7_ln" + ("" if x.dtype == torch.bfloat16 else "_f32")
+    native.launch(name, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  ln_weight.data_ptr(), ln_bias.data_ptr(), out.data_ptr(),
+                  n, h, w, c, float(eps), device=x.device)
     dwconv7x7_layernorm.launches += 1
     return out
 
@@ -109,10 +106,8 @@ def _mlp_operands(x, w1, b1, w2, b2, gamma):
         raise ValueError(f"fc1 {tuple(w1.shape)} / fc2 {tuple(w2.shape)} / b1 "
                          f"{tuple(b1.shape)} do not match C={c}")
     _check_channel_vectors(c, b2, gamma)
-    if x.device.type == "cpu":
+    if native.on_cpu([x]):
         return None
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     if c % 16 or not 16 <= c <= MLP_MAX_C or hidden % 16:
         raise ValueError(f"the CUDA kernel takes C a multiple of 16 in [16, "
                          f"{MLP_MAX_C}] and a hidden width a multiple of 16; "
@@ -134,8 +129,8 @@ def _check_card_tensors(*tensors):
 
 
 def _check_aligned(*tensors):
-    if any(t.data_ptr() % 32 for t in tensors):
-        raise ValueError("the CUDA kernel needs 32-byte aligned tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
 
 
 def convnext_mlp_residual(x, shortcut, w1, b1, w2, b2, gamma):
@@ -143,24 +138,27 @@ def convnext_mlp_residual(x, shortcut, w1, b1, w2, b2, gamma):
 
     x, shortcut (..., C) bf16; w1 (hidden, C) and w2 (C, hidden): the
     ``mlp.fc1`` / ``mlp.fc2`` Linear weights in torch's (out, in) layout;
-    b1 (hidden,), b2 and gamma (C,). Returns (..., C) in x's dtype."""
+    b1 (hidden,), b2 and gamma (C,). Returns (..., C) in x's dtype. On the
+    card the hidden activation goes through a (rows, hidden) bf16 workspace
+    allocated here."""
     if shortcut.shape != x.shape:
         raise ValueError(f"shortcut {tuple(shortcut.shape)} != x "
                          f"{tuple(x.shape)}")
     ops = _mlp_operands(x, w1, b1, w2, b2, gamma)
     if ops is None:
         return convnext_mlp_residual_plain(x, shortcut, w1, b1, w2, b2, gamma)
+    native.refuse_grad(x, shortcut, w1, b1, w2, b2, gamma)
     _check_card_tensors(x, shortcut)
     w1, b1, w2, b2, gamma = ops
-    out = torch.empty_like(x)
-    _check_aligned(x, shortcut, w1, w2, out)
     c = x.shape[-1]
-    with torch.cuda.device(x.device):
-        status = native.library().axvs_convnext_mlp(
-            x.data_ptr(), shortcut.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-            x.numel() // c, c, w1.shape[0], _stream(x))
-    native.check(status, "axvs_convnext_mlp")
+    rows = x.numel() // c
+    out = torch.empty_like(x)
+    hidden = torch.empty(rows, w1.shape[0], dtype=x.dtype, device=x.device)
+    _check_aligned(x, shortcut, w1, w2, out)
+    native.launch("axvs_convnext_mlp", x.data_ptr(), shortcut.data_ptr(),
+                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  gamma.data_ptr(), out.data_ptr(), hidden.data_ptr(), rows, c,
+                  w1.shape[0], device=x.device)
     convnext_mlp_residual.launches += 1
     return out
 
@@ -181,7 +179,9 @@ def convnext_block_fused(x, weight, bias, ln_weight, ln_bias, w1, b1, w2, b2,
 
     x (N, H, W, C) bf16 NHWC; weight (C, 1, 7, 7); bias, ln_weight, ln_bias,
     b2, gamma (C,); w1 (hidden, C), b1 (hidden,), w2 (C, hidden) in torch's
-    layouts. Returns (N, H, W, C) in x's dtype."""
+    layouts. Returns (N, H, W, C) in x's dtype. On the card the normalised
+    tile and the hidden activation go through bf16 workspaces allocated
+    here."""
     n, h, w, c = x.shape
     if weight.shape != (c, 1, 7, 7):
         raise ValueError(f"weight {tuple(weight.shape)} != ({c}, 1, 7, 7)")
@@ -190,21 +190,23 @@ def convnext_block_fused(x, weight, bias, ln_weight, ln_bias, w1, b1, w2, b2,
     if ops is None:
         return convnext_block_fused_plain(x, weight, bias, ln_weight, ln_bias,
                                           w1, b1, w2, b2, gamma, eps)
+    native.refuse_grad(x, weight, bias, ln_weight, ln_bias, w1, b1, w2, b2,
+                       gamma)
     _check_card_tensors(x)
     w1, b1, w2, b2, gamma = ops
     weight = weight.to(device=x.device, dtype=torch.bfloat16).contiguous()
     bias, ln_weight, ln_bias = (
         t.to(device=x.device, dtype=torch.float32).contiguous()
         for t in (bias, ln_weight, ln_bias))
-    out = torch.empty_like(x)
+    out, normed = torch.empty_like(x), torch.empty_like(x)
+    hidden = torch.empty(n * h * w, w1.shape[0], dtype=x.dtype, device=x.device)
     _check_aligned(x, w1, w2, out)
-    with torch.cuda.device(x.device):
-        status = native.library().axvs_convnext_block(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            ln_weight.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
-            out.data_ptr(), n, h, w, c, w1.shape[0], float(eps), _stream(x))
-    native.check(status, "axvs_convnext_block")
+    native.launch("axvs_convnext_block", x.data_ptr(), weight.data_ptr(),
+                  bias.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  gamma.data_ptr(), out.data_ptr(), normed.data_ptr(),
+                  hidden.data_ptr(), n, h, w, c, w1.shape[0], float(eps),
+                  device=x.device)
     convnext_block_fused.launches += 1
     return out
 

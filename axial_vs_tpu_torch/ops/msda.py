@@ -20,6 +20,9 @@ import torch
 
 from . import native
 
+#: the dtypes of value and weights the CUDA kernel takes (one for both)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
 
 def level_start_index(spatial_shapes: Sequence[Tuple[int, int]]):
     """Offsets of each level in the flattened S axis."""
@@ -67,7 +70,8 @@ def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
     """value (B, S, M, D), levels flattened along S (row-major per level);
     spatial_shapes ((H_0, W_0), ...) ints; level_start (L,) ints;
     locations (B, Lq, M, L, P, 2) normalized (x, y) f32;
-    weights (B, Lq, M, L, P). Returns (B, Lq, M * D) in value's dtype."""
+    weights (B, Lq, M, L, P), on the card in value's dtype (bf16 or f32).
+    Returns (B, Lq, M * D) in value's dtype."""
     b, s, m, d = value.shape
     _, lq, _, num_levels, p, two = locations.shape
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
@@ -81,29 +85,26 @@ def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
         raise ValueError(f"locations {tuple(locations.shape)} / weights "
                          f"{tuple(weights.shape)} do not match value "
                          f"{tuple(value.shape)}")
-    if value.device.type == "cpu":
+    if native.on_cpu([value, locations, weights]):
         return ms_deform_attn_plain(value, spatial_shapes, level_start,
                                     locations, weights)
-    if value.device.type != "cuda":
-        raise ValueError(f"no kernel for device {value.device}")
-    if value.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
-        raise TypeError("the CUDA kernel takes bf16 value and weights, got "
-                        f"{value.dtype} / {weights.dtype}")
+    native.refuse_grad(value, locations, weights)
+    if value.dtype not in KERNEL_DTYPES or weights.dtype != value.dtype:
+        raise TypeError("the CUDA kernel takes value and weights both bf16 or "
+                        f"both f32, got {value.dtype} / {weights.dtype}")
     if locations.dtype != torch.float32:
         raise TypeError(f"locations must be f32, got {locations.dtype}")
     for t in (value, locations, weights):
-        if t.device != value.device or not t.is_contiguous():
-            raise ValueError("inputs must be contiguous and on one device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
     levels = (ctypes.c_int * (3 * num_levels))(
         *[x for (h, w), st in zip(spatial_shapes, level_start)
           for x in (h, w, st)])
     out = torch.empty(b, lq, m * d, dtype=value.dtype, device=value.device)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream(value.device).cuda_stream
-        status = native.library().axvs_msda_fwd(
-            value.data_ptr(), locations.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), levels, num_levels, b, s, lq, m, d, p, stream)
-    native.check(status, "axvs_msda_fwd")
+    name = "axvs_msda_fwd" + ("" if value.dtype == torch.bfloat16 else "_f32")
+    native.launch(name, value.data_ptr(), locations.data_ptr(),
+                  weights.data_ptr(), out.data_ptr(), levels, num_levels, b, s,
+                  lq, m, d, p, device=value.device)
     ms_deform_attn.launches += 1
     return out
 

@@ -116,6 +116,7 @@ def weighted_corner_reduce_multi(gs: Sequence[torch.Tensor], w):
     _check_rows(gs, w, gs[0].shape[-1] if gs else 0, 4 * len(gs))
     if native.on_cpu([*gs, w]):
         return weighted_corner_reduce_multi_plain(gs, w)
+    native.refuse_grad(*gs, w)
     r, d = gs[0].shape[0], gs[0].shape[1] // 4
     _check_kernel_inputs(gs, w, d)
     out = torch.empty(r, d, dtype=torch.bfloat16, device=w.device)
@@ -139,6 +140,7 @@ def weighted_corner_reduce_v5(gs: Sequence[torch.Tensor], w, p: int,
     _check_rows(gs, w, lanes, 4 * p * len(gs))
     if native.on_cpu([*gs, w]):
         return weighted_corner_reduce_v5_plain(gs, w, p, slot_major)
+    native.refuse_grad(*gs, w)
     r, d = gs[0].shape[0], lanes // (4 * p)
     w = w.to(torch.bfloat16)
     _check_kernel_inputs(gs, w, d)
@@ -159,6 +161,7 @@ def pack_corner_table(v, width: int, n_heads: int = 8):
         raise ValueError(f"v {tuple(v.shape)}, {n_heads} heads, width {width}")
     if native.on_cpu([v]):
         return pack_corner_table_plain(v, width, n_heads)
+    native.refuse_grad(v)
     b, s, md = v.shape
     d = md // n_heads
     if v.dtype != torch.bfloat16:

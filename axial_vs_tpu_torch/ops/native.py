@@ -25,20 +25,35 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+#: bound on |kernel - plain| / max|plain| of the f32 instantiations of K1,
+#: K2 and K3. Both sides compute in f32 and only sum in other orders (the
+#: kernels' FMA chains against cuDNN, cuBLAS or the CPU), which moves a
+#: result by a few f32 ulps of its sums, about 1e-6 of max|out|; TF32
+#: products (a 10-bit mantissa) would move it by about 5e-4 and fail.
+F32_REL_BOUND = 1e-4
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: name -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "axvs_dwconv7x7_ln": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           ctypes.c_float, _P],
+    "axvs_dwconv7x7_ln_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              ctypes.c_float, _P],
     "axvs_msda_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I,
                       _I, _I, _I, _P],
+    "axvs_msda_fwd_f32": [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I,
+                          _I, _I, _I, _I, _P],
     "axvs_traj_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       ctypes.c_float, _P],
     "axvs_traj_smem_bytes": [_I, _I, _I],
-    "axvs_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "axvs_convnext_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _I, ctypes.c_float, _P],
+    "axvs_traj_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          ctypes.c_float, _P],
+    "axvs_traj_smem_bytes_f32": [_I, _I, _I],
+    "axvs_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _P],
+    "axvs_convnext_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "axvs_corner_reduce_multi": [ctypes.POINTER(_P), _I, _P, _P, _I, _I, _P],
     "axvs_corner_reduce_v5": [ctypes.POINTER(_P), _I, _I, _P, _P, _I, _I, _I,
                               _P],
@@ -147,6 +162,22 @@ def on_cpu(tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return False
+
+
+def refuse_grad(*tensors) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and a tensor argument
+    requires grad. The kernels have no backward: a launch would hand back
+    an output without ``grad_fn`` and silently cut the graph. Every kernel
+    wrapper calls this before it launches on the card; run inference under
+    ``torch.inference_mode()`` or ``torch.no_grad()``."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a CUDA kernel of the port has no backward: call it under "
+            "torch.inference_mode() or torch.no_grad(), or on tensors that "
+            "do not require grad")
 
 
 def launch(name: str, *args, device) -> None:

@@ -34,6 +34,9 @@ KERNEL_HEAD_DIM = 32
 KERNEL_MAX_FRAMES = 8
 KERNEL_MAX_HEADS = 8
 MAX_SHARED_BYTES = 232448
+#: the dtypes the CUDA kernel takes: bf16 (tensor cores) or f32 (a kernel of
+#: its own with every product an f32 FMA on the CUDA cores, no TF32)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: bound on |kernel - plain| in bf16 ulps of max|out|. Both round at the
 #: same points but sum in another order, so a cast may round the other way:
 #: the output cast by 1 ulp of its value, and a flipped x, q2, k2 or v2
@@ -81,7 +84,8 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
     """q, k, v (B, N, C) after their projections, tokens frame-major
     (N = num_frames * n); wq (C, C), bq (C,), wkv (2C, C), bkv (2C,): the
     ``proj_q`` and ``proj_kv`` Linear parameters in torch's (out, in)
-    layout. Returns (B, N, C) in q's dtype, before the output projection."""
+    layout; on the card q, k, v are all bf16 or all f32. Returns (B, N, C)
+    in q's dtype, before the output projection."""
     b, nt, c = q.shape
     f, h = int(num_frames), int(num_heads)
     if k.shape != q.shape or v.shape != q.shape:
@@ -93,38 +97,36 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
     if (wq.shape != (c, c) or bq.shape != (c,) or wkv.shape != (2 * c, c)
             or bkv.shape != (2 * c,)):
         raise ValueError("stage-2 weights do not match C")
-    if q.device.type == "cpu":
+    if native.on_cpu([q, k, v]):
         return trajectory_attention_core_plain(q, k, v, wq, bq, wkv, bkv, f, h)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+    native.refuse_grad(q, k, v, wq, bq, wkv, bkv)
+    dt = q.dtype
     for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bf16 q, k, v, got {t.dtype}")
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("q, k, v must be contiguous and on one device")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != dt:
+            raise TypeError("the CUDA kernel takes q, k, v all bf16 or all "
+                            f"f32, got {q.dtype} / {k.dtype} / {v.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("q, k, v must be contiguous")
     if c // h != KERNEL_HEAD_DIM or h > KERNEL_MAX_HEADS or f > KERNEL_MAX_FRAMES:
         raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, "
                          f"at most {KERNEL_MAX_HEADS} heads and "
                          f"{KERNEL_MAX_FRAMES} frames; got d={c // h}, h={h}, "
                          f"f={f}")
-    # no-ops for matrices kept bf16 at rest; the biases are cast per call
-    wq, bq, wkv, bkv = (t.to(device=q.device, dtype=torch.bfloat16).contiguous()
+    # no-ops for matrices kept in q's dtype at rest; the biases are cast per call
+    wq, bq, wkv, bkv = (t.to(device=q.device, dtype=dt).contiguous()
                         for t in (wq, bq, wkv, bkv))
     tensors = (q, k, v, wq, bq, wkv, bkv)
     if any(t.data_ptr() % 32 for t in tensors):
         raise ValueError("the CUDA kernel needs 32-byte aligned tensors")
-    lib = native.library()
-    smem = lib.axvs_traj_smem_bytes(nt // f, f, h)
+    suffix = "" if dt == torch.bfloat16 else "_f32"
+    smem = getattr(native.library(), "axvs_traj_smem_bytes" + suffix)(nt // f, f, h)
     if not 0 < smem <= MAX_SHARED_BYTES:
         raise ValueError(f"n={nt // f} tokens per frame at f={f} need {smem} B "
                          f"of shared memory, more than {MAX_SHARED_BYTES}")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.axvs_traj_fwd(*(t.data_ptr() for t in tensors),
-                                   out.data_ptr(), b, nt, f, h,
-                                   float((c // h) ** -0.5), stream)
-    native.check(status, "axvs_traj_fwd")
+    native.launch("axvs_traj_fwd" + suffix, *(t.data_ptr() for t in tensors),
+                  out.data_ptr(), b, nt, f, h, float((c // h) ** -0.5),
+                  device=q.device)
     trajectory_attention_core.launches += 1
     return out
 

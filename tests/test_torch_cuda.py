@@ -7,7 +7,9 @@ the fixture, at run time). On a machine with a card and without JAX, run:
 
 Tolerance: both sides sum in f32 and round to bf16 at the same points, so
 they agree to within 2 bf16 ulp of the output's largest magnitude (K3:
-``ops/traj.py::TRAJ_ULPS``, derived there). For K4 and K5 a bf16 cast of an
+``ops/traj.py::TRAJ_ULPS``, derived there). The f32 instantiations of K1,
+K2 and K3 agree with their plain versions to ``ops/native.py::
+F32_REL_BOUND`` of max|out| (f32 sums in other orders; TF32 is off). For K4 and K5 a bf16 cast of an
 intermediate (the normalised tile, the hidden activation) may round the
 other way; such an element enters one of C or 4C products and moves the
 output far less than one of its ulps. K6 and K7 round at the same points
@@ -36,18 +38,38 @@ def _ulp(want):
 
 
 def _bound(want):
+    """2 bf16 ulp of max|out| in bf16; F32_REL_BOUND of it in f32."""
+    if want.dtype == torch.float32:
+        from axial_vs_tpu_torch.ops.native import F32_REL_BOUND
+
+        return F32_REL_BOUND * want.abs().max().item()
     return 2 * _ulp(want)
 
 
+@pytest.fixture
+def full_f32():
+    """f32 products and convolutions in full f32 on the card, not TF32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 24, 42, 1536), (1, 37, 53, 200),
                                    (1, 3, 5, 2)])
-def test_dwconv7x7_layernorm_kernel(gen, shape):
+def test_dwconv7x7_layernorm_kernel(gen, full_f32, shape, dtype):
+    """K1 in bf16 and in f32 (the weights in x's dtype) against its plain
+    version; another dtype raises."""
     from axial_vs_tpu_torch.ops.convnext_cuda import (
         dwconv7x7_layernorm, dwconv7x7_layernorm_plain)
 
     n, h, w, c = shape
-    x = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
-    wt = (torch.randn(c, 1, 7, 7, generator=gen, device="cuda") * 0.1).bfloat16()
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn(c, 1, 7, 7, generator=gen, device="cuda") * 0.1).to(dtype)
     b, lw, lb = (torch.randn(c, generator=gen, device="cuda") * 0.1
                  for _ in range(3))
     before = dwconv7x7_layernorm.launches
@@ -55,31 +77,37 @@ def test_dwconv7x7_layernorm_kernel(gen, shape):
     assert dwconv7x7_layernorm.launches == before + 1
     want = dwconv7x7_layernorm_plain(x, wt, b, lw + 1, lb)
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= _bound(want)
     with pytest.raises(TypeError):
-        dwconv7x7_layernorm(x.float(), wt, b, lw, lb)
+        dwconv7x7_layernorm(x.half(), wt, b, lw, lb)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d,shapes", [(32, ((6, 7), (12, 14))),
                                       (40, ((5, 7), (3, 4), (2, 3)))])
-def test_ms_deform_attn_kernel(gen, d, shapes):
+def test_ms_deform_attn_kernel(gen, d, shapes, dtype):
     from axial_vs_tpu_torch.ops.msda import (
         level_start_index, ms_deform_attn, ms_deform_attn_plain)
 
     b, lq, m, p = 2, 29, 4, 3
     s = sum(h * w for h, w in shapes)
-    value = torch.randn(b, s, m, d, generator=gen, device="cuda").bfloat16()
+    value = torch.randn(b, s, m, d, generator=gen, device="cuda").to(dtype)
     loc = torch.rand(b, lq, m, len(shapes), p, 2, generator=gen,
                      device="cuda") * 1.4 - 0.2
     w = torch.randn(b, lq, m, len(shapes) * p, generator=gen, device="cuda")
-    w = w.softmax(-1).reshape(b, lq, m, len(shapes), p).bfloat16()
+    w = w.softmax(-1).reshape(b, lq, m, len(shapes), p).to(dtype)
     starts = level_start_index(shapes)
     before = ms_deform_attn.launches
     got = ms_deform_attn(value, shapes, starts, loc, w)
     assert ms_deform_attn.launches == before + 1
     want = ms_deform_attn_plain(value, shapes, starts, loc, w)
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+    with pytest.raises(TypeError):  # value and weights in two dtypes
+        ms_deform_attn(value, shapes, starts, loc, w.half())
+    assert ms_deform_attn.launches == before + 1
 
 
 def mlp_inputs(gen, c, hidden=None):
@@ -150,39 +178,91 @@ def test_convnext_block_fused_kernel(gen, shape):
     assert convnext_block_fused.launches == before + 1
 
 
-def traj_inputs(gen, b, f, n, c=256):
+def traj_inputs(gen, b, f, n, c=256, dtype=torch.bfloat16):
     """q, k, v (b, f*n, c) ~ N(0, 1) and the stage-2 Linear parameters at
-    their xavier-uniform / U(+-1/sqrt(c)) scales, bf16 matrices."""
+    their xavier-uniform / U(+-1/sqrt(c)) scales, matrices in ``dtype``."""
     def u(*shape, bound):
         return (torch.rand(*shape, generator=gen, device="cuda") * 2 - 1) * bound
 
-    q, k, v = (torch.randn(b, f * n, c, generator=gen, device="cuda").bfloat16()
+    q, k, v = (torch.randn(b, f * n, c, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
-    wq = u(c, c, bound=(6 / (2 * c)) ** 0.5).bfloat16()
-    wkv = u(2 * c, c, bound=(6 / (3 * c)) ** 0.5).bfloat16()
+    wq = u(c, c, bound=(6 / (2 * c)) ** 0.5).to(dtype)
+    wkv = u(2 * c, c, bound=(6 / (3 * c)) ** 0.5).to(dtype)
     return q, k, v, wq, u(c, bound=c ** -0.5), wkv, u(2 * c, bound=c ** -0.5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,f,n", [(48, 2, 84),   # widest within-clip row
                                    (23, 5, 40),   # widest Tube-Link row
                                    (40, 5, 23),   # ragged: N = 115
                                    (3, 3, 7)])    # f = 3, small n
-def test_trajectory_attention_core_kernel(gen, b, f, n):
+def test_trajectory_attention_core_kernel(gen, full_f32, b, f, n, dtype):
+    """K3 in bf16 (TRAJ_ULPS) and in f32 (F32_REL_BOUND) against its plain
+    version; q, k, v of two dtypes raise."""
     from axial_vs_tpu_torch.ops.traj import (
         TRAJ_ULPS, trajectory_attention_core, trajectory_attention_core_plain)
 
-    args = traj_inputs(gen, b, f, n)
+    args = traj_inputs(gen, b, f, n, dtype=dtype)
     before = trajectory_attention_core.launches
     got = trajectory_attention_core(*args, f, 8)
     assert trajectory_attention_core.launches == before + 1
     want = trajectory_attention_core_plain(*args, f, 8)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= TRAJ_ULPS * _ulp(want)
-    q, k, v = (t.float() for t in args[:3])
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert err <= (TRAJ_ULPS * _ulp(want) if dtype == torch.bfloat16
+                   else _bound(want))
+    q, k, v = args[:3]
     with pytest.raises(TypeError):
-        trajectory_attention_core(q, k, v, *args[3:], f, 8)
+        trajectory_attention_core(q, k, v.half(), *args[3:], f, 8)
     assert trajectory_attention_core.launches == before + 1
+
+
+def test_kernels_refuse_grad(gen):
+    """K1-K8 raise on a CUDA input that requires grad while grad mode is on
+    (they have no backward), and launch under inference_mode."""
+    from axial_vs_tpu_torch.ops import convnext_cuda as cc
+    from axial_vs_tpu_torch.ops import msda_reduce as mr
+    from axial_vs_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    c, shapes = 32, ((6, 7), (3, 4))
+    dw = (r(c, 1, 7, 7) * 0.1, r(c, dtype=torch.float32),
+          r(c, dtype=torch.float32) + 1, r(c, dtype=torch.float32))
+    x = r(1, 5, 7, c)
+    mlp = mlp_inputs(gen, c)
+    loc = torch.rand(1, 9, 4, 2, 3, 2, generator=gen, device="cuda")
+    w = r(1, 9, 4, 2, 3).softmax(-1)
+    value = r(1, sum(h * wd for h, wd in shapes), 4, 32)
+    gs, wr = [r(40, 128) for _ in range(2)], r(40, 8)
+    calls = {
+        "K1": (cc.dwconv7x7_layernorm, lambda t: (t, *dw)),
+        "K5": (cc.convnext_mlp_residual, lambda t: (t, x, *mlp)),
+        "K4": (cc.convnext_block_fused, lambda t: (t, *dw, *mlp)),
+        "K2": (ms_deform_attn, lambda t: (t, shapes, level_start_index(shapes),
+                                          loc, w)),
+        "K3": (trajectory_attention_core,
+               lambda t: (t, *traj_inputs(gen, 2, 2, 7)[1:], 2, 8)),
+        "K6": (mr.weighted_corner_reduce_multi, lambda t: ([t, gs[1]], wr)),
+        "K7": (mr.weighted_corner_reduce_v5, lambda t: ([t, gs[1]], wr, 1)),
+        "K8": (mr.pack_corner_table, lambda t: (t.reshape(1, 40, 128), 8, 4)),
+    }
+    inputs = {"K1": x, "K5": x, "K4": x, "K2": value,
+              "K3": traj_inputs(gen, 2, 2, 7)[0], "K6": gs[0], "K7": gs[0],
+              "K8": gs[0]}
+    for key, (fn, args) in calls.items():
+        leaf = inputs[key].clone().requires_grad_(True)
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args(leaf))
+        assert fn.launches == before, key
+        with torch.inference_mode():
+            out = fn(*args(leaf))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1 and out.grad_fn is None, key
 
 
 #: (R, N, P, D) of the MSDA reduces: the WC bench shape (R = 2*8*21168

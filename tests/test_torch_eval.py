@@ -168,6 +168,30 @@ def test_vpq_matches_jax(rng, tmp_path):
                  jvpq(videos, cats, window_sizes=(1, 3, 7), use_native=False))
 
 
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_vpq_workers_and_reset_match_jax(num_workers):
+    """VPQ of two videos counted in this process (0) and in a pool of 2
+    processes, against the JAX evaluator's serial Python path; ``reset()``
+    empties the evaluator, which then scores a new evaluation alone."""
+    from axial_vs_tpu.evaluation.vpq import vpq_compute as jvpq
+    from axial_vs_tpu_torch.evaluation.vipseg_evaluator import VIPSegEvaluator
+
+    cats = {i: {"isthing": int(i in (1, 3, 4))} for i in range(5)}
+    maps = [_id_maps(np.random.RandomState(10 + vid)) for vid in range(2)]
+    ev = VIPSegEvaluator(cats, label_divisor=1000, num_workers=num_workers)
+    for gt, pred, gs, ps in maps:
+        ev.process_video("v", pred, ps, gt, gs)
+    got = ev.evaluate()
+    want = jvpq(ev._videos, cats, use_native=False)
+    _close_dicts(got, want)
+    assert 0 < got["vpq"] < 1
+    ev.reset()
+    assert ev._videos == []
+    gt, pred, gs, ps = maps[1]
+    ev.process_video("v", pred, ps, gt, gs)
+    _close_dicts(ev.evaluate(), jvpq(ev._videos, cats, use_native=False))
+
+
 @pytest.mark.parametrize("shape", [(5, 7), (7, 5), (6, 6)])
 def test_lap_with_cost_limit_matches_jax(shape):
     from axial_vs_tpu.evaluation.vipseg_evaluator import lap_with_cost_limit as jlap

@@ -357,6 +357,20 @@ def test_smoke_config_is_the_bench_config():
     _assert_config_leaves(_smoke().wc_convnext_large_config(), cfg, 35)
 
 
+def test_smoke_r50_config_is_the_yaml_config():
+    """chip_smoke.py's R50 f32 configuration is the repo's default config
+    with ``configs/vipseg/maxtron_wc_r50.yaml`` merged in, at the WC
+    bench's frame size and clip length: every value it sets, f32 (the
+    default dtype, which the yaml leaves) included."""
+    from axial_vs_tpu.config import get_default_config
+
+    cfg = get_default_config()
+    cfg.merge_from_file(str(ROOT / "configs" / "vipseg" / "maxtron_wc_r50.yaml"))
+    plain = _smoke().wc_r50_config()
+    assert plain.model.dtype == "float32" == cfg.model.dtype
+    _assert_config_leaves(plain, cfg, 30)
+
+
 def _smoke():
     import importlib.util
 
