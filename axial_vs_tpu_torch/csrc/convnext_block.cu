@@ -24,14 +24,16 @@
 
 #include "convnext_mlp.cuh"
 
-// K1's launcher (dwconv_ln.cu): bf16 NHWC in and out, f32 taps and LayerNorm.
+// K1's launcher (dwconv_ln.cu): bf16 NHWC in and out, (7, 7, C) taps, f32
+// sums and LayerNorm.
 extern "C" int axvs_dwconv7x7_ln(const void* x, const void* wt, const void* bias,
                                  const void* ln_w, const void* ln_b, void* out, int N,
                                  int H, int W, int C, float eps, void* stream);
 
-// x, out, y: (N, H, W, C) bf16, contiguous (y a workspace); wt: (C, 1, 7, 7)
-// bf16; dw_bias, ln_w, ln_b, b2, gamma: (C,) f32; w1 (HID, C), w2 (C, HID)
-// bf16; b1 (HID,) f32; h: a (N H W, HID) bf16 workspace. C and HID
+// x, out, y: (N, H, W, C) bf16, contiguous (y a workspace); wt: the
+// depthwise taps tap-major, (7, 7, C) bf16, as K1 takes them; dw_bias,
+// ln_w, ln_b, b2, gamma: (C,) f32; w1 (HID, C), w2 (C, HID) bf16; b1
+// (HID,) f32; h: a (N H W, HID) bf16 workspace. C and HID
 // multiples of 16, C <= 1536; every pointer 16-byte aligned. Launches the
 // three phases on `stream` and returns 0 or the first CUDA error.
 extern "C" int axvs_convnext_block(const void* x, const void* wt, const void* dwb,

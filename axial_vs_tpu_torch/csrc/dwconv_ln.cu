@@ -4,36 +4,65 @@
 // Replaces the TPU kernel axial_vs_tpu/ops/convnext_pallas.py::
 // dwconv7x7_layernorm (Pallas body `_kernel`). It computes
 //   out = LayerNorm_C(dwconv7x7_same(x) + bias) * ln_w + ln_b
-// with f32 accumulation, eps as given, and zero padding outside the image.
+// with f32 accumulation, eps as given, zero padding outside the image, and
+// the two-pass LayerNorm of the TPU kernel (the mean, then the mean of the
+// squared deviations), rounded once at the end.
 //
-// What bounds it on an H100: operations on the CUDA cores. Each call reads
-// the activation once and writes it once (bf16, 4 bytes an element) and does
-// 49 f32 multiply-adds per element: 98 flops over 4 bytes, about 24.5 a byte,
-// above the CUDA cores' ridge of about 20 (67 TFLOP/s of f32 over 3.35 TB/s).
-// The tensor cores' bf16 ridge (~295) does not apply: none of this runs there.
-// In f32 (8 bytes an element) it is 12.25 flops a byte, below the ridge:
-// bytes bound it.
+// What bounds it on an H100: operations on the CUDA cores in bf16. Each call
+// reads the activation once and writes it once (4 bytes an element) and does
+// 49 f32 multiply-adds per element plus about 10 LayerNorm operations: 108
+// over 4 bytes, above the CUDA cores' ridge of about 20 flops a byte (67
+// TFLOP/s of f32 over 3.35 TB/s). Nothing of it can run on the tensor
+// cores. In f32 (8 bytes an element) it is 13.5 flops a byte: bytes bound it.
+// At the FMA rate every issue slot of the SM goes to an FMA, so what the
+// kernel spends beside its FMAs (loads, conversions, reductions, address
+// arithmetic) is what separates it from the bound.
 //
-// Design: one block per TW consecutive output pixels of one image row, each
-// thread owns two adjacent channels (one 4-byte bf16x2 load per tap). For
-// each of the 7 input rows a thread streams TW+6 pixels along W and adds each
-// into the TW accumulators it touches, so one input load feeds up to 7 taps
-// and the 7x re-read of neighbouring rows is served from L1/L2 rather than
-// device memory. The LayerNorm statistics are two block reductions (mean,
-// then the mean of squared deviations) over the channel threads, done for
-// all TW pixels at once; the normalised value never leaves registers.
-// Out-of-image taps are skipped, i.e. zero, as in the TPU kernel's select.
-// The f32 instantiation (the reference's default dtype) loads float2 pairs
-// and stores f32; its arithmetic is the bf16 one's, without the final cast.
+// The first version (one block per 8 pixels of a row, a thread per two
+// channels) reloaded its 14 taps per input row as scalar loads from the
+// (C, 7, 7) layout, 98 bytes apart between neighbouring threads, read each
+// input element as 4-byte pairs, and ran two block reductions per 8 pixels.
+// This design:
+// - takes the taps tap-major, (7, 7, C), a copy the wrapper keeps beside the
+//   weight, so that a warp's tap loads are coalesced 16-byte vectors;
+// - lets a thread own V channels (8 in bf16, 4 in f32: 16-byte loads and
+//   stores) of TW consecutive output pixels of a row (4 at V = 8, else 8),
+//   and slides the 7-tap window along W in registers: per input row it
+//   loads the TW + 6 input vectors and the row's 7 tap vectors once each,
+//   and each input vector feeds up to 7 outputs;
+// - gives a block G such column strips side by side over all C channels, so
+//   that a block has 96-192 threads at every ConvNeXt width (rounded up to
+//   whole warps where C / V * G is not: the extra threads only join the
+//   barriers and the reductions), and walks it down RH output rows, picked so that about 8 blocks run on each SM; two
+//   neighbouring output rows share 6 input rows, which come from L1 or L2;
+// - reduces each pixel's LayerNorm sums once per row for all TW pixels of
+//   the strip: each thread adds its V channels, writes the partial to shared
+//   memory, and one full warp per (strip, pixel) sums the partials with
+//   shuffles.
+// On the card (PERF.md section 6) it runs about a fifth under the first
+// version at the ConvNeXt-L stages, at about a fifth of the FMA rate, as
+// did every variant tried: V of 2, 4 or 8 by TW of 2, 4 or 8, and a thread
+// block cluster that split C over up to 8 blocks, each staging its input
+// tile once in shared memory by cp.async (slower). What holds them all
+// there is not known yet: not the loads (the cluster's tile cut L2 reads
+// 3.5x and lost), nor, per the P1 probe, the LayerNorm.
+// C not a multiple of 8 (4) takes a narrower vector: 4 or 2 channels a
+// thread (C even).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"  // the SM count
 
 namespace {
 
-constexpr int TW = 8;           // output pixels per block along W
-constexpr int MAX_THREADS = 1024;
+constexpr int MAX_C = 2048;      // channels; a strip is C / V threads
+constexpr int MIN_THREADS = 96;  // strips in a block until it has this many threads
+constexpr int MAX_RH = 16;       // output rows a block walks down
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -41,166 +70,256 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Replaces v[p] by its sum over all threads of the block, for each p.
-__device__ __forceinline__ void block_sum(float (&v)[TW], float* red, float* tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+// V consecutive elements of type T as f32, one vector load (V * sizeof(T) =
+// 4, 8 or 16 bytes, aligned).
+template <typename T, int V>
+struct Vec;
+
+template <int V>
+struct Vec<__nv_bfloat16, V> {
+  static_assert(V == 2 || V == 4 || V == 8, "bf16 vectors of 2, 4 or 8");
+  typedef typename std::conditional<V == 8, uint4, typename std::conditional<
+      V == 4, uint2, uint32_t>::type>::type Raw;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[V]) {
+    const Raw raw = *reinterpret_cast<const Raw*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int p = 0; p < TW; ++p) {
-    const float s = warp_sum(v[p]);
-    if (lane == 0) red[warp * TW + p] = s;
+    for (int i = 0; i < V / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&v)[V]) {
+    Raw raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<Raw*>(p) = raw;
+  }
+};
+
+template <int V>
+struct Vec<float, V> {
+  static_assert(V == 2 || V == 4, "f32 vectors of 2 or 4");
+  typedef typename std::conditional<V == 4, float4, float2>::type Raw;
+  __device__ __forceinline__ static void load(const float* p, float (&v)[V]) {
+    const Raw raw = *reinterpret_cast<const Raw*>(p);
+    const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = f[i];
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&v)[V]) {
+    Raw raw;
+    float* f = reinterpret_cast<float*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) f[i] = v[i];
+    *reinterpret_cast<Raw*>(p) = raw;
+  }
+};
+
+// Replaces s[p] by its sum over the CG threads of this thread's strip, for
+// each of the TW pixels (live: the thread is in one of the G strips; the
+// block is whole warps). part: G * CG * TW floats; tot: G * TW floats. Each
+// (strip, pixel) row has one warp, whose 32 lanes sum its partials in a fixed
+// order: the result does not vary by run.
+template <int TW>
+__device__ __forceinline__ void strip_sum(float (&s)[TW], float* part, float* tot, int CG,
+                                          int G, int g, int t, bool live) {
+  const int rows = G * TW;  // (strip, pixel) pairs of the block
+  if (live) {
+#pragma unroll
+    for (int p = 0; p < TW; ++p) part[(g * TW + p) * CG + t] = s[p];
   }
   __syncthreads();
-  if (threadIdx.x < TW) {
-    float s = 0.f;
-    for (int w = 0; w < nwarps; ++w) s += red[w * TW + threadIdx.x];
-    tot[threadIdx.x] = s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += blockDim.x >> 5) {
+    float v = 0.f;
+    for (int i = lane; i < CG; i += 32) v += part[r * CG + i];
+    v = warp_sum(v);
+    if (lane == 0) tot[r] = v;
   }
   __syncthreads();
+  if (live) {
 #pragma unroll
-  for (int p = 0; p < TW; ++p) v[p] = tot[p];
-  __syncthreads();  // red and tot are reused by the next call
+    for (int p = 0; p < TW; ++p) s[p] = tot[g * TW + p];
+  }
+  // the next call writes part only after its own first barrier has been
+  // passed by every thread, which happens after all have read tot here
 }
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// Two adjacent channels of one pixel, as f32.
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// T: the activation and weight type, __nv_bfloat16 or float.
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS)
+// T: the activation and weight type, __nv_bfloat16 or float; V: channels a
+// thread; TW: output pixels a thread, along W. Block: G strips of CG = C / V
+// threads, rounded up to whole warps; grid: (column groups of G * TW, row
+// groups of RH, N).
+template <typename T, int V, int TW>
+__global__ void __launch_bounds__(MAX_C / V)
 dwconv7x7_ln_kernel(const T* __restrict__ x,
-                    const T* __restrict__ wt,  // (C, 7, 7)
+                    const T* __restrict__ taps,  // (7, 7, C)
                     const float* __restrict__ bias,
                     const float* __restrict__ ln_w,
                     const float* __restrict__ ln_b,
                     T* __restrict__ out,
-                    int H, int W, int C, float eps) {
-  __shared__ float red[(MAX_THREADS / 32) * TW];
-  __shared__ float tot[TW];
-  const int w0 = blockIdx.x * TW;
-  const int h = blockIdx.y;
+                    int H, int W, int C, int G, int RH, float eps) {
+  __shared__ float part[MAX_C / V * TW];   // a partial per (thread, pixel)
+  __shared__ float tot[MIN_THREADS * TW];  // a sum per (strip, pixel): G <= 96
+  const int CG = C / V;
+  const int t = threadIdx.x % CG;  // channel group
+  const int g = threadIdx.x / CG;  // strip
+  const bool live = g < G;         // else a thread past the strips, in the last warp
+  const int c0 = t * V;
+  const int w0 = (blockIdx.x * G + g) * TW;
   const int n = blockIdx.z;
-  const int c = 2 * threadIdx.x;
-  const bool active = c < C;
+  const int h_end = min(H, ((int)blockIdx.y + 1) * RH);
+  const float inv_c = 1.f / (float)C;
 
-  float a0[TW], a1[TW];
-  const float b0 = active ? bias[c] : 0.f;
-  const float b1 = active ? bias[c + 1] : 0.f;
+  float b0[V];
 #pragma unroll
-  for (int p = 0; p < TW; ++p) {
-    a0[p] = b0;
-    a1[p] = b1;
-  }
+  for (int i = 0; i < V; ++i) b0[i] = bias[c0 + i];
 
-  if (active) {
-    const T* w_c0 = wt + (size_t)c * 49;
-    const T* w_c1 = w_c0 + 49;
+  for (int h = (int)blockIdx.y * RH; h < h_end; ++h) {
+    float acc[TW][V];
+#pragma unroll
+    for (int p = 0; p < TW; ++p) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[p][i] = b0[i];
+    }
     for (int dy = 0; dy < 7; ++dy) {
       const int y = h + dy - 3;
-      if (y < 0 || y >= H) continue;
-      float k0[7], k1[7];
+      if (!live || y < 0 || y >= H) continue;  // zero rows
+      float k[7][V];
 #pragma unroll
       for (int dx = 0; dx < 7; ++dx) {
-        k0[dx] = to_f32(w_c0[dy * 7 + dx]);
-        k1[dx] = to_f32(w_c1[dy * 7 + dx]);
+        Vec<T, V>::load(taps + (size_t)(dy * 7 + dx) * C + c0, k[dx]);
       }
-      const T* row = x + ((size_t)n * H + y) * W * C + c;
+      const T* row = x + ((size_t)n * H + y) * W * C + c0;
 #pragma unroll
       for (int j = 0; j < TW + 6; ++j) {
         const int xx = w0 + j - 3;
-        float2 v = make_float2(0.f, 0.f);
-        if (xx >= 0 && xx < W) v = load_pair(row + (size_t)xx * C);
+        float v[V];
+        if (xx >= 0 && xx < W) {
+          Vec<T, V>::load(row + (size_t)xx * C, v);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) v[i] = 0.f;
+        }
 #pragma unroll
         for (int dx = 0; dx < 7; ++dx) {
           const int p = j - dx;
           if (p >= 0 && p < TW) {
-            a0[p] = fmaf(v.x, k0[dx], a0[p]);
-            a1[p] = fmaf(v.y, k1[dx], a1[p]);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[p][i] = fmaf(v[i], k[dx][i], acc[p][i]);
           }
         }
       }
     }
-  }
 
-  const float inv_c = 1.f / (float)C;
-  float s[TW];
+    float s[TW];
 #pragma unroll
-  for (int p = 0; p < TW; ++p) s[p] = a0[p] + a1[p];  // inactive threads add 0
-  block_sum(s, red, tot);
-  float mean[TW];
+    for (int p = 0; p < TW; ++p) {
+      float a = 0.f;
 #pragma unroll
-  for (int p = 0; p < TW; ++p) {
-    mean[p] = s[p] * inv_c;
-    const float d0 = a0[p] - mean[p];
-    const float d1 = a1[p] - mean[p];
-    s[p] = active ? d0 * d0 + d1 * d1 : 0.f;
-  }
-  block_sum(s, red, tot);
-  if (!active) return;
+      for (int i = 0; i < V; ++i) a += acc[p][i];
+      s[p] = a;
+    }
+    strip_sum<TW>(s, part, tot, CG, G, g, t, live);
+    float mean[TW];
+#pragma unroll
+    for (int p = 0; p < TW; ++p) {
+      mean[p] = s[p] * inv_c;
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = acc[p][i] - mean[p];
+        a = fmaf(d, d, a);
+      }
+      s[p] = a;
+    }
+    strip_sum<TW>(s, part, tot, CG, G, g, t, live);
 
-  const float g0 = ln_w[c], g1 = ln_w[c + 1];
-  const float e0 = ln_b[c], e1 = ln_b[c + 1];
-  T* orow = out + ((size_t)n * H + h) * W * C + c;
+    T* orow = out + ((size_t)n * H + h) * W * C + c0;
 #pragma unroll
-  for (int p = 0; p < TW; ++p) {
-    const int xx = w0 + p;
-    if (xx < W) {
-      const float r = rsqrtf(s[p] * inv_c + eps);
-      const float y0 = (a0[p] - mean[p]) * r * g0 + e0;
-      const float y1 = (a1[p] - mean[p]) * r * g1 + e1;
-      store_pair(orow + (size_t)xx * C, y0, y1);
+    for (int p = 0; p < TW; ++p) {
+      if (live && w0 + p < W) {
+        const float r = rsqrtf(s[p] * inv_c + eps);
+        float o[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = (acc[p][i] - mean[p]) * r * ln_w[c0 + i] + ln_b[c0 + i];
+        Vec<T, V>::store(orow + (size_t)(w0 + p) * C, o);
+      }
     }
   }
 }
 
+template <typename T, int V>
+int launch_v(const void* x, const void* taps, const void* bias, const void* ln_w,
+             const void* ln_b, void* out, int N, int H, int W, int C, float eps,
+             cudaStream_t stream) {
+  // pixels a thread: 4 at 8 channels, 8 at 4 or 2 (the fastest on the card at
+  // the four ConvNeXt-L stages, PERF.md section 6)
+  constexpr int TW = V == 8 ? 4 : 8;
+  const int CG = C / V;
+  int G = 1;
+  while (CG * G < MIN_THREADS && CG * (G + 1) <= MAX_C / V) ++G;
+  const int threads = (CG * G + 31) / 32 * 32;  // whole warps for strip_sum
+  const int cols = (W + G * TW - 1) / (G * TW);
+  // rows a block walks down: as many as keep about 8 blocks on each SM
+  int sms = 0;
+  const cudaError_t err = axvs_hopper::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long strips = (long long)cols * N;
+  long long rh = strips * H / (8LL * sms);
+  rh = rh < 1 ? 1 : (rh > MAX_RH ? MAX_RH : rh);
+  const int RH = (int)rh;
+  const dim3 grid(cols, (H + RH - 1) / RH, N);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  dwconv7x7_ln_kernel<T, V, TW><<<grid, threads, 0, stream>>>(
+      (const T*)x, (const T*)taps, (const float*)bias, (const float*)ln_w,
+      (const float*)ln_b, (T*)out, H, W, C, G, RH, eps);
+  return (int)cudaGetLastError();
+}
+
+bool aligned(const void* p, size_t bytes) { return ((uintptr_t)p % bytes) == 0; }
+
 template <typename T>
-int launch(const void* x, const void* wt, const void* bias, const void* ln_w,
+int launch(const void* x, const void* taps, const void* bias, const void* ln_w,
            const void* ln_b, void* out, int N, int H, int W, int C, float eps,
            void* stream) {
-  if (C <= 0 || C % 2 != 0 || C > 2 * MAX_THREADS || N <= 0 || H <= 0 ||
-      W <= 0 || N > 65535 || H > 65535) {
+  if (C <= 0 || C % 2 != 0 || C > MAX_C || N <= 0 || H <= 0 || W <= 0 || N > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = ((C / 2 + 31) / 32) * 32;
-  const dim3 grid((W + TW - 1) / TW, H, N);
-  dwconv7x7_ln_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)wt, (const float*)bias, (const float*)ln_w,
-      (const float*)ln_b, (T*)out, H, W, C, eps);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  // the widest vector (16 bytes at most) that C and the three arrays allow
+  auto fits = [&](int v) {
+    const size_t bytes = v * sizeof(T);
+    return C % v == 0 && aligned(x, bytes) && aligned(taps, bytes) && aligned(out, bytes);
+  };
+  if constexpr (sizeof(T) == 2) {
+    if (fits(8)) return launch_v<T, 8>(x, taps, bias, ln_w, ln_b, out, N, H, W, C, eps, s);
+  }
+  if (fits(4)) return launch_v<T, 4>(x, taps, bias, ln_w, ln_b, out, N, H, W, C, eps, s);
+  if (!fits(2)) return (int)cudaErrorMisalignedAddress;
+  return launch_v<T, 2>(x, taps, bias, ln_w, ln_b, out, N, H, W, C, eps, s);
 }
 
 }  // namespace
 
-// x, out: (N, H, W, C) bf16, contiguous; wt: (C, 1, 7, 7) bf16; bias, ln_w,
-// ln_b: (C,) f32. C must be even and at most 2 * MAX_THREADS. Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int axvs_dwconv7x7_ln(const void* x, const void* wt, const void* bias,
+// x, out: (N, H, W, C) bf16, contiguous; taps: (7, 7, C) bf16, the depthwise
+// weight tap-major (taps[dy][dx][c] = weight[c][0][dy][dx]); bias, ln_w,
+// ln_b: (C,) f32. C even, at most 2048. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int axvs_dwconv7x7_ln(const void* x, const void* taps, const void* bias,
                                  const void* ln_w, const void* ln_b, void* out,
                                  int N, int H, int W, int C, float eps,
                                  void* stream) {
-  return launch<__nv_bfloat16>(x, wt, bias, ln_w, ln_b, out, N, H, W, C, eps,
+  return launch<__nv_bfloat16>(x, taps, bias, ln_w, ln_b, out, N, H, W, C, eps,
                                stream);
 }
 
-// The same in f32: x, out, wt f32.
-extern "C" int axvs_dwconv7x7_ln_f32(const void* x, const void* wt,
+// The same in f32: x, out, taps f32.
+extern "C" int axvs_dwconv7x7_ln_f32(const void* x, const void* taps,
                                      const void* bias, const void* ln_w,
                                      const void* ln_b, void* out, int N, int H,
                                      int W, int C, float eps, void* stream) {
-  return launch<float>(x, wt, bias, ln_w, ln_b, out, N, H, W, C, eps, stream);
+  return launch<float>(x, taps, bias, ln_w, ln_b, out, N, H, W, C, eps, stream);
 }

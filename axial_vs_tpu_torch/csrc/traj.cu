@@ -15,314 +15,493 @@
 //
 // What bounds it on an H100: operations. Per call 4 B' N^2 C (stage 1) +
 // 2 B' N C^2 (proj_q) + 4 f B' N C^2 (proj_kv) FLOPs against 8 B' N C bytes
-// of q, k, v and out; at the Tube-Link shapes that is ~1,000 FLOPs per byte,
-// above the card's ~295 bf16 ridge, and proj_kv over all f frames dominates.
+// of q, k, v and out; stage 2 (the projections) is about 84% of the FLOPs at
+// the WC shapes, and the whole is far above the card's ~295 bf16 ridge.
 //
-// Design: one block of h warps (a warp per head) owns one row and a tile of
-// 16 query tokens, and keeps the tile's whole trajectory x (f x 16 x C, bf16)
-// in shared memory, so x never reaches device memory. The projections mix
-// heads, which is why the block, and not a warp, owns the tile: after stage
-// 1 every head's columns of x are in shared memory. Stage 1 stages one
-// frame's keys and values (all heads, zero-padded to a multiple of 16 rows,
-// which masks the ragged tail n % 16) and runs QK^T and PV on the tensor
-// cores (wmma bf16 16x16x16, f32 accumulators), with the exact two-pass
-// softmax in between. Stage 2 streams the Wq / Wkv columns of the warp's head
-// from L2 as wmma B fragments; each Wkv fragment is loaded once and used for
-// all f frames. The TPU design kept a whole row in VMEM, which at the widest
-// within-clip row (q, k, v of 168 x 256 bf16, 258 KB) exceeds one SM's
-// 227 KB; here a row's K and V live in shared memory one frame at a time.
+// The first bf16 version ran both stages in one block of 8 warps per 16
+// query tokens of a row, on wmma 16x16x16 fragments: it restaged the row's K
+// and V for every 16 tokens, held one block an SM (about 200 KB of shared
+// memory at the widest row) with synchronous loads, and streamed all of Wq
+// and Wkv (384 KB) from L2 for every 16-token tile: about 32 FLOPs per L2
+// byte where the tensor cores need about 180. It ran at 2.6% of its bound.
+// This design takes two launches:
+//
+// Stage 1 (traj_stage1_kernel): a block of 4 warps owns 64 query tokens of
+// one (row, head), so a frame's K and V (one head, n x 32) are staged in
+// shared memory once per 64 queries, V transposed so that both products
+// read their B fragments as 32-bit words without bank conflicts. A warp
+// holds 16 queries' scores against up to 64 keys in registers (mma.sync
+// m16n8k16, bf16 in, f32 out), takes the exact softmax there (max and sum
+// across the quad of lanes that shares a row; one exp a score), and feeds
+// the probabilities,
+// rounded to bf16, straight from its accumulators into the PV product as
+// the A operand. Rows of more than 64 keys take the softmax's max and sum
+// over 64-key chunks first and recompute each chunk's scores for PV (64
+// rather than 128 keys in registers measured faster even at n = 84: fewer
+// registers, more warps an SM). It
+// writes x, rounded to bf16, to a workspace X (f, B' N, C) and the frame
+// diagonal to XD (B' N, C): the TPU math rounds x to bf16 at exactly this
+// point, so the round trip through L2 changes no bit.
+//
+// Stage 2 (traj_stage2_kernel) is a GEMM on the tensor cores: tokens of all
+// rows flattened, tiles of 64 tokens, and for each tile a pair of heads. A
+// persistent block of two consumer warpgroups (one per head of the pair)
+// and one producer warp keeps the pair's rows of Wq (64 x C) and of Wkv (the
+// k and v rows of both heads, 128 x C) resident in shared memory, loaded by
+// TMA once per pair and applied to all f frames of every tile it takes; the
+// producer streams the tile's XD and f frames of X through a TMA ring of
+// three slots, each a 64 x C tile in 128-byte-swizzled 64-column slices.
+// Each warpgroup runs wgmma m64n32 (q2 of its head) and m64n64 (k2 and v2 of
+// its head, per frame) with f32 accumulators, and takes the temporal
+// softmax in the epilogue, on its registers: the bias, the bf16 casts, the
+// head's logit (a quad of lanes shares a row), and an online softmax and
+// sum over the frames in f32, one cast at the end. Its mbarriers, TMA loads,
+// tensor maps and wgmma descriptors come from hopper.cuh, which K5 and K4
+// use too.
 //
 // The f32 instantiation (the reference's default dtype) is a kernel of its
-// own, traj_fwd_f32_kernel: the same block and warp roles, every product an
-// f32 FMA on the CUDA cores (no TF32: the reference's f32 path is full f32).
-// Stage 1 has lane j of a warp own keys j, j + 32, ...: it holds a key's 32
-// dims in registers and scores it against the 16 queries of the tile (the
-// tile is in shared memory), then the exact softmax runs per query row and
-// the PV product runs with lanes over the head dim. Stage 2 has lane i own
-// output column i of the warp's head: it streams that column's rows of Wq and
-// Wkv from L2 as float4s and reuses each against the 16 tokens' trajectory in
-// shared memory; the softmax over the f frames is taken online.
+// own, traj_fwd_f32_kernel: one block of h warps (a warp per head) per 16
+// tokens of a row, every product an f32 FMA on the CUDA cores (no TF32: the
+// reference's f32 path is full f32). Stage 1 has lane j of a warp own keys
+// j, j + 32, ...: it holds a key's 32 dims in registers and scores it
+// against the 16 queries of the tile (the tile is in shared memory), then
+// the exact softmax runs per query row and the PV product runs with lanes
+// over the head dim. Stage 2 has lane i own output column i of the warp's
+// head: it streams that column's rows of Wq and Wkv from L2 as float4s and
+// reuses each against the 16 tokens' trajectory in shared memory; the
+// softmax over the f frames is taken online.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stddef.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and products, the SM count
 
 namespace {
 
+namespace hopper = axvs_hopper;
 typedef __nv_bfloat16 bf16;
 
 constexpr int HD = 32;     // head dim
-constexpr int TQ = 16;     // query tokens per block
+constexpr int TQ = 16;     // query tokens per block of the f32 kernel
 constexpr int MAX_F = 8;   // frames
-constexpr int MAX_H = 8;   // heads = warps per block
-constexpr int PAD = 8;     // bf16 padding of a shared row (bank spread)
+constexpr int MAX_H = 8;   // heads
 
-// Shared memory carve-up, in bytes. Every region size is a multiple of 32 B,
-// so every wmma pointer below is 256-bit aligned.
-struct Layout {
-  int n_pad, c, ld, s_ld, p_ld;
-  size_t ks, vs, qs, xs, s, p, total;
+// ---- bf16, stage 1 ----
+
+constexpr int S1_WARPS = 4;
+constexpr int S1_TQ = 16 * S1_WARPS;  // query tokens of a block
+constexpr int KCH = 64;               // keys whose scores a warp holds at once
+constexpr int K_LD = HD + 8;          // bf16 row of the staged keys: 20 words
+
+// Shared memory of stage 1: one frame's keys of one head (n_pad x K_LD) and
+// its values transposed (HD x vt_ld), zero past n. vt_ld / 2 words is 4
+// more than a multiple of 8, so the 8 rows a B fragment reads fall on
+// distinct banks; so does K_LD's 20.
+struct Stage1Layout {
+  int n_pad, vt_ld;
+  size_t k, vt, total;
 };
 
-__host__ __device__ inline Layout layout(int n, int f, int h) {
-  Layout L;
+__host__ __device__ inline Stage1Layout stage1_layout(int n) {
+  Stage1Layout L;
   L.n_pad = (n + 15) / 16 * 16;
-  L.c = h * HD;
-  L.ld = L.c + PAD;                          // K, V, Q / x_diag, x rows
-  L.s_ld = L.n_pad > 2 * 16 ? L.n_pad : 32;  // per-warp f32 scratch
-  L.p_ld = L.n_pad + PAD;                    // per-warp bf16 probabilities
-  size_t off = 0;
-  L.ks = off; off += (size_t)L.n_pad * L.ld * 2;
-  L.vs = off; off += (size_t)L.n_pad * L.ld * 2;
-  L.qs = off; off += (size_t)TQ * L.ld * 2;
-  L.xs = off; off += (size_t)f * TQ * L.ld * 2;
-  L.s = off;  off += (size_t)h * TQ * L.s_ld * 4;
-  L.p = off;  off += (size_t)h * TQ * L.p_ld * 2;
-  L.total = off;
+  L.vt_ld = L.n_pad + 8;
+  L.k = 0;
+  L.vt = (size_t)L.n_pad * K_LD * 2;
+  L.total = L.vt + (size_t)HD * L.vt_ld * 2;
   return L;
 }
 
-__device__ __forceinline__ bf16 add_bf16(float acc, bf16 bias) {
-  // cast the f32 sum once, then add the bias as bf16 + bf16 rounded to bf16
-  const float a = __bfloat162float(__float2bfloat16_rn(acc));
-  return __float2bfloat16_rn(a + __bfloat162float(bias));
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
-template <int F>
-__global__ void __launch_bounds__(MAX_H * 32, 1)
-traj_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v,    // (B, N, C)
-                const bf16* __restrict__ wq,   // (C, C)  (out, in)
-                const bf16* __restrict__ bq,   // (C,)
-                const bf16* __restrict__ wkv,  // (2C, C) (out, in)
-                const bf16* __restrict__ bkv,  // (2C,)
-                bf16* __restrict__ out,        // (B, N, C)
-                int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(N / F, F, H);
-  const int n = N / F, C = L.c, LD = L.ld, SLD = L.s_ld, PLD = L.p_ld;
-  bf16* Ks = (bf16*)(smem + L.ks);
-  bf16* Vs = (bf16*)(smem + L.vs);
-  bf16* Qs = (bf16*)(smem + L.qs);  // the Q tile, then the x_diag tile
-  bf16* Xs = (bf16*)(smem + L.xs);  // (F, TQ, LD): the tile's trajectory
+// d += A (16 x 16, row) B (16 x 8, col), bf16 in, f32 accumulators. Lane l:
+// a = rows l/4 (+8), cols 2(l%4) (+1) (+8); b = rows 2(l%4) (+1) (+8), col
+// l/4; d = rows l/4 (+8), cols 2(l%4) (+1).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// grid (ceil(N / 64), h, B'); 128 threads. X: (F, B' N, C), XD: (B' N, C).
+__global__ void __launch_bounds__(S1_WARPS * 32)
+traj_stage1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ X,
+                   bf16* __restrict__ XD, int B, int N, int F, int C, float scale) {
+  extern __shared__ __align__(16) unsigned char smem1[];
+  const int n = N / F;
+  const Stage1Layout L = stage1_layout(n);
+  bf16* Ks = (bf16*)(smem1 + L.k);
+  bf16* Vt = (bf16*)(smem1 + L.vt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Sw = (float*)(smem + L.s) + (size_t)warp * TQ * SLD;
-  bf16* Pw = (bf16*)(smem + L.p) + (size_t)warp * TQ * PLD;
-  const int s0 = blockIdx.x * TQ;
-  const size_t base = (size_t)blockIdx.y * N * C;
-  const int chunks = C / 8;  // 16-byte pieces of one token row
-  const int hc = warp * HD;  // this warp's head columns
-  const int r = lane >> 1;   // lanes 2r, 2r+1 own tile row r ...
-  const int half = lane & 1; // ... and split its columns
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int gq = lane >> 2, tq = lane & 3;
+  const int hc = blockIdx.y * HD;
+  const int b = blockIdx.z;
+  const size_t base = (size_t)b * N * C;
+  const int sq = blockIdx.x * S1_TQ + warp * 16 + gq;  // rows sq and sq + 8
 
-  for (int i = threadIdx.x; i < TQ * chunks; i += blockDim.x) {
-    const int t = i / chunks, ch = i % chunks;
-    uint4 val = zero;
-    if (s0 + t < N) val = *(const uint4*)(q + base + (size_t)(s0 + t) * C + ch * 8);
-    *(uint4*)(Qs + t * LD + ch * 8) = val;
+  uint32_t qa[2][4];  // this warp's 16 queries as A fragments, zero past N
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = sq + 8 * (i & 1);
+      const int col = hc + 16 * kk + 2 * tq + 8 * (i >> 1);
+      qa[kk][i] = s < N ? ld32(q + base + (size_t)s * C + col) : 0u;
+    }
   }
 
-  // ---- stage 1: per frame, spatial softmax and aggregation, all heads ----
+  const int nch = (n + KCH - 1) / KCH;
   for (int g = 0; g < F; ++g) {
-    __syncthreads();  // the previous frame's K, V are no longer read
-    for (int i = threadIdx.x; i < L.n_pad * chunks; i += blockDim.x) {
-      const int j = i / chunks, ch = i % chunks;
-      uint4 kv = zero, vv = zero;
+    __syncthreads();  // the previous frame's K and V are no longer read
+    for (int i = threadIdx.x; i < L.n_pad * (HD / 8); i += blockDim.x) {
+      const int j = i >> 2, ch = i & 3;  // key, 8-dim piece
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (j < n) {
-        const size_t off = base + (size_t)(g * n + j) * C + ch * 8;
+        const size_t off = base + (size_t)(g * n + j) * C + hc + ch * 8;
         kv = *(const uint4*)(k + off);
         vv = *(const uint4*)(v + off);
       }
-      *(uint4*)(Ks + j * LD + ch * 8) = kv;
-      *(uint4*)(Vs + j * LD + ch * 8) = vv;
+      *(uint4*)(Ks + j * K_LD + ch * 8) = kv;
+      const bf16* ve = (const bf16*)&vv;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) Vt[(ch * 8 + e) * L.vt_ld + j] = ve[e];
     }
     __syncthreads();
 
-    FragA qa[2];
-    wmma::load_matrix_sync(qa[0], Qs + hc, LD);
-    wmma::load_matrix_sync(qa[1], Qs + hc + 16, LD);
-    for (int kb = 0; kb < L.n_pad / 16; ++kb) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
+    float sc[KCH / 8][4];  // scores of one chunk: key tiles of 8
+    auto scores = [&](int c0) {
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        FragBt kf;
-        wmma::load_matrix_sync(kf, Ks + kb * 16 * LD + hc + kk * 16, LD);
-        wmma::mma_sync(acc, qa[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(Sw + kb * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    const float* srow = Sw + r * SLD;
-    float m = -INFINITY;
-    for (int j = half; j < n; j += 2) m = fmaxf(m, scale * srow[j]);
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    float sum = 0.f;
-    for (int j = half; j < n; j += 2) sum += expf(scale * srow[j] - m);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    bf16* prow = Pw + r * PLD;
-    for (int j = half; j < L.n_pad; j += 2) {
-      prow[j] = __float2bfloat16_rn(j < n ? expf(scale * srow[j] - m) / sum : 0.f);
-    }
-    __syncwarp();
-
-    FragC xo[2];
-    wmma::fill_fragment(xo[0], 0.f);
-    wmma::fill_fragment(xo[1], 0.f);
-    for (int kb = 0; kb < L.n_pad / 16; ++kb) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, Pw + kb * 16, PLD);
+      for (int nt = 0; nt < KCH / 8; ++nt) {
+        if (c0 + nt * 8 < L.n_pad) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          const bf16* kr = Ks + (c0 + nt * 8 + gq) * K_LD + 2 * tq;
 #pragma unroll
-      for (int jf = 0; jf < 2; ++jf) {
-        FragB vf;
-        wmma::load_matrix_sync(vf, Vs + kb * 16 * LD + hc + jf * 16, LD);
-        wmma::mma_sync(xo[jf], pa, vf, xo[jf]);
+          for (int kk = 0; kk < 2; ++kk) mma16816(acc, qa[kk], ld32(kr + 16 * kk), ld32(kr + 16 * kk + 8));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = c0 + nt * 8 + 2 * tq + (i & 1);
+            sc[nt][i] = key < n ? scale * acc[i] : -INFINITY;
+          }
+        }
+      }
+    };
+
+    // the exact softmax's max and sum, over chunks of KCH keys
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * KCH;
+      scores(c0);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < KCH / 8; ++nt) {
+          if (c0 + nt * 8 < L.n_pad) cm = fmaxf(cm, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+        }
+        const float mn = fmaxf(m[r], quad_max(cm));
+        float cs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < KCH / 8; ++nt) {
+          if (c0 + nt * 8 < L.n_pad) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ex = expf(sc[nt][2 * r + e] - mn);
+              if (nch == 1) sc[nt][2 * r + e] = ex;  // mn is final: keep exp
+              cs += ex;
+            }
+          }
+        }
+        l[r] = l[r] * expf(m[r] - mn) + quad_sum(cs);
+        m[r] = mn;
       }
     }
-    wmma::store_matrix_sync(Sw, xo[0], SLD, wmma::mem_row_major);
-    wmma::store_matrix_sync(Sw + 16, xo[1], SLD, wmma::mem_row_major);
-    __syncwarp();
-    bf16* xrow = Xs + (size_t)(g * TQ + r) * LD + hc;
-    for (int j = half * 16; j < half * 16 + 16; ++j) {
-      xrow[j] = __float2bfloat16_rn(Sw[r * SLD + j]);
+
+    // p = e / l as e * (1 / l): at most one f32 ulp from the quotient before
+    // the bf16 cast, as the sums' order may move it; one division a row
+    const float rl[2] = {1.f / l[0], 1.f / l[1]};
+    float o[HD / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      const int c0 = c * KCH;
+      if (nch > 1) {  // the chunk's scores again, as exp(s - m)
+        scores(c0);
+#pragma unroll
+        for (int nt = 0; nt < KCH / 8; ++nt) {
+          if (c0 + nt * 8 < L.n_pad) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sc[nt][i] = expf(sc[nt][i] - m[i >> 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < KCH / 16; ++ks) {
+        if (c0 + ks * 16 < L.n_pad) {
+          uint32_t pa[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {  // tiles 2 ks (i < 2) and 2 ks + 1; rows by i & 1
+            const float* s2 = &sc[2 * ks + (i >> 1)][2 * (i & 1)];
+            const int r = i & 1;
+            pa[i] = pack_bf16(s2[0] * rl[r], s2[1] * rl[r]);
+          }
+#pragma unroll
+          for (int nd = 0; nd < HD / 8; ++nd) {
+            const bf16* vr = Vt + (nd * 8 + gq) * L.vt_ld + c0 + ks * 16 + 2 * tq;
+            mma16816(o[nd], pa, ld32(vr), ld32(vr + 8));
+          }
+        }
+      }
     }
-    __syncwarp();  // Sw is overwritten by the next frame's logits
+
+    // x, rounded once to bf16; the diagonal also to XD
+    const size_t frame = (size_t)g * B * N;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = sq + 8 * r;
+      if (s >= N) continue;
+      const size_t tok = (size_t)b * N + s;
+      const bool diag = s / n == g;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        const __nv_bfloat162 val = __floats2bfloat162_rn(o[nd][2 * r], o[nd][2 * r + 1]);
+        const int col = hc + nd * 8 + 2 * tq;
+        *(__nv_bfloat162*)(X + (frame + tok) * C + col) = val;
+        if (diag) *(__nv_bfloat162*)(XD + tok * C + col) = val;
+      }
+    }
   }
-  __syncthreads();  // every head of every frame is in Xs
+}
 
-  // frame diagonal: token s keeps its own frame's aggregation, frame s / n
-  for (int i = threadIdx.x; i < TQ * chunks; i += blockDim.x) {
-    const int t = i / chunks, ch = i % chunks;
-    const int gd = min((s0 + t) / n, F - 1);  // rows past N: any frame
-    *(uint4*)(Qs + t * LD + ch * 8) =
-        *(const uint4*)(Xs + (size_t)(gd * TQ + t) * LD + ch * 8);
+// ---- bf16, stage 2 ----
+
+constexpr int S2_BM = 64;        // tokens of a tile
+constexpr int S2_STAGES = 3;     // A tiles in flight
+constexpr int S2_THREADS = 288;  // warpgroups 0-1 compute (a head each), warp 8 loads
+constexpr int SLICE = S2_BM * hopper::BK;  // elements of a 64 x 64 slice (8 KB)
+
+// Shared memory of stage 2, from a 1024-byte boundary, for ks = ceil(C / 64)
+// slices of 64 columns: Wq rows of the head pair (64 x C), Wkv rows (k0, v0,
+// k1, v1: 32 x C each), S2_STAGES A tiles (64 x C), then the mbarriers.
+__host__ __device__ inline size_t stage2_smem(int ks) {
+  return 1024 + (size_t)ks * SLICE * 2 * (3 + S2_STAGES) + (2 * S2_STAGES + 2) * 8;
+}
+
+__device__ __forceinline__ float add_bf16(float acc, bf16 bias) {
+  // cast the f32 sum once, then add the bias as bf16 + bf16 rounded to bf16
+  const float a = __bfloat162float(__float2bfloat16_rn(acc));
+  return __bfloat162float(__float2bfloat16_rn(a + __bfloat162float(bias)));
+}
+
+// Persistent: block i takes units [i U / grid, (i + 1) U / grid) of the U =
+// (B' N / 64 tiles) x (head pairs) units, pair-major, so it reloads its
+// weight rows only when the pair changes.
+__global__ void __launch_bounds__(S2_THREADS, 1)
+traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxes 64 x 64
+                   const __grid_constant__ CUtensorMap t_x,   // (F B' N, C), boxes 64 x 64
+                   const __grid_constant__ CUtensorMap t_wq,  // (C, C), boxes 64 x 64
+                   const __grid_constant__ CUtensorMap t_wkv, // (2C, C), boxes 32 x 64
+                   const bf16* __restrict__ bq, const bf16* __restrict__ bkv,
+                   bf16* __restrict__ out, int BN, int F, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  const int C = H * HD;
+  const int KS = (C + hopper::BK - 1) / hopper::BK;
+  bf16* Bq = (bf16*)base;            // KS slices of 64 rows
+  bf16* Bkv = Bq + KS * SLICE;       // KS slices of 128 rows
+  bf16* A = Bkv + 2 * KS * SLICE;    // S2_STAGES x KS slices of 64 rows
+  uint64_t* full = (uint64_t*)(A + S2_STAGES * KS * SLICE);
+  uint64_t* empty = full + S2_STAGES;
+  uint64_t* bfull = empty + S2_STAGES;
+  uint64_t* bempty = bfull + 1;
+  const int tiles = (BN + S2_BM - 1) / S2_BM;
+  const int units = tiles * ((H + 1) / 2);
+  const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
+  const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S2_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // both warpgroups read every tile
+    }
+    hopper::mbar_init(bfull, 1);
+    hopper::mbar_init(bempty, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // ---- stage 2: projections of this warp's head, temporal softmax ----
-  const int cq = half * 8;  // this lane's 8 columns within a 16-column piece
-  float q2s[16];            // row r, columns jf * 16 + cq + i, times scale
-#pragma unroll
-  for (int jf = 0; jf < 2; ++jf) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < C / 16; ++kk) {
-      FragA xa;
-      FragBt wf;
-      wmma::load_matrix_sync(xa, Qs + kk * 16, LD);
-      wmma::load_matrix_sync(wf, wq + (size_t)(hc + jf * 16) * C + kk * 16, C);
-      wmma::mma_sync(acc, xa, wf, acc);
+  if (threadIdx.x >= 256) {  // the producer warp; one thread issues
+    if (threadIdx.x != 256) return;
+    int it = 0, nb = 0, cur = -1;
+    for (int u = u0; u < u1; ++u) {
+      const int hp = u / tiles, t0 = (u % tiles) * S2_BM;
+      if (hp != cur) {
+        if (nb > 0) hopper::mbar_wait(bempty, (nb - 1) & 1);
+        hopper::mbar_expect_tx(bfull, (uint32_t)(KS * SLICE * 2 * 3));
+        for (int s = 0; s < KS; ++s) {
+          hopper::tma_load_2d(Bq + s * SLICE, &t_wq, bfull, s * hopper::BK, hp * 64);
+          for (int w = 0; w < 2; ++w) {
+            bf16* dst = Bkv + (2 * s + w) * SLICE;  // k rows, then v rows, of head 2 hp + w
+            hopper::tma_load_2d(dst, &t_wkv, bfull, s * hopper::BK, (2 * hp + w) * HD);
+            hopper::tma_load_2d(dst + SLICE / 2, &t_wkv, bfull, s * hopper::BK, C + (2 * hp + w) * HD);
+          }
+        }
+        ++nb;
+        cur = hp;
+      }
+      for (int a = 0; a <= F; ++a, ++it) {  // XD, then frames 0 .. F - 1
+        const int s = it % S2_STAGES;
+        if (it >= S2_STAGES) hopper::mbar_wait(&empty[s], ((it / S2_STAGES) - 1) & 1);
+        hopper::mbar_expect_tx(&full[s], (uint32_t)(KS * SLICE * 2));
+        for (int ks = 0; ks < KS; ++ks) {
+          bf16* dst = A + (s * KS + ks) * SLICE;
+          if (a == 0) {
+            hopper::tma_load_2d(dst, &t_xd, &full[s], ks * hopper::BK, t0);
+          } else {
+            hopper::tma_load_2d(dst, &t_x, &full[s], ks * hopper::BK, (a - 1) * BN + t0);
+          }
+        }
+      }
     }
-    wmma::store_matrix_sync(Sw, acc, SLD, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const bf16 q2 = add_bf16(Sw[r * SLD + cq + i], bq[hc + jf * 16 + cq + i]);
-      q2s[jf * 8 + i] = __bfloat162float(
-          __float2bfloat16_rn(__bfloat162float(q2) * scale));
-    }
-    __syncwarp();
+    return;
   }
 
-  float tl[F];
+  const int w = threadIdx.x >> 7;  // this warpgroup's head of the pair
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  int it = 0, nb = 0, cur = -1, head = 0;
+  __nv_bfloat162 b_q[4], b_k[4], b_v[4];  // this thread's 8 columns of the head
+  for (int u = u0; u < u1; ++u) {
+    const int hp = u / tiles, t0 = (u % tiles) * S2_BM;
+    if (hp != cur) {
+      if (cur >= 0 && leader) hopper::mbar_arrive(bempty);  // done with the last pair's rows
+      hopper::mbar_wait(bfull, nb & 1);
+      ++nb;
+      cur = hp;
+      head = 2 * hp + w;
 #pragma unroll
-  for (int g = 0; g < F; ++g) tl[g] = 0.f;
-#pragma unroll
-  for (int jf = 0; jf < 2; ++jf) {  // k2: output columns hc + jf * 16
-    FragC acc[F];
-#pragma unroll
-    for (int g = 0; g < F; ++g) wmma::fill_fragment(acc[g], 0.f);
-    for (int kk = 0; kk < C / 16; ++kk) {
-      FragBt wf;
-      wmma::load_matrix_sync(wf, wkv + (size_t)(hc + jf * 16) * C + kk * 16, C);
-#pragma unroll
-      for (int g = 0; g < F; ++g) {
-        FragA xa;
-        wmma::load_matrix_sync(xa, Xs + (size_t)g * TQ * LD + kk * 16, LD);
-        wmma::mma_sync(acc[g], xa, wf, acc[g]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = head * HD + 8 * j + 2 * tq;
+        const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+        b_q[j] = head < H ? *(const __nv_bfloat162*)(bq + col) : z;
+        b_k[j] = head < H ? *(const __nv_bfloat162*)(bkv + col) : z;
+        b_v[j] = head < H ? *(const __nv_bfloat162*)(bkv + C + col) : z;
       }
     }
-#pragma unroll
-    for (int g = 0; g < F; ++g) {
-      wmma::store_matrix_sync(Sw, acc[g], SLD, wmma::mem_row_major);
-      __syncwarp();
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const bf16 k2 = add_bf16(Sw[r * SLD + cq + i], bkv[hc + jf * 16 + cq + i]);
-        part = fmaf(q2s[jf * 8 + i], __bfloat162float(k2), part);
-      }
-      tl[g] += part;
-      __syncwarp();
-    }
-  }
-  float tmax = -INFINITY;
-#pragma unroll
-  for (int g = 0; g < F; ++g) {
-    tl[g] += __shfl_xor_sync(0xffffffffu, tl[g], 1);
-    tmax = fmaxf(tmax, tl[g]);
-  }
-  float tsum = 0.f;
-#pragma unroll
-  for (int g = 0; g < F; ++g) {
-    tl[g] = expf(tl[g] - tmax);
-    tsum += tl[g];
-  }
-#pragma unroll
-  for (int g = 0; g < F; ++g) tl[g] = tl[g] / tsum;  // temporal probabilities
+    const bf16* bq_rows = Bq + w * 32 * hopper::BK;
+    const bf16* bkv_rows = Bkv + w * SLICE;
 
-  float o[16];
+    // q2 of this head: rows r0, r0 + 8; columns 8 j + 2 tq (+1)
+    float q2s[4][2][2];
+    {
+      const int s = it % S2_STAGES;
+      hopper::mbar_wait(&full[s], (it / S2_STAGES) & 1);
+      float acc[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) o[i] = 0.f;
+      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+      const bf16* a = A + s * KS * SLICE;
+      hopper::fence_acc(acc);
+      hopper::wgmma_fence();
+      for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-  for (int jf = 0; jf < 2; ++jf) {  // v2: output columns C + hc + jf * 16
-    FragC acc[F];
+        for (int kk = 0; kk < hopper::BK / 16; ++kk) {
+          hopper::wgmma_m64k16<32>(acc, hopper::sw128_desc(a + ks * SLICE + kk * 16),
+                                hopper::sw128_desc(bq_rows + ks * SLICE + kk * 16));
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+      if (leader) hopper::mbar_arrive(&empty[s]);
+      ++it;
 #pragma unroll
-    for (int g = 0; g < F; ++g) wmma::fill_fragment(acc[g], 0.f);
-    for (int kk = 0; kk < C / 16; ++kk) {
-      FragBt wf;
-      wmma::load_matrix_sync(wf, wkv + (size_t)(C + hc + jf * 16) * C + kk * 16, C);
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int g = 0; g < F; ++g) {
-        FragA xa;
-        wmma::load_matrix_sync(xa, Xs + (size_t)g * TQ * LD + kk * 16, LD);
-        wmma::mma_sync(acc[g], xa, wf, acc[g]);
+        for (int r = 0; r < 2; ++r) {
+          const float q0 = add_bf16(acc[4 * j + 2 * r], __low2bfloat16(b_q[j]));
+          const float q1 = add_bf16(acc[4 * j + 2 * r + 1], __high2bfloat16(b_q[j]));
+          q2s[j][r][0] = __bfloat162float(__float2bfloat16_rn(q0 * scale));
+          q2s[j][r][1] = __bfloat162float(__float2bfloat16_rn(q1 * scale));
+        }
       }
     }
-#pragma unroll
-    for (int g = 0; g < F; ++g) {
-      wmma::store_matrix_sync(Sw, acc[g], SLD, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const bf16 v2 = add_bf16(Sw[r * SLD + cq + i],
-                                 bkv[C + hc + jf * 16 + cq + i]);
-        o[jf * 8 + i] = fmaf(tl[g], __bfloat162float(v2), o[jf * 8 + i]);
-      }
-      __syncwarp();
-    }
-  }
 
-  if (s0 + r < N) {
+    // per frame: k2 and v2 of this head, the logit, an online softmax and sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[4][2][2];
 #pragma unroll
-    for (int jf = 0; jf < 2; ++jf) {
-      __align__(16) bf16 packed[8];
+    for (int j = 0; j < 4; ++j) o[j][0][0] = o[j][0][1] = o[j][1][0] = o[j][1][1] = 0.f;
+    for (int g = 0; g < F; ++g, ++it) {
+      const int s = it % S2_STAGES;
+      hopper::mbar_wait(&full[s], (it / S2_STAGES) & 1);
+      float acc[32];  // columns 0-31: k2; 32-63: v2
 #pragma unroll
-      for (int i = 0; i < 8; ++i) packed[i] = __float2bfloat16_rn(o[jf * 8 + i]);
-      *(uint4*)(out + base + (size_t)(s0 + r) * C + hc + jf * 16 + cq) =
-          *(const uint4*)packed;
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      const bf16* a = A + s * KS * SLICE;
+      hopper::fence_acc(acc);
+      hopper::wgmma_fence();
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int kk = 0; kk < hopper::BK / 16; ++kk) {
+          hopper::wgmma_m64k16<64>(acc, hopper::sw128_desc(a + ks * SLICE + kk * 16),
+                                hopper::sw128_desc(bkv_rows + 2 * ks * SLICE + kk * 16));
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+      if (leader) hopper::mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float logit = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          logit = fmaf(q2s[j][r][0], add_bf16(acc[4 * j + 2 * r], __low2bfloat16(b_k[j])), logit);
+          logit = fmaf(q2s[j][r][1], add_bf16(acc[4 * j + 2 * r + 1], __high2bfloat16(b_k[j])),
+                       logit);
+        }
+        logit = quad_sum(logit);
+        const float mn = fmaxf(m[r], logit);
+        const float corr = expf(m[r] - mn), p = expf(logit - mn);
+        l[r] = l[r] * corr + p;
+        m[r] = mn;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float v0 = add_bf16(acc[16 + 4 * j + 2 * r], __low2bfloat16(b_v[j]));
+          const float v1 = add_bf16(acc[16 + 4 * j + 2 * r + 1], __high2bfloat16(b_v[j]));
+          o[j][r][0] = o[j][r][0] * corr + p * v0;
+          o[j][r][1] = o[j][r][1] * corr + p * v1;
+        }
+      }
+    }
+
+    if (head < H) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = t0 + warp * 16 + (lane >> 2) + 8 * r;
+        if (row >= BN) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          *(__nv_bfloat162*)(out + (size_t)row * C + head * HD + 8 * j + 2 * tq) =
+              __floats2bfloat162_rn(o[j][r][0] / l[r], o[j][r][1] / l[r]);
+        }
+      }
     }
   }
 }
@@ -520,54 +699,91 @@ traj_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int F>
-int launch(const void* q, const void* k, const void* v, const void* wq,
-           const void* bq, const void* wkv, const void* bkv, void* out, int B,
-           int N, int H, float scale, cudaStream_t stream) {
-  const size_t smem = layout(N / F, F, H).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      traj_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+constexpr int MAX_DEVICES = 64;
+
+// The dynamic shared memory each kernel has been allowed so far on a device.
+struct SmemAllowed {
+  size_t smem1 = 0, smem2 = 0;
+};
+
+// Allows `kernel` `bytes` of dynamic shared memory unless it already may use
+// as much (`allowed`, updated).
+template <class Kernel>
+cudaError_t raise_smem(Kernel kernel, size_t& allowed, size_t bytes) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* wq, const void* bq,
+                const void* wkv, const void* bkv, void* out, void* x_ws, void* xd_ws, int B,
+                int N, int F, int H, float scale, cudaStream_t stream) {
+  const int n = N / F, C = H * HD;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = hopper::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TQ - 1) / TQ, B);
-  traj_fwd_kernel<F><<<grid, H * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)wq,
-      (const bf16*)bq, (const bf16*)wkv, (const bf16*)bkv, (bf16*)out, N, H,
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static SmemAllowed allowed[MAX_DEVICES];  // once a device: a host-side cost per call
+  SmemAllowed& dc = allowed[dev];
+  const size_t smem1 = stage1_layout(n).total;
+  err = raise_smem(traj_stage1_kernel, dc.smem1, smem1);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid1((N + S1_TQ - 1) / S1_TQ, H, B);
+  traj_stage1_kernel<<<grid1, S1_WARPS * 32, smem1, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)x_ws, (bf16*)xd_ws, B, N, F, C,
       scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long bn = (long long)B * N;
+  if (bn * F > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const int BN = (int)bn;
+  CUtensorMap t_xd, t_x, t_wq, t_wkv;
+  int status = hopper::make_map(&t_xd, xd_ws, BN, C, S2_BM);
+  if (!status) status = hopper::make_map(&t_x, x_ws, F * BN, C, S2_BM);
+  if (!status) status = hopper::make_map(&t_wq, wq, C, C, 64);
+  if (!status) status = hopper::make_map(&t_wkv, wkv, 2 * C, C, HD);
+  if (status) return status;
+  const size_t smem2 = stage2_smem((C + hopper::BK - 1) / hopper::BK);
+  err = raise_smem(traj_stage2_kernel, dc.smem2, smem2);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (long long)((BN + S2_BM - 1) / S2_BM) * ((H + 1) / 2);
+  const int grid2 = (int)(units < sms ? units : sms);
+  traj_stage2_kernel<<<grid2, S2_THREADS, smem2, stream>>>(
+      t_xd, t_x, t_wq, t_wkv, (const bf16*)bq, (const bf16*)bkv, (bf16*)out, BN, F, H, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory the kernel needs for n tokens per frame, f frames, h heads
-// of 32 (-1 for a shape it does not take).
+// Shared memory the bf16 path needs for n tokens per frame, f frames, h heads
+// of 32: the larger of its two launches (-1 for a shape it does not take).
 extern "C" int axvs_traj_smem_bytes(int n, int f, int h) {
   if (n <= 0 || f <= 0 || f > MAX_F || h <= 0 || h > MAX_H) return -1;
-  const size_t bytes = layout(n, f, h).total;
+  const size_t s1 = stage1_layout(n).total;
+  const size_t s2 = stage2_smem((h * HD + hopper::BK - 1) / hopper::BK);
+  const size_t bytes = s1 > s2 ? s1 : s2;
   return bytes > 2147483647u ? -1 : (int)bytes;
 }
 
 // q, k, v, out (B, N, C); wq (C, C); bq (C,); wkv (2C, C); bkv (2C,): bf16,
-// contiguous, 32-byte aligned; C = 32 H; N = F n, tokens frame-major.
-// Launches on `stream` and returns cudaGetLastError().
+// contiguous, 32-byte aligned; C = 32 H; N = F n, tokens frame-major. x_ws
+// (F, B N, C) and xd_ws (B N, C): bf16 workspaces, 16-byte aligned, for the
+// trajectory and its frame diagonal. Launches stage 1, then stage 2, on
+// `stream` and returns 0 or the first CUDA error.
 extern "C" int axvs_traj_fwd(const void* q, const void* k, const void* v,
                              const void* wq, const void* bq, const void* wkv,
-                             const void* bkv, void* out, int B, int N, int F,
-                             int H, float scale, void* stream) {
+                             const void* bkv, void* out, void* x_ws, void* xd_ws, int B,
+                             int N, int F, int H, float scale, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || F > MAX_F || N % F != 0 ||
       H <= 0 || H > MAX_H) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (F) {
-    case 1: return launch<1>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    case 2: return launch<2>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    case 3: return launch<3>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    case 4: return launch<4>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    case 5: return launch<5>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    case 6: return launch<6>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    case 7: return launch<7>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-    default: return launch<8>(q, k, v, wq, bq, wkv, bkv, out, B, N, H, scale, s);
-  }
+  return launch_bf16(q, k, v, wq, bq, wkv, bkv, out, x_ws, xd_ws, B, N, F, H, scale,
+                     (cudaStream_t)stream);
 }
 
 // Shared memory the f32 kernel needs (-1 for a shape it does not take).

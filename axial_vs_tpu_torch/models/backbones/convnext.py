@@ -14,7 +14,10 @@ gates do (``AXIALVS_FUSED_MLP``, ``AXIALVS_FUSED_BLOCK``, the latter winning):
   then the MLP as two Linear layers;
 - ``"mlp"``: K1, then kernel K5 (the MLP tail with layer scale and residual);
 - ``"block"``: kernel K4, the whole block in one launch.
-The parameters are the same on every route. In training mode a block runs
+The parameters are the same on every route. K1 and K4 take the depthwise
+weight tap-major (``ops/convnext_cuda.py::dwconv_taps``): the block takes that
+copy, the buffer ``dw_taps``, when it enters eval mode, so weights changed
+after ``eval()`` need another ``eval()``. In training mode a block runs
 its own modules (``conv_dw``, ``norm``, ``mlp``, ``gamma``) as plain,
 differentiable torch ops, as JAX trains through XLA: the kernels have no
 backward (and refuse to run where autograd would need one).
@@ -29,7 +32,7 @@ from torch import nn
 from ...layers.convbn import Conv, Linear
 from ...ops.act import gelu
 from ...ops.convnext_cuda import (convnext_block_fused, convnext_mlp_residual,
-                                  dwconv7x7_layernorm)
+                                  dwconv7x7_layernorm, dwconv_taps)
 from ...ops.norm import LayerNorm
 
 BLOCK_KERNELS = ("dwln", "mlp", "block")
@@ -67,6 +70,14 @@ class ConvNeXtBlock(nn.Module):
         self.mlp = Mlp(dim, 4 * dim, device=device)
         self.gamma = nn.Parameter(torch.empty(dim, device=device))
         self._inits = {"gamma": ("constant", layer_scale_init_value)}
+        # conv_dw's weight tap-major for the kernels: set in eval mode only
+        self.register_buffer("dw_taps", None, persistent=False)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.dw_taps = (None if mode
+                        else dwconv_taps(self.conv_dw.weight.detach()))
+        return self
 
     def forward(self, x):
         if self.training:
@@ -77,9 +88,10 @@ class ConvNeXtBlock(nn.Module):
         if route == "block":
             return convnext_block_fused(
                 x, dw.weight, dw.bias, norm.weight, norm.bias, fc1.weight,
-                fc1.bias, fc2.weight, fc2.bias, self.gamma, eps=norm.eps)
+                fc1.bias, fc2.weight, fc2.bias, self.gamma, eps=norm.eps,
+                taps=self.dw_taps)
         y = dwconv7x7_layernorm(x, dw.weight, dw.bias, norm.weight, norm.bias,
-                                eps=norm.eps)
+                                eps=norm.eps, taps=self.dw_taps)
         if route == "mlp":
             return convnext_mlp_residual(y, x, fc1.weight, fc1.bias,
                                          fc2.weight, fc2.bias, self.gamma)

@@ -41,22 +41,49 @@ def dwconv7x7_layernorm_plain(x, weight, bias, ln_weight, ln_bias,
     return y.to(x.dtype)
 
 
+def dwconv_taps(weight, dtype=None):
+    """The depthwise weight (C, 1, 7, 7) tap-major: (7, 7, C), contiguous, in
+    ``dtype`` (the weight's own by default), ``taps[dy, dx, c] ==
+    weight[c, 0, dy, dx]``. K1 and K4 take their taps in this layout, so that
+    a warp's tap loads are coalesced; the ConvNeXt block keeps this copy."""
+    c = weight.shape[0]
+    return weight.reshape(c, 49).t().reshape(7, 7, c).to(
+        dtype or weight.dtype).contiguous()
+
+
+def _card_taps(weight, taps, x):
+    """``taps``, or ``dwconv_taps(weight)`` when None, on x's device in x's
+    dtype: no-ops for the copy a block keeps."""
+    if taps is None:
+        taps = dwconv_taps(weight)
+    return taps.to(device=x.device, dtype=x.dtype).contiguous()
+
+
 def _check_channel_vectors(c, *vectors):
     for t in vectors:
         if t.shape != (c,):
             raise ValueError(f"per-channel parameter {tuple(t.shape)} != ({c},)")
 
 
-def dwconv7x7_layernorm(x, weight, bias, ln_weight, ln_bias, eps: float = 1e-6):
+def _check_dw_params(c, weight, taps, bias, ln_weight, ln_bias):
+    if weight.shape != (c, 1, 7, 7):
+        raise ValueError(f"weight {tuple(weight.shape)} != ({c}, 1, 7, 7)")
+    if taps is not None and taps.shape != (7, 7, c):
+        raise ValueError(f"taps {tuple(taps.shape)} != (7, 7, {c})")
+    _check_channel_vectors(c, bias, ln_weight, ln_bias)
+
+
+def dwconv7x7_layernorm(x, weight, bias, ln_weight, ln_bias, eps: float = 1e-6,
+                        taps=None):
     """LayerNorm_C(dwconv7x7_same(x) + bias) * ln_weight + ln_bias.
 
     x (N, H, W, C) NHWC, bf16 or f32 on the card; weight (C, 1, 7, 7) in
     torch's depthwise layout; bias, ln_weight, ln_bias (C,). Returns (N, H,
-    W, C) in x's dtype."""
+    W, C) in x's dtype. On the card the kernel takes the weight tap-major:
+    ``taps`` (``dwconv_taps(weight)``, as the ConvNeXt block keeps it), or,
+    when None, a copy made here for this call."""
     n, h, w, c = x.shape
-    if weight.shape != (c, 1, 7, 7):
-        raise ValueError(f"weight {tuple(weight.shape)} != ({c}, 1, 7, 7)")
-    _check_channel_vectors(c, bias, ln_weight, ln_bias)
+    _check_dw_params(c, weight, taps, bias, ln_weight, ln_bias)
     if native.on_cpu([x]):
         return dwconv7x7_layernorm_plain(x, weight, bias, ln_weight, ln_bias, eps)
     native.refuse_grad(x, weight, bias, ln_weight, ln_bias)
@@ -66,14 +93,14 @@ def dwconv7x7_layernorm(x, weight, bias, ln_weight, ln_bias, eps: float = 1e-6):
         raise ValueError("x must be contiguous NHWC")
     if c % 2 or c > 2048:
         raise ValueError(f"the CUDA kernel needs an even C <= 2048, got {c}")
-    # no-ops when the weights are kept in x's dtype and the norms f32
-    weight = weight.to(device=x.device, dtype=x.dtype).contiguous()
+    taps = _card_taps(weight, taps, x)
+    # no-ops when the norms are kept f32
     bias, ln_weight, ln_bias = (
         t.to(device=x.device, dtype=torch.float32).contiguous()
         for t in (bias, ln_weight, ln_bias))
     out = torch.empty_like(x)
     name = "axvs_dwconv7x7_ln" + ("" if x.dtype == torch.bfloat16 else "_f32")
-    native.launch(name, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+    native.launch(name, x.data_ptr(), taps.data_ptr(), bias.data_ptr(),
                   ln_weight.data_ptr(), ln_bias.data_ptr(), out.data_ptr(),
                   n, h, w, c, float(eps), device=x.device)
     dwconv7x7_layernorm.launches += 1
@@ -173,19 +200,17 @@ def convnext_block_fused_plain(x, weight, bias, ln_weight, ln_bias,
 
 
 def convnext_block_fused(x, weight, bias, ln_weight, ln_bias, w1, b1, w2, b2,
-                         gamma, eps: float = 1e-6):
+                         gamma, eps: float = 1e-6, taps=None):
     """The whole ConvNeXt block at inference:
     ``x + gamma * (gelu_tanh(LN(dwconv7x7(x) + bias) @ w1^T + b1) @ w2^T + b2)``.
 
     x (N, H, W, C) bf16 NHWC; weight (C, 1, 7, 7); bias, ln_weight, ln_bias,
     b2, gamma (C,); w1 (hidden, C), b1 (hidden,), w2 (C, hidden) in torch's
-    layouts. Returns (N, H, W, C) in x's dtype. On the card the normalised
-    tile and the hidden activation go through bf16 workspaces allocated
-    here."""
+    layouts; ``taps`` as for ``dwconv7x7_layernorm``. Returns (N, H, W, C) in
+    x's dtype. On the card the normalised tile and the hidden activation go
+    through bf16 workspaces allocated here."""
     n, h, w, c = x.shape
-    if weight.shape != (c, 1, 7, 7):
-        raise ValueError(f"weight {tuple(weight.shape)} != ({c}, 1, 7, 7)")
-    _check_channel_vectors(c, bias, ln_weight, ln_bias)
+    _check_dw_params(c, weight, taps, bias, ln_weight, ln_bias)
     ops = _mlp_operands(x, w1, b1, w2, b2, gamma)
     if ops is None:
         return convnext_block_fused_plain(x, weight, bias, ln_weight, ln_bias,
@@ -194,14 +219,14 @@ def convnext_block_fused(x, weight, bias, ln_weight, ln_bias, w1, b1, w2, b2,
                        gamma)
     _check_card_tensors(x)
     w1, b1, w2, b2, gamma = ops
-    weight = weight.to(device=x.device, dtype=torch.bfloat16).contiguous()
+    taps = _card_taps(weight, taps, x)
     bias, ln_weight, ln_bias = (
         t.to(device=x.device, dtype=torch.float32).contiguous()
         for t in (bias, ln_weight, ln_bias))
     out, normed = torch.empty_like(x), torch.empty_like(x)
     hidden = torch.empty(n * h * w, w1.shape[0], dtype=x.dtype, device=x.device)
     _check_aligned(x, w1, w2, out)
-    native.launch("axvs_convnext_block", x.data_ptr(), weight.data_ptr(),
+    native.launch("axvs_convnext_block", x.data_ptr(), taps.data_ptr(),
                   bias.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                   gamma.data_ptr(), out.data_ptr(), normed.data_ptr(),

@@ -44,8 +44,8 @@ _SIGNATURES = {
                       _I, _I, _I, _P],
     "axvs_msda_fwd_f32": [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I,
                           _I, _I, _I, _I, _P],
-    "axvs_traj_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      ctypes.c_float, _P],
+    "axvs_traj_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, ctypes.c_float, _P],
     "axvs_traj_smem_bytes": [_I, _I, _I],
     "axvs_traj_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           ctypes.c_float, _P],

@@ -18,8 +18,12 @@ added in the input dtype; the temporal logits, softmax and sum stay in f32,
 with one cast at the end. In f32 every cast is exact.
 
 The CUDA kernel is ``csrc/traj.cu``; ``trajectory_attention_core_plain`` is
-its plain PyTorch version. The wrapper takes the plain version for a tensor
-on the CPU only; a CUDA tensor launches the kernel or raises.
+its plain PyTorch version. In bf16 it runs as two launches (stage 1 on
+``mma.sync``, stage 2 a TMA-fed ``wgmma`` GEMM with the temporal softmax in
+its epilogue) joined by two bf16 workspaces that the wrapper allocates: the
+trajectory x (f, B N, C) and its frame diagonal (B N, C). In f32 it is one
+CUDA-core kernel. The wrapper takes the plain version for a tensor on the CPU
+only; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import torch.nn.functional as F
 
 from . import native
 
-#: the kernel's limits: head dim, frames, heads (one warp per head), and the
-#: shared memory one block may use on sm_90
+#: the kernels' limits: head dim, frames, heads (the f32 kernel runs a warp
+#: per head), and the shared memory one block may use on sm_90
 KERNEL_HEAD_DIM = 32
 KERNEL_MAX_FRAMES = 8
 KERNEL_MAX_HEADS = 8
@@ -38,7 +42,9 @@ MAX_SHARED_BYTES = 232448
 #: its own with every product an f32 FMA on the CUDA cores, no TF32)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: bound on |kernel - plain| in bf16 ulps of max|out|. Both round at the
-#: same points but sum in another order, so a cast may round the other way:
+#: same points but sum in another order (and the bf16 kernel takes the
+#: spatial probabilities as e * (1 / sum), within an f32 ulp of e / sum), so
+#: a cast may round the other way:
 #: the output cast by 1 ulp of its value, and a flipped x, q2, k2 or v2
 #: element moves the f32 sum before that cast by much less than 1 ulp (it
 #: enters a convex combination, or one of 256 products). 2 ulp leaves room
@@ -124,9 +130,16 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
         raise ValueError(f"n={nt // f} tokens per frame at f={f} need {smem} B "
                          f"of shared memory, more than {MAX_SHARED_BYTES}")
     out = torch.empty_like(q)
-    native.launch("axvs_traj_fwd" + suffix, *(t.data_ptr() for t in tensors),
-                  out.data_ptr(), b, nt, f, h, float((c // h) ** -0.5),
-                  device=q.device)
+    scale = float((c // h) ** -0.5)
+    if dt == torch.bfloat16:
+        x_ws = torch.empty(f, b * nt, c, dtype=dt, device=q.device)
+        xd_ws = torch.empty(b * nt, c, dtype=dt, device=q.device)
+        native.launch("axvs_traj_fwd", *(t.data_ptr() for t in tensors),
+                      out.data_ptr(), x_ws.data_ptr(), xd_ws.data_ptr(), b, nt,
+                      f, h, scale, device=q.device)
+    else:
+        native.launch("axvs_traj_fwd_f32", *(t.data_ptr() for t in tensors),
+                      out.data_ptr(), b, nt, f, h, scale, device=q.device)
     trajectory_attention_core.launches += 1
     return out
 

@@ -5,7 +5,8 @@ Phases, in order; any failure exits non-zero before the last line:
   1. device  - require CUDA, print the card's name and power limit, TF32 off
   2. build   - compile the hand-written kernels from ``axial_vs_tpu_torch/csrc``
   3. K1      - dwconv7x7+LayerNorm kernel against its plain version, in bf16
-               and in f32 (the four ConvNeXt-L stage shapes)
+               and in f32 (the four ConvNeXt-L stage shapes), timed beside
+               the conv2d + layer_norm library chain
   4. K2      - deformable-attention kernel against its plain version, bf16
                and f32
   5. K3      - trajectory-attention kernel against its plain version, bf16
@@ -215,9 +216,21 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
+def _dwln_chain(F, x, wt, b, lw, lb):
+    """K1's function as two library calls in x's dtype, a yardstick the port
+    never calls: cuDNN's depthwise conv on the NHWC tensor, then
+    ``F.layer_norm``."""
+    c = x.shape[-1]
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt, b, padding=3, groups=c)
+    return F.layer_norm(y.permute(0, 2, 3, 1), (c,), lw, lb, 1e-6)
+
+
 def phase_k1(torch, gen):
+    import torch.nn.functional as F
+
     from axial_vs_tpu_torch.ops.convnext_cuda import (
-        dwconv7x7_layernorm, dwconv7x7_layernorm_plain)
+        dwconv7x7_layernorm, dwconv7x7_layernorm_plain, dwconv_taps)
+    from axial_vs_tpu_torch.tools.timing import graph_ms
 
     dev = torch.device("cuda")
     full_f32(torch)
@@ -234,7 +247,8 @@ def phase_k1(torch, gen):
             x = r(n, h, w, c, dtype=dtype)
             wt = r(c, 1, 7, 7, scale=0.1, dtype=dtype)
             b, lw, lb = r(c, scale=0.1), 1.0 + r(c, scale=0.1), r(c, scale=0.1)
-            got = dwconv7x7_layernorm(x, wt, b, lw, lb)
+            taps = dwconv_taps(wt)  # the copy a ConvNeXt block keeps
+            got = dwconv7x7_layernorm(x, wt, b, lw, lb, taps=taps)
             want = dwconv7x7_layernorm_plain(x, wt, b, lw, lb)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -244,19 +258,30 @@ def phase_k1(torch, gen):
                 bound, stated = 2 * bf16_ulp(scale), "2 bf16 ulp"
             else:
                 bound, stated = f32_bound(want), "F32_REL_BOUND"
-            ms = cuda_ms(torch, lambda: dwconv7x7_layernorm(x, wt, b, lw, lb))
+            def kernel():
+                return dwconv7x7_layernorm(x, wt, b, lw, lb, taps=taps)
+
+            ms = cuda_ms(torch, kernel)
+            g_ms = graph_ms(kernel, "cuda", 10)
             plain_ms = cuda_ms(torch, lambda: dwconv7x7_layernorm_plain(
                 x, wt, b, lw, lb))
+            vecs = [t.to(dtype) for t in (b, lw, lb)]
+            chain_ms = cuda_ms(torch, lambda: _dwln_chain(F, x, wt, *vecs))
             log(f"K1 {str(dtype)[6:]} {(n, h, w, c)}: max_abs_err {err:.6g} "
                 f"(bound {stated} of max|out| {scale:.4g} = {bound:.6g}); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"kernel {ms:.4f} ms ({g_ms:.4f} in a CUDA graph), plain "
+                f"{plain_ms:.4f} ms, conv2d + layer_norm chain {chain_ms:.4f} ms")
             if not (err <= bound and got.dtype == dtype):
                 raise AssertionError(f"K1 {dtype} disagrees at {(n, h, w, c)}")
             worst[dtype] = max(worst[dtype], err)
-            times[dtype].append((ms, plain_ms))
+            times[dtype].append((ms, plain_ms, chain_ms, g_ms))
     # per clip: each stage's time times its number of blocks
     per_clip = {dt: [sum(d * t[i] for d, t in zip(CONVNEXT_L_DEPTHS, ts))
-                     for i in (0, 1)] for dt, ts in times.items()}
+                     for i in (0, 1, 2, 3)] for dt, ts in times.items()}
+    per_stage = {dt: {f"stage{i}": {"calls": d, "ms": t[0], "graph_ms": t[3],
+                                    "chain_ms": t[2]}
+                      for i, (d, t) in enumerate(zip(CONVNEXT_L_DEPTHS, ts))}
+                 for dt, ts in times.items()}
     # work per clip: 49 f32 multiply-adds and ~10 LayerNorm operations per
     # output element on the CUDA cores; x read once, out written once
     elems = sum(d * math.prod(shape)
@@ -268,7 +293,9 @@ def phase_k1(torch, gen):
         bounds[dt] = bound_ms((2 * 49 + 10) * elems, 2 * size * elems + weights,
                               PEAK_F32)
         log(f"K1 {str(dt)[6:]} per clip (3/3/27/3 calls at the stage shapes): "
-            f"kernel {per_clip[dt][0]:.4f} ms, plain {per_clip[dt][1]:.4f} ms, "
+            f"kernel {per_clip[dt][0]:.4f} ms ({per_clip[dt][3]:.4f} in CUDA "
+            f"graphs), plain {per_clip[dt][1]:.4f} ms, "
+            f"conv2d + layer_norm chain {per_clip[dt][2]:.4f} ms, "
             f"bound {bounds[dt][0]:.4f} ms ({bounds[dt][1]})")
     f32 = torch.float32
     return {"max_abs_err": worst[torch.bfloat16],
@@ -276,10 +303,15 @@ def phase_k1(torch, gen):
             "plain_ms": per_clip[torch.bfloat16][1],
             "bound_ms": bounds[torch.bfloat16][0],
             "bound_by": bounds[torch.bfloat16][1], "library_ms": None,
+            "chain_ms": per_clip[torch.bfloat16][2],
+            "graph_ms": per_clip[torch.bfloat16][3],
             "per": "WC clip (36 calls)",
+            "per_stage": per_stage[torch.bfloat16],
             "f32": {"max_abs_err": worst[f32], "ms": per_clip[f32][0],
                     "plain_ms": per_clip[f32][1], "bound_ms": bounds[f32][0],
-                    "bound_by": bounds[f32][1]}}
+                    "bound_by": bounds[f32][1], "chain_ms": per_clip[f32][2],
+                    "graph_ms": per_clip[f32][3],
+                    "per_stage": per_stage[f32]}}
 
 
 def _msda_inputs(torch, gen, b, shapes, lq, m, d, p, lo, hi,
@@ -382,6 +414,7 @@ def _traj_work(b, f, n, c=256, size=2):
 def phase_k3(torch, gen):
     from axial_vs_tpu_torch.ops.traj import (
         TRAJ_ULPS, trajectory_attention_core, trajectory_attention_core_plain)
+    from axial_vs_tpu_torch.tools.timing import graph_ms
 
     cases = [("wc " + k, v) for k, v in K3_WC.items()]
     cases += [("tube-link " + k, v) for k, v in K3_TL.items()]
@@ -401,39 +434,46 @@ def phase_k3(torch, gen):
                 bound, stated = TRAJ_ULPS * bf16_ulp(scale), f"{TRAJ_ULPS} bf16 ulp"
             else:
                 bound, stated = f32_bound(want), "F32_REL_BOUND"
-            ms = cuda_ms(torch, lambda: trajectory_attention_core(*args, f, 8))
+            def kernel():
+                return trajectory_attention_core(*args, f, 8)
+
+            ms = cuda_ms(torch, kernel)
+            g_ms = graph_ms(kernel, "cuda", 10)
             plain_ms = cuda_ms(torch, lambda: trajectory_attention_core_plain(
                 *args, f, 8), launches=3)
             log(f"K3 {tag} {name} (B'={b}, f={f}, n={n}, N={f * n}): "
                 f"max_abs_err {err:.6g} (bound {stated} of max|out| "
                 f"{scale:.4g} = {bound:.6g}, {bound / scale:.4g} of "
-                f"max|out|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"max|out|); kernel {ms:.4f} ms ({g_ms:.4f} in a CUDA "
+                f"graph), plain {plain_ms:.4f} ms")
             if not (err <= bound and torch.isfinite(got.float()).all()
                     and got.dtype == dtype):
                 raise AssertionError(f"K3 {tag} disagrees on the {name} case")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
-            times[(dtype, name)] = (ms, plain_ms)
+            times[(dtype, name)] = (ms, plain_ms, g_ms)
     totals = {}
     for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
         for path, shapes, calls in (("wc", K3_WC, K3_WC_CALLS),
                                     ("tube-link", K3_TL, K3_TL_CALLS)):
-            ms, plain = (calls * sum(times[(dtype, f"{path} {k}")][i]
-                                     for k in shapes) for i in (0, 1))
+            ms, plain, g_ms = (calls * sum(times[(dtype, f"{path} {k}")][i]
+                                           for k in shapes) for i in (0, 1, 2))
             flops, nbytes = (calls * sum(_traj_work(*s, size=size)[i]
                                          for s in shapes.values())
                              for i in (0, 1))
             # f32 runs its products on the CUDA cores
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
             bound, by = bound_ms(flops, nbytes, peak)
-            totals[(dtype, path)] = (ms, plain, bound, by)
+            totals[(dtype, path)] = (ms, plain, bound, by, g_ms)
             log(f"K3 {str(dtype)[6:]} per {'clip' if path == 'wc' else 'tube'} "
                 f"on the {path} path ({calls * len(shapes)} calls): kernel "
-                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                f"{ms:.4f} ms ({g_ms:.4f} in CUDA graphs), plain {plain:.4f} "
+                f"ms, bound {bound:.4f} ms "
                 f"({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    ms, plain, bound, by = totals[(torch.bfloat16, "tube-link")]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    ms, plain, bound, by, g_ms = totals[(torch.bfloat16, "tube-link")]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "graph_ms")
     return {"max_abs_err": worst[torch.bfloat16], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "graph_ms": g_ms,
             "per": "Tube-Link tube (24 calls)",
             "wc_clip": dict(zip(keys, totals[(torch.bfloat16, "wc")])),
             "f32": {"max_abs_err": worst[torch.float32],
@@ -481,7 +521,7 @@ def phase_k4_k5(torch, gen):
     from axial_vs_tpu_torch.ops.act import gelu
     from axial_vs_tpu_torch.ops.convnext_cuda import (
         convnext_block_fused, convnext_block_fused_plain, convnext_mlp_residual,
-        convnext_mlp_residual_plain, dwconv7x7_layernorm)
+        convnext_mlp_residual_plain, dwconv7x7_layernorm, dwconv_taps)
 
     rows = {"K5": [], "K4": []}
     for n, h, w, c in KERNEL_SHAPES_K1[:4]:
@@ -491,14 +531,15 @@ def phase_k4_k5(torch, gen):
         dw = (wt, *(torch.randn(c, generator=gen, device="cuda") * 0.1
                     + (1.0 if i == 1 else 0.0) for i in range(3)))
         mlp = _mlp_params(torch, gen, c)
+        taps = dwconv_taps(wt)  # the copy a ConvNeXt block keeps
         cases = {
             "K5": (lambda: convnext_mlp_residual(x, sc, *mlp),
                    lambda: convnext_mlp_residual_plain(x, sc, *mlp),
                    lambda: _default_chain(F, gelu, x, sc, *mlp)),
-            "K4": (lambda: convnext_block_fused(x, *dw, *mlp),
+            "K4": (lambda: convnext_block_fused(x, *dw, *mlp, taps=taps),
                    lambda: convnext_block_fused_plain(x, *dw, *mlp),
-                   lambda: _default_chain(F, gelu, dwconv7x7_layernorm(x, *dw),
-                                          x, *mlp)),
+                   lambda: _default_chain(F, gelu, dwconv7x7_layernorm(
+                       x, *dw, taps=taps), x, *mlp)),
         }
         for key, (kernel, plain, chain) in cases.items():
             got, want = kernel(), plain()

@@ -59,8 +59,13 @@ def full_f32():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(2, 24, 42, 1536), (1, 37, 53, 200),
-                                   (1, 3, 5, 2)])
+@pytest.mark.parametrize("shape", [
+    (2, 24, 42, 1536), (1, 37, 53, 200), (1, 3, 5, 2),
+    # the other ConvNeXt-L stages at 769x1345
+    (2, 192, 336, 192), (2, 96, 168, 384), (2, 48, 84, 768),
+    # H < 7 and W not a multiple of the 8-pixel strip at the widest C;
+    # C / 8 and C / 4 not whole (narrower vectors), C / V above a warp
+    (1, 5, 19, 1536), (1, 6, 9, 12), (1, 2, 3, 6), (1, 9, 70, 1000)])
 def test_dwconv7x7_layernorm_kernel(gen, full_f32, shape, dtype):
     """K1 in bf16 and in f32 (the weights in x's dtype) against its plain
     version; another dtype raises."""
@@ -81,6 +86,31 @@ def test_dwconv7x7_layernorm_kernel(gen, full_f32, shape, dtype):
     assert (got.float() - want.float()).abs().max().item() <= _bound(want)
     with pytest.raises(TypeError):
         dwconv7x7_layernorm(x.half(), wt, b, lw, lb)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [10, 50, 200, 1000])
+def test_dwconv7x7_layernorm_kernel_partial_warp(gen, full_f32, c, dtype):
+    """K1 where a block's strips are not whole warps (blocks of 100, 125 or
+    250 threads, padded to whole warps): each of many calls within the bound
+    of the plain version, and bitwise equal to the first (each LayerNorm sum
+    has one writer and a fixed order)."""
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        dwconv7x7_layernorm, dwconv7x7_layernorm_plain, dwconv_taps)
+
+    shape = (2, 11, 37, c)
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn(c, 1, 7, 7, generator=gen, device="cuda") * 0.1).to(dtype)
+    b, lw, lb = (torch.randn(c, generator=gen, device="cuda") * 0.1
+                 for _ in range(3))
+    taps = dwconv_taps(wt)
+    want = dwconv7x7_layernorm_plain(x, wt, b, lw + 1, lb)
+    outs = [dwconv7x7_layernorm(x, wt, b, lw + 1, lb, taps=taps)
+            for _ in range(50)]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+        assert torch.equal(got, outs[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -195,7 +225,13 @@ def traj_inputs(gen, b, f, n, c=256, dtype=torch.bfloat16):
 @pytest.mark.parametrize("b,f,n", [(48, 2, 84),   # widest within-clip row
                                    (23, 5, 40),   # widest Tube-Link row
                                    (40, 5, 23),   # ragged: N = 115
-                                   (3, 3, 7)])    # f = 3, small n
+                                   (3, 3, 7),     # f = 3, small n
+                                   # the other WC and Tube-Link shapes
+                                   (84, 2, 48), (42, 2, 24), (24, 2, 42),
+                                   (20, 5, 12), (12, 5, 20),
+                                   (2, 8, 10),    # f = 8
+                                   (1, 2, 84),    # B' = 1, one token tile
+                                   (2, 2, 150)])  # n > 128: chunked softmax
 def test_trajectory_attention_core_kernel(gen, full_f32, b, f, n, dtype):
     """K3 in bf16 (TRAJ_ULPS) and in f32 (F32_REL_BOUND) against its plain
     version; q, k, v of two dtypes raise."""
@@ -216,6 +252,25 @@ def test_trajectory_attention_core_kernel(gen, full_f32, b, f, n, dtype):
     with pytest.raises(TypeError):
         trajectory_attention_core(q, k, v.half(), *args[3:], f, 8)
     assert trajectory_attention_core.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [4, 3, 1])
+def test_trajectory_attention_core_kernel_heads(gen, full_f32, h, dtype):
+    """K3 with fewer than 8 heads (an odd count leaves the last head pair of
+    the bf16 stage 2 half empty), N = 3 * 19 not a multiple of 64."""
+    from axial_vs_tpu_torch.ops.traj import (
+        TRAJ_ULPS, trajectory_attention_core, trajectory_attention_core_plain)
+
+    b, f, n = 5, 3, 19
+    args = traj_inputs(gen, b, f, n, c=32 * h, dtype=dtype)
+    got = trajectory_attention_core(*args, f, h)
+    want = trajectory_attention_core_plain(*args, f, h)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert err <= (TRAJ_ULPS * _ulp(want) if dtype == torch.bfloat16
+                   else _bound(want))
 
 
 def test_kernels_refuse_grad(gen):

@@ -65,6 +65,33 @@ def test_traj_core_matches_interpret_kernel(rng):
                                np.asarray(want), rtol=2e-3, atol=2e-3)
 
 
+def test_traj_core_bf16_matches_interpret_kernel(rng):
+    """The bf16 rounding points (probabilities, x, q2, k2, v2 and q2 * scale
+    cast to bf16, biases added in bf16) at a ragged Tube-Link-like shape:
+    N = 115 tokens, 8 heads of 32. The plain version against the Pallas
+    kernel in interpret mode, both in bf16, within ``TRAJ_ULPS`` bf16 ulp of
+    max|out| (f32 sums in other orders may round a cast the other way)."""
+    from axial_vs_tpu.ops.traj_pallas import fused_trajectory_attention
+    from axial_vs_tpu_torch.ops.traj import TRAJ_ULPS
+
+    b, f, n, h, d = 2, 5, 23, 8, 32
+    args = _traj_args(rng, b, f, n, h * d)
+    want = fused_trajectory_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in args), f, h,
+        d ** -0.5, True)
+    want = np.asarray(want.astype(jnp.float32))
+    q, k, v, wq, bq, wkv, bkv = (
+        torch.from_numpy(np.ascontiguousarray(a)).bfloat16() for a in
+        (*args[:3], args[3].T, args[4], args[5].T, args[6]))
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    got = trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, f, h)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, f * n, h * d)
+    scale = float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert np.abs(got.float().numpy() - want).max() <= TRAJ_ULPS * ulp
+
+
 # --------------------------------------------------------------- ResNet ----
 
 @pytest.mark.parametrize("depth", [18, 50])
