@@ -59,17 +59,15 @@
 // tensor maps and wgmma descriptors come from hopper.cuh, which K5 and K4
 // use too.
 //
-// The f32 instantiation (the reference's default dtype) is a kernel of its
-// own, traj_fwd_f32_kernel: one block of h warps (a warp per head) per 16
-// tokens of a row, every product an f32 FMA on the CUDA cores (no TF32: the
-// reference's f32 path is full f32). Stage 1 has lane j of a warp own keys
-// j, j + 32, ...: it holds a key's 32 dims in registers and scores it
-// against the 16 queries of the tile (the tile is in shared memory), then
-// the exact softmax runs per query row and the PV product runs with lanes
-// over the head dim. Stage 2 has lane i own output column i of the warp's
-// head: it streams that column's rows of Wq and Wkv from L2 as float4s and
-// reuses each against the 16 tokens' trajectory in shared memory; the
-// softmax over the f frames is taken online.
+// The f32 instantiation (the reference's default dtype) keeps every
+// product an f32 FMA on the CUDA cores (no TF32: the reference's f32 path is
+// full f32; the bound counts 67 TFLOP/s of FMAs) and has the same two-launch
+// structure through f32 workspaces (traj_stage1_f32_kernel,
+// traj_stage2_f32_kernel, below): register-tiled with 8-11 FMAs per shared
+// load, K and V staged once per 64 queries, one head's weights resident.
+// (One block of h warps per 16 tokens with a lane per output column, the
+// first design, streamed all 3 C^2 weights from L2 for every 16 tokens and
+// reloaded each frame's K and V for every 16 queries.)
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and products, the SM count
 
@@ -79,7 +77,6 @@ namespace hopper = axvs_hopper;
 typedef __nv_bfloat16 bf16;
 
 constexpr int HD = 32;     // head dim
-constexpr int TQ = 16;     // query tokens per block of the f32 kernel
 constexpr int MAX_F = 8;   // frames
 constexpr int MAX_H = 8;   // heads
 
@@ -506,205 +503,408 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
   }
 }
 
-// ---- f32 ----
+// ---- f32: two launches joined by f32 workspaces X (F, B' N, C), XD (B' N, C) ----
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ float xor8_max(float v) {  // over the 8 lanes sharing lane >> 3
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float xor8_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
-// Shared memory of the f32 kernel, in bytes: the tile's trajectory x (F, TQ,
-// C), the query tile (TQ, C), and per warp the scores of the tile against
-// one frame's n keys (TQ, n).
-struct LayoutF32 {
-  size_t xs, qs, s, total;
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Stage 1 (traj_stage1_f32_kernel): a block of 128 threads owns 64 query
+// tokens of one (row, head) and stages each frame's K and V (n x 32) in
+// shared memory once for them. Thread (qg, sub) = (tid / 8, tid % 8) holds a
+// microtile of queries qg + 16 i (i < 4): against keys sub + 8 j of each
+// 32-key chunk for the scores, then dims 4 sub .. 4 sub + 3 for the PV
+// product; each float4 it reads from shared memory feeds 4 FMAs to 16
+// products (8 FMAs a load), on conflict-free banks (rows padded by 4 floats,
+// the score rows by 8). The softmax is exact: the scores go to shared memory
+// with the row maximum kept in registers, the 8 lanes of a query quad reduce
+// it by shuffles, each thread turns its own scores into exp(s - max), the 8
+// lanes sum them, and each thread divides its own by the sum before the PV
+// product: each p = exp(s - max) / sum is rounded, as in the plain softmax.
+constexpr int F1_TQ = 64;
+constexpr int F1_THREADS = 128;
+constexpr int F1_LD = HD + 4;  // a staged row of Q or K
+
+struct Stage1LayoutF32 {
+  int n32, s_ld;
+  size_t k, v, s, total;  // Q at 0
 };
 
-__host__ __device__ inline LayoutF32 layout_f32(int n, int f, int h) {
-  const size_t c = (size_t)h * HD;
-  LayoutF32 L;
-  L.xs = 0;
-  L.qs = L.xs + (size_t)f * TQ * c * 4;
-  L.s = L.qs + (size_t)TQ * c * 4;
-  L.total = L.s + (size_t)h * TQ * n * 4;
+__host__ __device__ inline Stage1LayoutF32 stage1_layout_f32(int n) {
+  Stage1LayoutF32 L;
+  L.n32 = (n + 31) / 32 * 32;
+  L.s_ld = L.n32 + 8;
+  L.k = (size_t)F1_TQ * F1_LD * 4;
+  L.v = L.k + (size_t)L.n32 * F1_LD * 4;
+  L.s = L.v + (size_t)L.n32 * HD * 4;
+  L.total = L.s + (size_t)F1_TQ * L.s_ld * 4;
   return L;
 }
 
-__global__ void __launch_bounds__(MAX_H * 32)
-traj_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,    // (B, N, C)
-                    const float* __restrict__ wq,   // (C, C)  (out, in)
-                    const float* __restrict__ bq,   // (C,)
-                    const float* __restrict__ wkv,  // (2C, C) (out, in)
-                    const float* __restrict__ bkv,  // (2C,)
-                    float* __restrict__ out,        // (B, N, C)
-                    int N, int F, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n = N / F, C = H * HD;
-  const LayoutF32 L = layout_f32(n, F, H);
-  float* Xs = (float*)(smem + L.xs);
-  float* Qs = (float*)(smem + L.qs);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Sw = (float*)(smem + L.s) + (size_t)warp * TQ * n;
-  const int s0 = blockIdx.x * TQ;
-  const size_t base = (size_t)blockIdx.y * N * C;
-  const int hc = warp * HD;  // this warp's head columns
-  const int c4s = C / 4;
+// grid (ceil(N / 64), h, B'); 128 threads. X: (F, B' N, C), XD: (B' N, C).
+__global__ void __launch_bounds__(F1_THREADS)
+traj_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ X,
+                       float* __restrict__ XD, int B, int N, int F, int C, float scale) {
+  extern __shared__ __align__(16) unsigned char smf1[];
+  const int n = N / F;
+  const Stage1LayoutF32 L = stage1_layout_f32(n);
+  float* Qs = (float*)smf1;
+  float* Ks = (float*)(smf1 + L.k);
+  float* Vs = (float*)(smf1 + L.v);
+  float* Ss = (float*)(smf1 + L.s);
+  const int tid = threadIdx.x, sub = tid & 7, qg = tid >> 3;
+  const int hc = blockIdx.y * HD;
+  const int b = blockIdx.z;
+  const size_t base = (size_t)b * N * C;
+  const int s0 = blockIdx.x * F1_TQ;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int i = threadIdx.x; i < TQ * c4s; i += blockDim.x) {
-    const int t = i / c4s, c4 = i % c4s;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s0 + t < N) val = *(const float4*)(q + base + (size_t)(s0 + t) * C + c4 * 4);
-    *(float4*)(Qs + t * C + c4 * 4) = val;
+  for (int i = tid; i < F1_TQ * (HD / 4); i += F1_THREADS) {
+    const int r = i >> 3, c4 = i & 7;
+    float4 val = zero;
+    if (s0 + r < N) val = *(const float4*)(q + base + (size_t)(s0 + r) * C + hc + 4 * c4);
+    *(float4*)(Qs + r * F1_LD + 4 * c4) = val;
   }
-  __syncthreads();
 
-  // ---- stage 1: per frame, spatial softmax and aggregation, this head ----
+  const int nch = L.n32 / 32;
+  const int n4 = (n + 3) & ~3;
   for (int g = 0; g < F; ++g) {
-    for (int j = lane; j < n; j += 32) {
-      float kr[HD];
-      const float* kp = k + base + (size_t)(g * n + j) * C + hc;
+    __syncthreads();  // Q is staged; the previous frame's K, V and S are no longer read
+    for (int i = tid; i < L.n32 * (HD / 4); i += F1_THREADS) {
+      const int j = i >> 3, c4 = i & 7;
+      float4 kv = zero, vv = zero;
+      if (j < n) {
+        const size_t off = base + (size_t)(g * n + j) * C + hc + 4 * c4;
+        kv = *(const float4*)(k + off);
+        vv = *(const float4*)(v + off);
+      }
+      *(float4*)(Ks + j * F1_LD + 4 * c4) = kv;
+      *(float4*)(Vs + j * HD + 4 * c4) = vv;
+    }
+    __syncthreads();
+
+    // scores, scaled, into S; keys past n at -inf
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    for (int c = 0; c < nch; ++c) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; d += 4) {
-        const float4 t4 = *(const float4*)(kp + d);
-        kr[d] = t4.x;
-        kr[d + 1] = t4.y;
-        kr[d + 2] = t4.z;
-        kr[d + 3] = t4.w;
-      }
-      for (int t = 0; t < TQ; ++t) {
-        const float* qt = Qs + t * C + hc;
-        float acc = 0.f;
+        float4 qv[4], kv[4];
 #pragma unroll
-        for (int d = 0; d < HD; d += 4) {
-          const float4 q4 = *(const float4*)(qt + d);
-          acc = fmaf(q4.x, kr[d], acc);
-          acc = fmaf(q4.y, kr[d + 1], acc);
-          acc = fmaf(q4.z, kr[d + 2], acc);
-          acc = fmaf(q4.w, kr[d + 3], acc);
+        for (int i = 0; i < 4; ++i) qv[i] = *(const float4*)(Qs + (qg + 16 * i) * F1_LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = *(const float4*)(Ks + (c * 32 + sub + 8 * j) * F1_LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = dot4(qv[i], kv[j], acc[i][j]);
         }
-        Sw[t * n + j] = scale * acc;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = c * 32 + sub + 8 * j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float s = key < n ? scale * acc[i][j] : -INFINITY;
+          mx[i] = fmaxf(mx[i], s);
+          Ss[(qg + 16 * i) * L.s_ld + key] = s;
+        }
       }
     }
-    __syncwarp();
-    for (int t = 0; t < TQ; ++t) {  // exact softmax over the frame's n keys
-      float* srow = Sw + t * n;
-      float m = -INFINITY;
-      for (int j = lane; j < n; j += 32) m = fmaxf(m, srow[j]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float e = expf(srow[j] - m);
-        srow[j] = e;
-        sum += e;
+    // exp(s - max) in place (each thread its own entries) and the row sums
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i] = xor8_max(mx[i]);
+    for (int c = 0; c < nch; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* sp = Ss + (qg + 16 * i) * L.s_ld + c * 32 + sub + 8 * j;
+          const float e = expf(*sp - mx[i]);
+          *sp = e;
+          sum[i] += e;
+        }
       }
-      sum = warp_sum(sum);
-      for (int j = lane; j < n; j += 32) srow[j] = srow[j] / sum;
-    }
-    __syncwarp();
-    float xo[TQ];
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) xo[t] = 0.f;
-    const float* vp = v + base + (size_t)g * n * C + hc + lane;
-    for (int j = 0; j < n; ++j) {
-      const float vj = vp[(size_t)j * C];
-#pragma unroll
-      for (int t = 0; t < TQ; ++t) xo[t] = fmaf(Sw[t * n + j], vj, xo[t]);
     }
 #pragma unroll
-    for (int t = 0; t < TQ; ++t) Xs[((size_t)g * TQ + t) * C + hc + lane] = xo[t];
-    __syncwarp();  // Sw is overwritten by the next frame's scores
-  }
-  __syncthreads();  // every head of every frame is in Xs
+    for (int i = 0; i < 4; ++i) sum[i] = xor8_sum(sum[i]);
+    for (int c = 0; c < nch; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* sp = Ss + (qg + 16 * i) * L.s_ld + c * 32 + sub + 8 * j;
+          *sp = *sp / sum[i];
+        }
+      }
+    }
+    __syncthreads();  // S complete
 
-  // ---- stage 2: lane owns output column hc + lane of q2, k2 and v2 ----
-  const int col = hc + lane;
-  float q2[TQ];
-  {
-    float acc[TQ];
+    float o[4][4];
 #pragma unroll
-    for (int t = 0; t < TQ; ++t) acc[t] = 0.f;
-    const float* wrow = wq + (size_t)col * C;
-    for (int c = 0; c < C; c += 4) {
-      const float4 w4 = *(const float4*)(wrow + c);
+    for (int i = 0; i < 4; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    for (int j = 0; j < n4; j += 4) {
+      float4 sv[4], vv[4];
 #pragma unroll
-      for (int t = 0; t < TQ; ++t) {
-        const int gd = min((s0 + t) / n, F - 1);  // own frame; rows past N: any
-        const float4 x4 = *(const float4*)(Xs + ((size_t)gd * TQ + t) * C + c);
-        acc[t] = fmaf(x4.x, w4.x, acc[t]);
-        acc[t] = fmaf(x4.y, w4.y, acc[t]);
-        acc[t] = fmaf(x4.z, w4.z, acc[t]);
-        acc[t] = fmaf(x4.w, w4.w, acc[t]);
+      for (int i = 0; i < 4; ++i) sv[i] = *(const float4*)(Ss + (qg + 16 * i) * L.s_ld + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) vv[jj] = *(const float4*)(Vs + (j + jj) * HD + 4 * sub);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          o[i][0] = fmaf(p[jj], vv[jj].x, o[i][0]);
+          o[i][1] = fmaf(p[jj], vv[jj].y, o[i][1]);
+          o[i][2] = fmaf(p[jj], vv[jj].z, o[i][2]);
+          o[i][3] = fmaf(p[jj], vv[jj].w, o[i][3]);
+        }
       }
     }
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) q2[t] = (acc[t] + bq[col]) * scale;
-  }
 
-  float m[TQ], l[TQ], o[TQ];  // online softmax over the frames
+    const size_t frame = (size_t)g * B * N;
 #pragma unroll
-  for (int t = 0; t < TQ; ++t) {
-    m[t] = -INFINITY;
-    l[t] = 0.f;
-    o[t] = 0.f;
-  }
-  const float* wk = wkv + (size_t)col * C;
-  const float* wv = wkv + (size_t)(C + col) * C;
-  const float bk = bkv[col], bv = bkv[C + col];
-  for (int g = 0; g < F; ++g) {
-    float ak[TQ], av[TQ];
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) {
-      ak[t] = 0.f;
-      av[t] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int s = s0 + qg + 16 * i;
+      if (s >= N) continue;
+      const float4 val = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+      const size_t tok = (size_t)b * N + s;
+      *(float4*)(X + (frame + tok) * C + hc + 4 * sub) = val;
+      if (s / n == g) *(float4*)(XD + tok * C + hc + 4 * sub) = val;
     }
-    const float* xg = Xs + (size_t)g * TQ * C;
-    for (int c = 0; c < C; c += 4) {
-      const float4 k4 = *(const float4*)(wk + c);
-      const float4 v4 = *(const float4*)(wv + c);
-#pragma unroll
-      for (int t = 0; t < TQ; ++t) {
-        const float4 x4 = *(const float4*)(xg + (size_t)t * C + c);
-        ak[t] = fmaf(x4.x, k4.x, ak[t]);
-        ak[t] = fmaf(x4.y, k4.y, ak[t]);
-        ak[t] = fmaf(x4.z, k4.z, ak[t]);
-        ak[t] = fmaf(x4.w, k4.w, ak[t]);
-        av[t] = fmaf(x4.x, v4.x, av[t]);
-        av[t] = fmaf(x4.y, v4.y, av[t]);
-        av[t] = fmaf(x4.z, v4.z, av[t]);
-        av[t] = fmaf(x4.w, v4.w, av[t]);
+  }
+}
+
+// Stage 2 (traj_stage2_f32_kernel): a register-blocked SGEMM over the B' N
+// tokens flattened across rows, in units of (head, 128-token tile), head
+// major. A persistent block of 256 threads keeps one head's rows of Wq, Wk
+// and Wv (3 x 32 x C f32, 96 KB at C = 256) resident in shared memory, so a
+// block with a run of units loads them about once, and streams each unit's
+// XD tile, then its F frames of X, through a 3-slot cp.async ring of 128 x
+// 64 slices. Thread (rg, cg) = (tid / 8, tid % 8) owns tokens rg + 32 i and
+// the head's columns cg + 8 j (i, j < 4) of q2, k2 and v2: per 4 columns of
+// depth it reads 4 float4 of X and 4 (q2) or 8 (k2, v2) float4 of weights
+// for 64 or 128 FMAs. The epilogue of each frame takes the temporal softmax
+// on the registers: the biases, the head's logit over its 32 columns (8
+// lanes by shuffles), an online softmax and sum over the frames, and one
+// division at the end. Measured against this: slices of 32 columns (twice
+// the barriers) were slower; so were 2 tokens a thread (more units at the
+// small shapes), also as 512 threads; 8 tokens a thread (255 registers)
+// were no faster a token.
+constexpr int F2_BK = 64;
+constexpr int F2_LDA = F2_BK + 4;
+constexpr int F2_STAGES = 3;
+constexpr int F2_THREADS = 256;
+
+constexpr int TM = 4;  // tokens a thread
+constexpr int F2_BM = 32 * TM;
+
+__host__ __device__ inline size_t stage2_smem_f32(int C) {
+  return ((size_t)3 * HD * (C + 4) + (size_t)F2_STAGES * F2_BM * F2_LDA) * 4;
+}
+
+__global__ void __launch_bounds__(F2_THREADS, 1)
+traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD,
+                       const float* __restrict__ wq, const float* __restrict__ bq,
+                       const float* __restrict__ wkv, const float* __restrict__ bkv,
+                       float* __restrict__ out, int BN, int F, int H, float scale) {
+  extern __shared__ __align__(16) float smf2[];
+  const int C = H * HD, ldw = C + 4;
+  float* Wq_s = smf2;
+  float* Wk_s = Wq_s + HD * ldw;
+  float* Wv_s = Wk_s + HD * ldw;
+  float* As = Wv_s + HD * ldw;
+  const int tid = threadIdx.x, cg = tid & 7, rg = tid >> 3;
+  const int tiles = (BN + F2_BM - 1) / F2_BM;
+  const int units = tiles * H;
+  const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
+  const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
+  const int KS = (C + F2_BK - 1) / F2_BK;  // the last slice may be half (C = 32 h)
+  const int per_unit = (F + 1) * KS;  // slices: XD, then frames 0 .. F - 1
+  const int total = (u1 - u0) * per_unit;
+
+  auto issue = [&](int idx) {
+    if (idx < total) {
+      const int u = u0 + idx / per_unit, rem = idx % per_unit;
+      const int a = rem / KS, ks = rem % KS;
+      const int t0 = (u % tiles) * F2_BM;
+      const float* src = a == 0 ? XD : X + (size_t)(a - 1) * BN * C;
+      float* dst = As + (idx % F2_STAGES) * F2_BM * F2_LDA;
+      for (int i = tid; i < F2_BM * (F2_BK / 4); i += F2_THREADS) {
+        const int r = i / (F2_BK / 4), c4 = i % (F2_BK / 4);
+        const int row = t0 + r, col = ks * F2_BK + 4 * c4;
+        const bool in = row < BN && col < C;  // else zeros
+        cp_async16(dst + r * F2_LDA + 4 * c4, src + (in ? (size_t)row * C + col : 0),
+                   in ? 16 : 0);
       }
     }
+    cp_async_commit();
+  };
+
 #pragma unroll
-    for (int t = 0; t < TQ; ++t) {
-      const float logit = warp_sum(q2[t] * (ak[t] + bk));  // this head's dot
-      const float mn = fmaxf(m[t], logit);
-      const float corr = expf(m[t] - mn);
-      const float p = expf(logit - mn);
-      l[t] = l[t] * corr + p;
-      o[t] = o[t] * corr + p * (av[t] + bv);
-      m[t] = mn;
+  for (int s = 0; s < F2_STAGES - 1; ++s) issue(s);
+
+  int cur = -1;
+  float bqr[4], bkr[4], bvr[4];
+  float q2[TM][4], ak[TM][4], av[TM][4], o[TM][4], mx[TM], l[TM];
+  for (int idx = 0; idx < total; ++idx) {
+    const int u = u0 + idx / per_unit, rem = idx % per_unit;
+    const int a = rem / KS, ks = rem % KS;
+    const int head = u / tiles, t0 = (u % tiles) * F2_BM;
+    if (head != cur) {  // the same for the whole block
+      __syncthreads();  // every thread is done with the last head's rows
+      for (int i = tid; i < 3 * HD * (C / 4); i += F2_THREADS) {
+        const int r = i / (C / 4), c4 = i % (C / 4);  // r: Wq rows, then Wk, then Wv
+        const int m = r / HD, rr = r % HD;
+        const float* src = m == 0 ? wq + (size_t)(head * HD + rr) * C
+                                  : wkv + (size_t)((m - 1) * C + head * HD + rr) * C;
+        *(float4*)(Wq_s + r * ldw + 4 * c4) = *(const float4*)(src + 4 * c4);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = head * HD + cg + 8 * j;
+        bqr[j] = bq[col];
+        bkr[j] = bkv[col];
+        bvr[j] = bkv[C + col];
+      }
+      cur = head;
+    }
+    cp_async_wait<F2_STAGES - 2>();
+    __syncthreads();  // slice idx (and the weights) visible; slot (idx - 1) % STAGES free
+    issue(idx + F2_STAGES - 1);
+
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ak[i][j] = av[i][j] = 0.f;
+      }
+    }
+    const float* A = As + (idx % F2_STAGES) * F2_BM * F2_LDA;
+    const int kc = ks * F2_BK;
+    if (a == 0) {  // q2 of the head, into ak
+#pragma unroll
+      for (int kk = 0; kk < F2_BK; kk += 4) {
+        if (kk % 32 == 0 && kc + kk >= C) break;  // a half slice past C
+        float4 x4[TM], w4[4];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) x4[i] = *(const float4*)(A + (rg + 32 * i) * F2_LDA + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w4[j] = *(const float4*)(Wq_s + (cg + 8 * j) * ldw + kc + kk);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ak[i][j] = dot4(x4[i], w4[j], ak[i][j]);
+        }
+      }
+    } else {  // k2 and v2 of the head for frame a - 1
+#pragma unroll
+      for (int kk = 0; kk < F2_BK; kk += 4) {
+        if (kk % 32 == 0 && kc + kk >= C) break;
+        float4 x4[TM], k4[4], v4[4];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) x4[i] = *(const float4*)(A + (rg + 32 * i) * F2_LDA + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          k4[j] = *(const float4*)(Wk_s + (cg + 8 * j) * ldw + kc + kk);
+          v4[j] = *(const float4*)(Wv_s + (cg + 8 * j) * ldw + kc + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ak[i][j] = dot4(x4[i], k4[j], ak[i][j]);
+            av[i][j] = dot4(x4[i], v4[j], av[i][j]);
+          }
+        }
+      }
+    }
+    if (ks != KS - 1) continue;
+
+    if (a == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          q2[i][j] = (ak[i][j] + bqr[j]) * scale;
+          o[i][j] = 0.f;
+        }
+        mx[i] = -INFINITY;
+        l[i] = 0.f;
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float logit = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) logit = fmaf(q2[i][j], ak[i][j] + bkr[j], logit);
+      logit = xor8_sum(logit);  // the head's 32 columns
+      const float mn = fmaxf(mx[i], logit);
+      const float corr = expf(mx[i] - mn), p = expf(logit - mn);
+      l[i] = l[i] * corr + p;
+      mx[i] = mn;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][j] = o[i][j] * corr + p * (av[i][j] + bvr[j]);
+    }
+    if (a == F) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int row = t0 + rg + 32 * i;
+        if (row >= BN) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[(size_t)row * C + head * HD + cg + 8 * j] = o[i][j] / l[i];
+      }
     }
   }
-#pragma unroll
-  for (int t = 0; t < TQ; ++t) {
-    if (s0 + t < N) out[base + (size_t)(s0 + t) * C + col] = o[t] / l[t];
-  }
+  cp_async_wait<0>();
 }
 
 constexpr int MAX_DEVICES = 64;
 
 // The dynamic shared memory each kernel has been allowed so far on a device.
 struct SmemAllowed {
-  size_t smem1 = 0, smem2 = 0;
+  size_t smem1 = 0, smem2 = 0, smem1_f32 = 0, smem2_f32 = 0;
 };
+
+SmemAllowed& smem_allowed(int dev) {
+  static SmemAllowed allowed[MAX_DEVICES];  // once a device: a host-side cost per call
+  return allowed[dev];
+}
 
 // Allows `kernel` `bytes` of dynamic shared memory unless it already may use
 // as much (`allowed`, updated).
@@ -726,8 +926,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* wq, con
   if (err == cudaSuccess) err = hopper::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static SmemAllowed allowed[MAX_DEVICES];  // once a device: a host-side cost per call
-  SmemAllowed& dc = allowed[dev];
+  SmemAllowed& dc = smem_allowed(dev);
   const size_t smem1 = stage1_layout(n).total;
   err = raise_smem(traj_stage1_kernel, dc.smem1, smem1);
   if (err != cudaSuccess) return (int)err;
@@ -754,6 +953,38 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* wq, con
   const int grid2 = (int)(units < sms ? units : sms);
   traj_stage2_kernel<<<grid2, S2_THREADS, smem2, stream>>>(
       t_xd, t_x, t_wq, t_wkv, (const bf16*)bq, (const bf16*)bkv, (bf16*)out, BN, F, H, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const float* q, const float* k, const float* v, const float* wq, const float* bq,
+               const float* wkv, const float* bkv, float* out, float* x_ws, float* xd_ws, int B,
+               int N, int F, int H, float scale, cudaStream_t stream) {
+  const int n = N / F, C = H * HD;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = hopper::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  SmemAllowed& dc = smem_allowed(dev);
+  const size_t smem1 = stage1_layout_f32(n).total;
+  err = raise_smem(traj_stage1_f32_kernel, dc.smem1_f32, smem1);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid1((N + F1_TQ - 1) / F1_TQ, H, B);
+  traj_stage1_f32_kernel<<<grid1, F1_THREADS, smem1, stream>>>(q, k, v, x_ws, xd_ws, B, N, F, C,
+                                                                scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long bn = (long long)B * N;
+  if (bn * F > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const int BN = (int)bn;
+  const size_t smem2 = stage2_smem_f32(C);
+  err = raise_smem(traj_stage2_f32_kernel, dc.smem2_f32, smem2);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (long long)((BN + F2_BM - 1) / F2_BM) * H;
+  const int grid2 = (int)(units < sms ? units : sms);
+  traj_stage2_f32_kernel<<<grid2, F2_THREADS, smem2, stream>>>(x_ws, xd_ws, wq, bq, wkv, bkv, out,
+                                                               BN, F, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -786,30 +1017,27 @@ extern "C" int axvs_traj_fwd(const void* q, const void* k, const void* v,
                      (cudaStream_t)stream);
 }
 
-// Shared memory the f32 kernel needs (-1 for a shape it does not take).
+// Shared memory the f32 path needs (-1 for a shape it does not take): the
+// larger of its two launches.
 extern "C" int axvs_traj_smem_bytes_f32(int n, int f, int h) {
   if (n <= 0 || f <= 0 || f > MAX_F || h <= 0 || h > MAX_H) return -1;
-  const size_t bytes = layout_f32(n, f, h).total;
+  const size_t s1 = stage1_layout_f32(n).total;
+  const size_t s2 = stage2_smem_f32(h * HD);
+  const size_t bytes = s1 > s2 ? s1 : s2;
   return bytes > 2147483647u ? -1 : (int)bytes;
 }
 
-// The same as axvs_traj_fwd with every tensor f32 (16-byte aligned).
+// The same as axvs_traj_fwd with every tensor f32 (workspaces included),
+// 16-byte aligned.
 extern "C" int axvs_traj_fwd_f32(const void* q, const void* k, const void* v,
                                  const void* wq, const void* bq, const void* wkv,
-                                 const void* bkv, void* out, int B, int N, int F,
-                                 int H, float scale, void* stream) {
+                                 const void* bkv, void* out, void* x_ws, void* xd_ws, int B,
+                                 int N, int F, int H, float scale, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || F > MAX_F || N % F != 0 ||
       H <= 0 || H > MAX_H) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = layout_f32(N / F, F, H).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      traj_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TQ - 1) / TQ, B);
-  traj_fwd_f32_kernel<<<grid, H * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)wq,
-      (const float*)bq, (const float*)wkv, (const float*)bkv, (float*)out, N, F, H,
-      scale);
-  return (int)cudaGetLastError();
+  return launch_f32((const float*)q, (const float*)k, (const float*)v, (const float*)wq,
+                    (const float*)bq, (const float*)wkv, (const float*)bkv, (float*)out,
+                    (float*)x_ws, (float*)xd_ws, B, N, F, H, scale, (cudaStream_t)stream);
 }

@@ -9,7 +9,10 @@ attention weights already softmaxed over levels and points. Semantics are
 The CUDA kernel is ``csrc/msda.cu``; ``ms_deform_attn_plain`` is its plain
 PyTorch version, an explicit 4-corner gather. The wrapper takes the plain
 version for a tensor on the CPU only; a CUDA tensor launches the kernel or
-raises.
+raises. On the card the wrapper picks the kernel's path: 16-byte loads of
+``VECTOR_BYTES // element size`` channels a lane where D and the pointers
+allow, else one channel a lane (a path of the same kernel, not the plain
+version).
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ from . import native
 
 #: the dtypes of value and weights the CUDA kernel takes (one for both)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+#: the kernel's vector path: a lane loads this many bytes of a corner, and a
+#: row takes at most 32 lanes
+VECTOR_BYTES = 16
+#: the kernel's row order by dtype: 0, a block holds all heads of a run of
+#: tokens (the memory order); 1, a run of tokens of one head. On the layers'
+#: own locations, WC and Tube-Link, 0 was the faster in bf16 (64 rows a
+#: block, by 3%) and 1 in f32 (32 rows a block, by 2-6%), in CUDA graphs on
+#: an H100 80GB HBM3 at 700 W; the order does not change the result
+ROW_ORDER = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def level_start_index(spatial_shapes: Sequence[Tuple[int, int]]):
@@ -66,6 +78,16 @@ def ms_deform_attn_plain(value, spatial_shapes, level_start, locations,
     return out.permute(0, 2, 1, 3).reshape(b, lq, m * d).to(value.dtype)
 
 
+def vector_path(value, locations, out) -> bool:
+    """Whether the kernel's 16-byte path takes these tensors: D a multiple
+    of the channels in 16 bytes and at most 32 such lanes a row, value and
+    out 16-byte aligned, locations 8-byte aligned."""
+    d = value.shape[-1]
+    lanes, rem = divmod(d * value.element_size(), VECTOR_BYTES)
+    return (rem == 0 and lanes <= 32 and value.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0 and locations.data_ptr() % 8 == 0)
+
+
 def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
     """value (B, S, M, D), levels flattened along S (row-major per level);
     spatial_shapes ((H_0, W_0), ...) ints; level_start (L,) ints;
@@ -104,7 +126,8 @@ def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
     name = "axvs_msda_fwd" + ("" if value.dtype == torch.bfloat16 else "_f32")
     native.launch(name, value.data_ptr(), locations.data_ptr(),
                   weights.data_ptr(), out.data_ptr(), levels, num_levels, b, s,
-                  lq, m, d, p, device=value.device)
+                  lq, m, d, p, int(vector_path(value, locations, out)),
+                  ROW_ORDER[value.dtype], device=value.device)
     ms_deform_attn.launches += 1
     return out
 

@@ -18,12 +18,14 @@ added in the input dtype; the temporal logits, softmax and sum stay in f32,
 with one cast at the end. In f32 every cast is exact.
 
 The CUDA kernel is ``csrc/traj.cu``; ``trajectory_attention_core_plain`` is
-its plain PyTorch version. In bf16 it runs as two launches (stage 1 on
-``mma.sync``, stage 2 a TMA-fed ``wgmma`` GEMM with the temporal softmax in
-its epilogue) joined by two bf16 workspaces that the wrapper allocates: the
-trajectory x (f, B N, C) and its frame diagonal (B N, C). In f32 it is one
-CUDA-core kernel. The wrapper takes the plain version for a tensor on the CPU
-only; a CUDA tensor launches the kernel or raises.
+its plain PyTorch version. It runs as two launches joined by two workspaces
+in q's dtype that the wrapper allocates: the trajectory x (f, B N, C) and its
+frame diagonal (B N, C). In bf16 stage 1 runs on ``mma.sync`` and stage 2 is
+a TMA-fed ``wgmma`` GEMM with the temporal softmax in its epilogue; in f32
+both are register-tiled on the CUDA cores (every product an f32 FMA, no
+TF32), stage 2 a persistent SGEMM with one head's weights resident. The
+wrapper takes the plain version for a tensor on the CPU only; a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -32,14 +34,14 @@ import torch.nn.functional as F
 
 from . import native
 
-#: the kernels' limits: head dim, frames, heads (the f32 kernel runs a warp
-#: per head), and the shared memory one block may use on sm_90
+#: the kernels' limits: head dim, frames, heads, and the shared memory one
+#: block may use on sm_90
 KERNEL_HEAD_DIM = 32
 KERNEL_MAX_FRAMES = 8
 KERNEL_MAX_HEADS = 8
 MAX_SHARED_BYTES = 232448
-#: the dtypes the CUDA kernel takes: bf16 (tensor cores) or f32 (a kernel of
-#: its own with every product an f32 FMA on the CUDA cores, no TF32)
+#: the dtypes the CUDA kernel takes: bf16 (tensor cores) or f32 (kernels of
+#: their own with every product an f32 FMA on the CUDA cores, no TF32)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: bound on |kernel - plain| in bf16 ulps of max|out|. Both round at the
 #: same points but sum in another order (and the bf16 kernel takes the
@@ -131,15 +133,11 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
                          f"of shared memory, more than {MAX_SHARED_BYTES}")
     out = torch.empty_like(q)
     scale = float((c // h) ** -0.5)
-    if dt == torch.bfloat16:
-        x_ws = torch.empty(f, b * nt, c, dtype=dt, device=q.device)
-        xd_ws = torch.empty(b * nt, c, dtype=dt, device=q.device)
-        native.launch("axvs_traj_fwd", *(t.data_ptr() for t in tensors),
-                      out.data_ptr(), x_ws.data_ptr(), xd_ws.data_ptr(), b, nt,
-                      f, h, scale, device=q.device)
-    else:
-        native.launch("axvs_traj_fwd_f32", *(t.data_ptr() for t in tensors),
-                      out.data_ptr(), b, nt, f, h, scale, device=q.device)
+    x_ws = torch.empty(f, b * nt, c, dtype=dt, device=q.device)
+    xd_ws = torch.empty(b * nt, c, dtype=dt, device=q.device)
+    native.launch("axvs_traj_fwd" + suffix, *(t.data_ptr() for t in tensors),
+                  out.data_ptr(), x_ws.data_ptr(), xd_ws.data_ptr(), b, nt, f, h,
+                  scale, device=q.device)
     trajectory_attention_core.launches += 1
     return out
 

@@ -140,6 +140,124 @@ def test_ms_deform_attn_kernel(gen, d, shapes, dtype):
     assert ms_deform_attn.launches == before + 1
 
 
+WC_LEVELS = ((24, 42), (48, 84), (96, 168))  # res5, res4, res3 at 769x1345
+
+
+def msda_model_inputs(gen, b, shapes, m, d, p, dtype, jitter=0.5):
+    """value, locations and weights as ``MSDeformAttn.sample`` makes them:
+    every token of every level a query, its location its own pixel centre
+    plus the layer's offset-bias grid (1-4 pixels along each head's
+    direction) plus N(0, jitter^2) pixels, weights softmaxed over levels
+    and points."""
+    from axial_vs_tpu_torch.layers.msda_attention import (
+        offset_bias_init, reference_points_for_shapes)
+
+    nl, lq = len(shapes), sum(h * w for h, w in shapes)
+    value = torch.randn(b, lq, m, d, generator=gen, device="cuda").to(dtype)
+    bias = torch.as_tensor(offset_bias_init(m, nl, p), device="cuda")
+    offsets = bias.reshape(1, 1, m, nl, p, 2) + jitter * torch.randn(
+        b, lq, m, nl, p, 2, generator=gen, device="cuda")
+    ref = reference_points_for_shapes(shapes, device="cuda")
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                        device="cuda")
+    loc = (ref[None, :, None, :, None, :]
+           + offsets / norm[None, None, None, :, None, :]).contiguous()
+    w = torch.randn(b, lq, m, nl * p, generator=gen, device="cuda")
+    w = w.softmax(-1).reshape(b, lq, m, nl, p).to(dtype)
+    return value, loc, w
+
+
+def _msda_check(value, shapes, loc, w):
+    """K2 against its plain version; returns the kernel's output."""
+    from axial_vs_tpu_torch.ops.msda import (
+        level_start_index, ms_deform_attn, ms_deform_attn_plain)
+
+    starts = level_start_index(shapes)
+    got = ms_deform_attn(value, shapes, starts, loc, w)
+    want = ms_deform_attn_plain(value, shapes, starts, loc, w)
+    torch.cuda.synchronize()
+    assert got.dtype == value.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ms_deform_attn_kernel_model_inputs(gen, dtype):
+    """K2 at the WC shape on the layer's own kind of locations (neighbouring
+    queries share corners), on the vector path in the dtype's row order
+    (``ROW_ORDER``: bf16 order 0, f32 order 1)."""
+    from axial_vs_tpu_torch.ops.msda import vector_path
+
+    value, loc, w = msda_model_inputs(gen, 2, WC_LEVELS, 8, 32, 4, dtype)
+    assert vector_path(value, loc, value)
+    _msda_check(value, WC_LEVELS, loc, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shapes,p", [(((13, 17),), 1),  # L = 1, P = 1
+                                      (((9, 11), (5, 6), (3, 3), (2, 1)), 1),
+                                      (((6, 7), (3, 4), (2, 2)), 2)])
+def test_ms_deform_attn_kernel_generic(gen, dtype, shapes, p):
+    """K2's generic instantiation (L and P other than 3 and 4)."""
+    value, loc, w = msda_model_inputs(gen, 2, shapes, 8, 32, p, dtype)
+    _msda_check(value, shapes, loc, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,m,aligned", [(37, 3, True),   # scalar path
+                                         (8, 4, True),    # one or two lanes a row
+                                         (8, 4, False),   # unaligned: scalar
+                                         (32, 1, True),   # M = 1
+                                         (64, 2, True)])  # 8 (f32: 16) lanes
+def test_ms_deform_attn_kernel_paths(gen, dtype, d, m, aligned):
+    """K2's vector and scalar paths, at L = 3 and P = 4 (the fixed
+    instantiation where the vector path takes the shape)."""
+    from axial_vs_tpu_torch.ops.msda import vector_path
+
+    shapes = ((5, 7), (10, 14), (20, 28))
+    value, loc, w = msda_model_inputs(gen, 2, shapes, m, d, 4, dtype)
+    if not aligned:  # value one element past a 16-byte boundary
+        value = torch.cat([value.reshape(-1), value.reshape(-1)[:1]])[1:]
+        value = value.reshape(2, -1, m, d)
+    assert vector_path(value, loc, value) == (aligned and d % (
+        16 // value.element_size()) == 0)
+    _msda_check(value, shapes, loc, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ms_deform_attn_kernel_nan_and_far_locations(gen, dtype):
+    """Samples at NaN or far outside every level add nothing; the plain
+    version, which cannot index at NaN, gets those samples far outside."""
+    from axial_vs_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+
+    shapes = ((6, 7), (12, 14), (24, 28))
+    value, loc, w = msda_model_inputs(gen, 2, shapes, 8, 32, 4, dtype)
+    pick = torch.rand(loc.shape[:-1], generator=gen, device="cuda")
+    far = torch.tensor([float("nan"), 1e30, -1e30, float("inf"), 7.5, -3.0],
+                       device="cuda")
+    kind = (pick * 12).long()  # half the samples bad, in 6 kinds
+    bad = kind < 6
+    loc = loc.clone()
+    loc[..., 0] = torch.where(bad, far[kind.clamp(max=5)], loc[..., 0])
+    got = ms_deform_attn(value, shapes, level_start_index(shapes), loc, w)
+    want = _msda_check(value, shapes, torch.nan_to_num(loc, nan=-5.0), w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ms_deform_attn_kernel_repeatable(gen, dtype):
+    """50 calls at the WC shape give the bits of the first."""
+    from axial_vs_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+
+    value, loc, w = msda_model_inputs(gen, 2, WC_LEVELS, 8, 32, 4, dtype)
+    starts = level_start_index(WC_LEVELS)
+    outs = [ms_deform_attn(value, WC_LEVELS, starts, loc, w)
+            for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
 def mlp_inputs(gen, c, hidden=None):
     """The ConvNeXt MLP's parameters at unit-variance-preserving scales and
     gamma ~ U(-1, 1) (at the upstream 1e-6 the residual would hide the
@@ -231,7 +349,12 @@ def traj_inputs(gen, b, f, n, c=256, dtype=torch.bfloat16):
                                    (20, 5, 12), (12, 5, 20),
                                    (2, 8, 10),    # f = 8
                                    (1, 2, 84),    # B' = 1, one token tile
-                                   (2, 2, 150)])  # n > 128: chunked softmax
+                                   (2, 2, 150),   # n > 128: chunked softmax
+                                   # at and past the f32 tiles' edges: 64
+                                   # queries (stage 1), 128 tokens (stage 2),
+                                   # 32-key chunks
+                                   (1, 2, 32), (1, 3, 22), (2, 2, 32),
+                                   (1, 2, 65)])
 def test_trajectory_attention_core_kernel(gen, full_f32, b, f, n, dtype):
     """K3 in bf16 (TRAJ_ULPS) and in f32 (F32_REL_BOUND) against its plain
     version; q, k, v of two dtypes raise."""
@@ -271,6 +394,17 @@ def test_trajectory_attention_core_kernel_heads(gen, full_f32, h, dtype):
     assert got.dtype == dtype and torch.isfinite(got).all()
     assert err <= (TRAJ_ULPS * _ulp(want) if dtype == torch.bfloat16
                    else _bound(want))
+
+
+def test_trajectory_attention_core_kernel_f32_repeatable(gen, full_f32):
+    """50 f32 calls at the widest WC row give the bits of the first (each
+    sum has one thread and a fixed order)."""
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    args = traj_inputs(gen, 48, 2, 84, dtype=torch.float32)
+    outs = [trajectory_attention_core(*args, 2, 8) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 def test_kernels_refuse_grad(gen):

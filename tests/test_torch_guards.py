@@ -406,6 +406,61 @@ def test_smoke_tube_link_config_is_the_bench_config():
     _assert_config_leaves(_smoke().tube_link_r50_config(), cfg, 15)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_smoke_captures_the_first_msda_call(fused):
+    """chip_smoke.py's ``first_msda_call`` keeps the arguments of the first
+    K2 call an MSDA layer makes (the WC layer's and the Tube-Link fused
+    layer's), and the call still runs: K2 on the kept arguments gives the
+    layer's own sample, and the wrapper counted every call."""
+    from axial_vs_tpu_torch.layers.msda_attention import MSDeformAttn
+    from axial_vs_tpu_torch.models.tube_link.pixel_decoder import (
+        FusedMSDATrajectoryAttention)
+    from axial_vs_tpu_torch.ops.msda import ms_deform_attn
+
+    torch.manual_seed(0)
+    shapes = ((2, 3), (4, 6), (8, 12))
+    s, c = sum(h * w for h, w in shapes), 64
+    if fused:
+        layer = FusedMSDATrajectoryAttention(c, num_frames=2)
+    else:
+        layer = MSDeformAttn(c)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn_like(p) * 0.1)
+    x = torch.randn(2, s, c)
+    box, before = {}, ms_deform_attn.launches
+    with torch.no_grad(), _smoke().first_msda_call(box, "k"):
+        want = layer.sample(x, x, shapes)
+        layer.sample(x + 1, x, shapes)
+    assert ms_deform_attn.launches == before  # CPU tensors: the plain version
+    value, got_shapes, starts, loc, weights = box["k"]
+    assert got_shapes == shapes and value.shape == (2, s, 8, c // 8)
+    assert torch.equal(ms_deform_attn(value, got_shapes, starts, loc, weights),
+                       want)
+    from axial_vs_tpu_torch.layers import msda_attention
+
+    assert msda_attention.ms_deform_attn is ms_deform_attn  # restored
+
+
+def test_msda_vector_path_rule():
+    """K2's wrapper takes the 16-byte path where D holds whole 16-byte
+    vectors, at most 32 a row, and the pointers are aligned; else the
+    kernel's one-channel path."""
+    from axial_vs_tpu_torch.ops.msda import vector_path
+
+    loc = torch.zeros(2, 3, 8, 3, 4, 2)
+    for dtype, d, want in ((torch.bfloat16, 32, True), (torch.float32, 32, True),
+                           (torch.bfloat16, 37, False), (torch.float32, 6, False),
+                           (torch.bfloat16, 8, True), (torch.bfloat16, 256, True),
+                           (torch.bfloat16, 264, False), (torch.float32, 132, False)):
+        value = torch.zeros(2, 7, 8, d, dtype=dtype)
+        assert vector_path(value, loc, value) is want, (dtype, d)
+    value = torch.zeros(2 * 7 * 8 * 32 + 1, dtype=torch.bfloat16)[1:]
+    assert not vector_path(value.view(2, 7, 8, 32), loc, value)
+    aligned = torch.zeros(2, 7, 8, 32)
+    assert not vector_path(aligned, torch.zeros(97)[1:], aligned)
+
+
 @pytest.mark.parametrize("builder", [build_segmenter, build_tube_link_vis])
 def test_builders_default_to_the_card(builder):
     """The entry points build on the card unless the caller passes another
