@@ -56,6 +56,13 @@
 // This is the first version written for this card: no 2-CTA cluster sharing
 // the weight tile by multicast, no stmatrix/TMA store of the epilogue, and no
 // overlap of K4's depthwise conv with the GEMMs; these are left for later.
+//
+// The overlap probe (overlap.cu, P3) runs its GEMMs on these two kernels
+// with a third epilogue (Bf16Store) and asks whether CUDA-core work hides
+// under the products: a kernel's `Side` policy adds a fourth warpgroup that
+// runs such work beside the consumers, or has the consumers run slices of it
+// between issuing a K slice's wgmma and waiting for it. K4 and K5 take
+// NoSide, which adds nothing.
 
 #pragma once
 
@@ -69,9 +76,24 @@ using namespace axvs_hopper;
 
 constexpr int BM = 128;       // rows of a tile
 constexpr int STAGES = 5;     // K slices in flight
-constexpr int THREADS = 384;  // warpgroups 0-1 compute, warpgroup 2 loads
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // after setmaxnreg
 constexpr int MAX_C = 1536;   // the checked limit on C (ConvNeXt-L's widest)
+
+// Work beside the products: none. A Side policy gives the block's
+// warpgroups (0-1 compute, 2 loads; with WARPGROUPS = 4, warpgroup 3 runs
+// `warpgroup()` with SIDE_REGS registers), their registers after setmaxnreg
+// (the four counts sum to 512, 128 threads each taking the SM's 65,536),
+// and a consumer warpgroup's `Slice` for the K slices it will run in the
+// launch: step() runs after each K slice's wgmma is issued and before its
+// wait, finish() after the warpgroup's last tile.
+struct NoSide {
+  static constexpr int WARPGROUPS = 3;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  struct Slice {
+    __device__ __forceinline__ void step() {}
+    __device__ __forceinline__ void finish() {}
+  };
+  __device__ __forceinline__ Slice consumer(int /*steps*/) const { return Slice{}; }
+};
 
 // The shared-memory ring of a BN-wide tile: STAGES slots of A (BM x BK) and
 // B (BN x BK), their full and empty mbarriers, and the ping-pong's two order
@@ -186,6 +208,29 @@ struct ResidualStore {
   }
 };
 
+// The overlap probe's phases (P3): d = bf16(acc), no bias, GELU or residual.
+struct Bf16Store {
+  bf16* __restrict__ d;
+  int ld;
+  template <int BN>
+  __device__ __forceinline__ void tile(const float (&acc)[BN / 2], int r0, int cb, int M,
+                                       int N) const {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = cb + 8 * j;
+      if (col >= N) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row < M) {
+          *reinterpret_cast<__nv_bfloat162*>(d + (size_t)row * ld + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      }
+    }
+  }
+};
+
 template <int BN>
 __device__ __forceinline__ Ring<BN> carve(unsigned char* smem_raw) {
   Ring<BN> r;
@@ -231,12 +276,36 @@ __device__ __forceinline__ void produce(const Ring<BN>& r, const CUtensorMap* ta
   }
 }
 
+// Warpgroups 2 (the producer) and 3 (the side work, where the policy has
+// one) give up their registers and run their work; true for them, false for
+// the consumers, which take theirs.
+template <class Side, int BN>
+__device__ __forceinline__ bool run_helpers(int wg, const Ring<BN>& r, const CUtensorMap* ta,
+                                            const CUtensorMap* tb, int tiles, int n_tiles,
+                                            int ksteps, const Side& side) {
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Side::PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 256) produce(r, ta, tb, tiles, n_tiles, ksteps);
+    return true;
+  }
+  if constexpr (Side::WARPGROUPS == 4) {
+    if (wg == 3) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Side::SIDE_REGS) : "memory");
+      side.warpgroup();
+      return true;
+    }
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Side::CONSUMER_REGS) : "memory");
+  return false;
+}
+
 // Phase 2's kernel, cooperative: consumer warpgroup c takes rows 64 c ..
 // 64 c + 63 of every tile of the block.
-template <int BN, class Epi>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int BN, class Epi, class Side = NoSide>
+__global__ void __launch_bounds__(Side::WARPGROUPS * 128, 1)
 gemm_cooperative_kernel(const __grid_constant__ CUtensorMap ta,
-                        const __grid_constant__ CUtensorMap tb, int M, int N, int K, Epi epi) {
+                        const __grid_constant__ CUtensorMap tb, int M, int N, int K, Epi epi,
+                        Side side) {
   extern __shared__ unsigned char smem_raw[];
   const Ring<BN> r = carve<BN>(smem_raw);
   const int n_tiles = (N + BN - 1) / BN;
@@ -246,15 +315,12 @@ gemm_cooperative_kernel(const __grid_constant__ CUtensorMap ta,
   if (threadIdx.x == 0) init_barriers(r, 2);
   __syncthreads();
 
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
-    if (threadIdx.x == 256) produce(r, &ta, &tb, tiles, n_tiles, ksteps);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  if (run_helpers(wg, r, &ta, &tb, tiles, n_tiles, ksteps, side)) return;
   const int c = wg;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const bool leader = (threadIdx.x & 127) == 0;
+  const int my_tiles = blockIdx.x < tiles ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  typename Side::Slice slice = side.consumer(my_tiles * ksteps);
   int it = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
@@ -274,6 +340,7 @@ gemm_cooperative_kernel(const __grid_constant__ CUtensorMap ta,
         wgmma_m64k16<BN>(acc, sw128_desc(a + kk * 16), sw128_desc(b + kk * 16));
       }
       wgmma_commit();
+      slice.step();
       wgmma_wait<1>();  // the previous slice's products are done: free its slot
       fence_acc(acc);
       if (prev >= 0 && leader) mbar_arrive(&r.empty[prev]);
@@ -285,6 +352,7 @@ gemm_cooperative_kernel(const __grid_constant__ CUtensorMap ta,
     epi.template tile<BN>(acc, m0 + c * 64 + warp * 16 + (lane >> 2), n0 + 2 * (lane & 3), M,
                           N);
   }
+  slice.finish();
 }
 
 // Phase 1's kernel, ping-pong: the two consumer warpgroups take whole tiles
@@ -293,10 +361,11 @@ gemm_cooperative_kernel(const __grid_constant__ CUtensorMap ta,
 // warpgroup c start a tile's products only once the other has issued all of
 // the previous tile's: the ring is consumed in order, and no wait on a slot
 // runs more than one phase ahead of it (a parity wait cannot tell further).
-template <int BN, class Epi>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int BN, class Epi, class Side = NoSide>
+__global__ void __launch_bounds__(Side::WARPGROUPS * 128, 1)
 gemm_pingpong_kernel(const __grid_constant__ CUtensorMap ta,
-                     const __grid_constant__ CUtensorMap tb, int M, int N, int K, Epi epi) {
+                     const __grid_constant__ CUtensorMap tb, int M, int N, int K, Epi epi,
+                     Side side) {
   extern __shared__ unsigned char smem_raw[];
   const Ring<BN> r = carve<BN>(smem_raw);
   const int n_tiles = (N + BN - 1) / BN;
@@ -306,15 +375,13 @@ gemm_pingpong_kernel(const __grid_constant__ CUtensorMap ta,
   if (threadIdx.x == 0) init_barriers(r, 1);
   __syncthreads();
 
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
-    if (threadIdx.x == 256) produce(r, &ta, &tb, tiles, n_tiles, ksteps);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+  if (run_helpers(wg, r, &ta, &tb, tiles, n_tiles, ksteps, side)) return;
   const int c = wg;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const bool leader = (threadIdx.x & 127) == 0;
+  const int first = blockIdx.x + c * gridDim.x;  // this warpgroup's tiles: every other one
+  const int my_tiles = first < tiles ? (tiles - first + 2 * gridDim.x - 1) / (2 * gridDim.x) : 0;
+  typename Side::Slice slice = side.consumer(my_tiles * ksteps);
   for (int j = c, t = blockIdx.x + c * gridDim.x; t < tiles; j += 2, t += 2 * gridDim.x) {
     const int m0 = t / n_tiles * BM, n0 = t % n_tiles * BN;
     if (j > 0) mbar_wait(&r.order[c], ((j - 1) >> 1) & 1);
@@ -340,6 +407,7 @@ gemm_pingpong_kernel(const __grid_constant__ CUtensorMap ta,
         wgmma_m64k16<BN>(acc1, sw128_desc(a + 64 * BK + kk * 16), db);
       }
       wgmma_commit();
+      slice.step();
       wgmma_wait<1>();
       fence_acc(acc0);
       fence_acc(acc1);
@@ -355,15 +423,16 @@ gemm_pingpong_kernel(const __grid_constant__ CUtensorMap ta,
     epi.template tile<BN>(acc0, r0, cb, M, N);
     epi.template tile<BN>(acc1, r0 + 64, cb, M, N);
   }
+  slice.finish();
 }
 
 // D = A B^T through `kernel` (a BN-wide tile kernel): A (M, K) and B (N, K)
-// bf16, row-major; every D element pair goes to epi. One persistent block
-// an SM. 0 or a CUDA error code.
-template <int BN, class Epi>
-inline int launch_gemm(void (*kernel)(CUtensorMap, CUtensorMap, int, int, int, Epi),
+// bf16, row-major; every D element pair goes to epi; `side` runs beside the
+// products. One persistent block an SM. 0 or a CUDA error code.
+template <int BN, class Epi, class Side = NoSide>
+inline int launch_gemm(void (*kernel)(CUtensorMap, CUtensorMap, int, int, int, Epi, Side),
                        const void* a, const void* b, int M, int N, int K, const Epi& epi,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const Side& side = Side()) {
   CUtensorMap ta, tb;
   int status = make_map(&ta, a, M, K, BM);
   if (!status) status = make_map(&tb, b, N, K, BN);
@@ -377,7 +446,7 @@ inline int launch_gemm(void (*kernel)(CUtensorMap, CUtensorMap, int, int, int, E
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  kernel<<<grid, THREADS, smem, stream>>>(ta, tb, M, N, K, epi);
+  kernel<<<grid, Side::WARPGROUPS * 128, smem, stream>>>(ta, tb, M, N, K, epi, side);
   return (int)cudaGetLastError();
 }
 

@@ -1,90 +1,73 @@
-// Does one SM overlap CUDA-core work with tensor-core work? (P3)
+// Does an SM overlap CUDA-core work with tensor-core work? (P3)
 //
 // Replaces the TPU kernels of tools/bench_overlap.py::run (its
 // `pallas_call` over the bodies k_vpu, k_mxu, k_both and k_interleave), a
 // probe of whether a fused ConvNeXt block can hide its depthwise conv
 // under its MLP. At stage 2's tile (TH x W x C = 8 x 84 x 768, so TOKENS =
-// 672 rows of C) each kernel computes, per tile:
+// 672 rows of C), for each of 27 tiles:
 //   vpu         out = bf16(49 dependent f32 steps acc = acc + x * 0.01(i+1))
 //   mxu         h = bf16(t @ w1) (f32 sums), out = bf16(h @ w2) (f32 sums);
 //               t (672, 768), w1 (768, 3072), w2 (3072, 768), bf16
-//   both        both of them on independent inputs in one block: warps 0-7
-//               run the mxu work, warps 8-15 the vpu work (warp
-//               specialisation, how a fused block would hide its dwconv)
-//   interleave  4 row chunks of 168; every warp runs chunk j's mxu work and,
-//               between its matrix steps, slices of chunk j's vpu work, in
-//               one instruction stream
-// The grid is 27 tiles, one block each, all reading the same whole arrays
-// (as the TPU grid did), each writing its own (TOKENS, C) slice of the
-// output. With 27 blocks on 132 SMs no two tiles share an SM, so the
-// overlap measured is the overlap within one SM.
+//   both        both of them on independent inputs in one kernel
+//   interleave  both of them in one instruction stream
+// Every tile reads the same inputs and writes its own (TOKENS, C) slice.
+//
+// The mapping. The TPU call gives its grid no dimension semantics, so its
+// 27 steps run one after another on one TensorCore, each with the whole
+// core's matrix and vector units. The card's counterpart of that core is
+// the whole card: every kernel here spreads the 27 tiles' work over all
+// SMs, and every SM that runs `both` or `interleave` runs both kinds of
+// work, so what is measured is still the overlap inside an SM.
 //
 // What bounds them on an H100: operations. mxu: 27 x 6.34 GFLOP of bf16
-// tensor-core work, 0.173 ms at 989 TFLOP/s for the whole card and 0.85 ms
-// on the 27 SMs the grid occupies; vpu: 27 x 50.6 MFLOP of f32, 0.020 ms
-// (0.10 ms on 27 SMs). The bytes (10 MB of inputs, 28 MB of outputs) are
-// less.
+// tensor-core products, 0.173 ms at 989 TFLOP/s; vpu: 27 x 50.6 MFLOP of
+// f32, 0.020 ms at 67 TFLOP/s. The bytes (the A operand's 27.9 MB copy,
+// 9.4 MB of weights, 27.9 MB of outputs a kind) are less.
 //
-// Design: the mxu work walks the rows in tiles of R = 32 (the last one
-// masked). A tile of t sits in shared memory; 8 warps walk the hidden axis
-// in chunks of 128 columns: each warp computes one 16-column slice of h for
-// the tile (wmma bf16 16x16x16, f32 accumulators), rounds it to bf16 into
-// shared memory, and after a barrier adds h_chunk @ w2_chunk into the 6
-// output tiles it owns, whose f32 sums stay in fragments (12 a thread) for
-// the whole hidden loop. Weight fragments come from device memory (L2),
-// (in, out) layout, row-major B. The mxu warps synchronise with a named
-// barrier (id 1, 256 threads), so in `both` the vpu warps never wait on
-// them. The mxu work wants about 216 registers a thread; `both` launches
-// 512 threads at 128 (all of the SM's 65,536), then the vpu warpgroups give
-// up 88 each with setmaxnreg.dec and the mxu warpgroups take them with
-// setmaxnreg.inc, Hopper's way to balance a warp-specialised block. The vpu
-// work is one thread per 8 elements (a 16-byte load), the 8
-// chains independent. No cuBLAS: the kernels issue their own mma.
+// Design.
+// - mxu: the two GEMM phases of convnext_mlp.cuh (the K4/K5 core: TMA ring
+//   under mbarriers, wgmma from 128-byte-swizzled slices, one persistent
+//   block an SM) over all 18,144 rows of the 27 tiles, with the Bf16Store
+//   epilogue:
+//     phase 1 (ping-pong, 128 x 128 tiles): h = bf16(t @ w1) into a
+//       (27 x 672, 4C) workspace,
+//     phase 2 (cooperative, 128 x 192 tiles): out = bf16(h @ w2).
+//   The core computes A B^T with K-major operands, so it takes w1^T
+//   (4C, C) and w2^T (C, 4C), and its A operand is a (27 x 672, C) copy of
+//   t; the caller makes all three once (bench_overlap.py::mxu_operands).
+//   The TPU body fused the two products and kept h in VMEM, whose limit it
+//   raised to 100 MB. Here they stay two phases: h for one 128-row tile is
+//   768 KB, more than an SM's shared memory, and a 64 x 768 f32 output
+//   accumulator would take 192 registers a thread over two warpgroups
+//   before any of h.
+// - vpu: one thread a 16-byte vector (8 bf16, 8 independent chains) over
+//   all 27 tiles' vectors.
+// - both: the same two phases with a fourth warpgroup in each persistent
+//   block (registers 40 producer, 40 vpu, 216 for each consumer: 512 x 128
+//   = the SM's 65,536). Phase 1 carries the first half of the 27 tiles'
+//   vpu vectors and phase 2 the second; within a phase, block b's vpu
+//   warpgroup takes vectors b x 128 + i, striding by the grid, while the
+//   consumers run wgmma.
+// - interleave: the same two phases, three warpgroups; the same halves of
+//   the vpu vectors, shared out over the consumer threads of all blocks.
+//   After issuing each K slice's wgmma group and before waiting for it, a
+//   consumer thread runs its next vpu vectors, spread evenly over its K
+//   slices of the launch: Hopper's counterpart of the TPU body's single
+//   instruction stream over 4 row chunks.
+//   A consumer thread loads each of its vectors one vector ahead.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "convnext_mlp.cuh"
 
 namespace {
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using axvs_hopper::bf16;
 
-constexpr int WARPS = 8;               // warps of the mxu work
-constexpr int MXU_THREADS = WARPS * 32;
-constexpr int RT = 2;                  // 16-row tiles a row tile
-constexpr int R = 16 * RT;
-constexpr int HC = WARPS * 16;         // hidden columns a chunk
-constexpr int MAXT = 6;                // output tiles a warp: C <= 768
-constexpr int PAD = 8;                 // bf16 padding of a shared row
-constexpr int NC = 4;                  // interleave's row chunks
 constexpr int STEPS = 49;
-constexpr int VEC = 8;
-constexpr int VPU_REGS = 40;   // `both`: registers a vpu thread keeps
-constexpr int MXU_REGS = 216;  // and an mxu thread takes: 256 * (40 + 216)
+constexpr int VEC = 8;           // bf16 a 16-byte vector
+constexpr int VPU_THREADS = 256;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-__host__ __device__ inline size_t t_bytes(int C) { return align128((size_t)R * (C + PAD) * 2); }
-__host__ __device__ inline size_t h_bytes() { return align128((size_t)R * (HC + PAD) * 2); }
-__host__ __device__ inline size_t smem_bytes(int C) {
-  return t_bytes(C) + h_bytes() + (size_t)WARPS * 256 * 4;
-}
-
-__device__ __forceinline__ void mxu_barrier() {
-  asm volatile("bar.sync 1, %0;" ::"r"(MXU_THREADS) : "memory");
-}
-
-// The 49-step chain on the 8 elements of vector v of x, into out.
-__device__ __forceinline__ void vpu_vector(const uint4* __restrict__ x,
-                                           uint4* __restrict__ out, long long v) {
-  const uint4 raw = __ldg(x + v);
+// The 49-step chain on 8 elements.
+__device__ __forceinline__ uint4 vpu_chain(const uint4& raw) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
   float a[VEC], acc[VEC];
 #pragma unroll
@@ -105,241 +88,167 @@ __device__ __forceinline__ void vpu_vector(const uint4* __restrict__ x,
   __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
   for (int i = 0; i < VEC / 2; ++i) oh[i] = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
-  out[v] = o;
+  return o;
 }
 
-// vpu work on vectors [v0, v1) by `n` threads, this one `tid`.
-__device__ __forceinline__ void vpu_range(const uint4* x, uint4* out, long long v0,
-                                          long long v1, int tid, int n) {
-  for (long long v = v0 + tid; v < v1; v += n) vpu_vector(x, out, v);
-}
+// Vectors [begin, end) of the (tiles x xvecs) vpu output: out[v] =
+// chain(x[v % xvecs]).
+struct VpuShare {
+  const uint4* x;
+  uint4* out;
+  unsigned xvecs, begin, end;
+  __device__ __forceinline__ uint4 load(unsigned v) const { return __ldg(x + v % xvecs); }
+};
 
-// mxu work on rows [r0, r1) by the 8 mxu warps (tid < 256). Between its
-// matrix steps, each thread also runs vpu vector vb + s * 256 + tid of the
-// range [vb, ve) at step s (interleave; an empty range otherwise), and the
-// rest of the range after the last step.
-__device__ void mxu_rows(const bf16* __restrict__ t, const bf16* __restrict__ w1,
-                         const bf16* __restrict__ w2, bf16* __restrict__ out,
-                         int r0, int r1, int C, int HID, unsigned char* smem,
-                         const uint4* vx, uint4* vout, long long vb, long long ve) {
-  const int tid = threadIdx.x % MXU_THREADS;
-  const int warp = tid >> 5, lane = tid & 31;
-  bf16* ts = reinterpret_cast<bf16*>(smem);
-  bf16* hs = reinterpret_cast<bf16*>(smem + t_bytes(C));
-  float* stage = reinterpret_cast<float*>(smem + t_bytes(C) + h_bytes()) + warp * 256;
-  const int tld = C + PAD, hld = HC + PAD;
-  const int cvecs = C / VEC;
-  long long vnext = vb + tid;
-
-  for (int rb = r0; rb < r1; rb += R) {
-    const int nvalid = min(R, r1 - rb);
-    for (int i = tid; i < R * cvecs; i += MXU_THREADS) {
-      const int r = i / cvecs, cv = i - r * cvecs;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < nvalid) v = __ldg(reinterpret_cast<const uint4*>(t + (size_t)(rb + r) * C) + cv);
-      *reinterpret_cast<uint4*>(ts + r * tld + cv * VEC) = v;
-    }
-    mxu_barrier();
-
-    FragC acc[RT][MAXT];
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-      for (int k = 0; k < MAXT; ++k) wmma::fill_fragment(acc[rt][k], 0.f);
-
-    for (int h0 = 0; h0 < HID; h0 += HC) {
-      // this warp's 16 columns of h = bf16(t @ w1)
-      FragC hacc[RT];
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) wmma::fill_fragment(hacc[rt], 0.f);
-      for (int k = 0; k < C / 16; ++k) {
-        FragB wf;
-        wmma::load_matrix_sync(wf, w1 + (size_t)k * 16 * HID + h0 + warp * 16, HID);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          FragA ta;
-          wmma::load_matrix_sync(ta, ts + rt * 16 * tld + k * 16, tld);
-          wmma::mma_sync(hacc[rt], ta, wf, hacc[rt]);
-        }
-      }
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        wmma::store_matrix_sync(stage, hacc[rt], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          hs[(rt * 16 + (e >> 4)) * hld + warp * 16 + (e & 15)] = __float2bfloat16_rn(stage[e]);
-        }
-        __syncwarp();
-      }
-      mxu_barrier();  // the chunk's h is complete
-
-      // out[:, j] += h_chunk @ w2[h0:h0+HC, j] for this warp's tiles j
-      for (int kk = 0; kk < HC / 16; ++kk) {
-        FragA ha[RT];
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) wmma::load_matrix_sync(ha[rt], hs + rt * 16 * hld + kk * 16, hld);
-#pragma unroll
-        for (int k = 0; k < MAXT; ++k) {
-          const int j = warp + WARPS * k;
-          if (j * 16 < C) {
-            FragB wf;
-            wmma::load_matrix_sync(wf, w2 + (size_t)(h0 + kk * 16) * C + j * 16, C);
-#pragma unroll
-            for (int rt = 0; rt < RT; ++rt) wmma::mma_sync(acc[rt][k], ha[rt], wf, acc[rt][k]);
-          }
-        }
-      }
-      if (vnext < ve) {  // interleave: one vpu vector beside each step
-        vpu_vector(vx, vout, vnext);
-        vnext += MXU_THREADS;
-      }
-      mxu_barrier();  // hs is rewritten by the next chunk
-    }
-
-#pragma unroll
-    for (int k = 0; k < MAXT; ++k) {
-      const int j = warp + WARPS * k;
-      if (j * 16 >= C) continue;
-#pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        wmma::store_matrix_sync(stage, acc[rt][k], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int row = rt * 16 + (e >> 4);
-          if (row < nvalid) {
-            out[(size_t)(rb + row) * C + j * 16 + (e & 15)] = __float2bfloat16_rn(stage[e]);
-          }
-        }
-        __syncwarp();
-      }
-    }
-    mxu_barrier();  // ts is rewritten by the next row tile
+// A thread's vectors v, v + stride, ... below w.end, each loaded one vector
+// ahead of its chain, so that a load's latency passes under what the thread
+// runs before it.
+struct VpuWalk {
+  VpuShare w;
+  unsigned v, stride;
+  uint4 next;
+  __device__ __forceinline__ VpuWalk(const VpuShare& share, unsigned first, unsigned step)
+      : w(share), v(first), stride(step) {
+    if (v < w.end) next = w.load(v);
   }
-  for (; vnext < ve; vnext += MXU_THREADS) vpu_vector(vx, vout, vnext);
-}
-
-__global__ void __launch_bounds__(MXU_THREADS)
-vpu_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, long long vecs) {
-  vpu_range(x, out + blockIdx.x * vecs, 0, vecs, threadIdx.x, blockDim.x);
-}
-
-__global__ void __launch_bounds__(MXU_THREADS)
-mxu_kernel(const bf16* __restrict__ t, const bf16* __restrict__ w1,
-           const bf16* __restrict__ w2, bf16* __restrict__ out, int tokens,
-           int C, int HID) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  mxu_rows(t, w1, w2, out + (size_t)blockIdx.x * tokens * C, 0, tokens, C,
-           HID, smem, nullptr, nullptr, 0, 0);
-}
-
-__global__ void __launch_bounds__(2 * MXU_THREADS, 1)
-both_kernel(const uint4* __restrict__ x, const bf16* __restrict__ t,
-            const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-            uint4* __restrict__ ov, bf16* __restrict__ om, int tokens, int C,
-            int HID) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long vecs = (long long)tokens * C / VEC;
-  // 512 threads launch with 128 registers each (the SM's 65,536); the vpu
-  // warpgroups give 88 of theirs to the mxu warpgroups
-  if (threadIdx.x < MXU_THREADS) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(MXU_REGS));
-    mxu_rows(t, w1, w2, om + (size_t)blockIdx.x * tokens * C, 0, tokens, C,
-             HID, smem, nullptr, nullptr, 0, 0);
-  } else {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(VPU_REGS));
-    vpu_range(x, ov + blockIdx.x * vecs, 0, vecs, threadIdx.x - MXU_THREADS,
-              MXU_THREADS);
+  __device__ __forceinline__ void run_one() {
+    const uint4 raw = next;
+    const unsigned cur = v;
+    v += stride;
+    if (v < w.end) next = w.load(v);
+    w.out[cur] = vpu_chain(raw);
   }
-}
+};
 
-__global__ void __launch_bounds__(MXU_THREADS)
-interleave_kernel(const uint4* __restrict__ x, const bf16* __restrict__ t,
-                  const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                  uint4* __restrict__ ov, bf16* __restrict__ om, int tokens,
-                  int C, int HID) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long vecs = (long long)tokens * C / VEC;
-  const int rows = tokens / NC;
-  const long long chunk = (long long)rows * C / VEC;
-  for (int j = 0; j < NC; ++j) {
-    mxu_rows(t, w1, w2, om + (size_t)blockIdx.x * tokens * C, j * rows,
-             (j + 1) * rows, C, HID, smem, x, ov + blockIdx.x * vecs,
-             j * chunk, (j + 1) * chunk);
+// `both`: warpgroup 3 of every block runs the block's share of the vectors.
+struct SideWarpgroup {
+  static constexpr int WARPGROUPS = 4;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 216, SIDE_REGS = 40;
+  VpuShare w;
+  __device__ __forceinline__ void warpgroup() const {  // no prefetch: 40 registers
+    const unsigned stride = gridDim.x * 128u;
+    for (unsigned v = w.begin + blockIdx.x * 128u + (threadIdx.x - 384u); v < w.end; v += stride) {
+      w.out[v] = vpu_chain(w.load(v));
+    }
   }
+  using Slice = axvs_mlp::NoSide::Slice;
+  __device__ __forceinline__ Slice consumer(int) const { return Slice{}; }
+};
+
+// `interleave`: each consumer thread's `n` vectors, striding by all consumer
+// threads of the grid, spread evenly over its `steps` K slices.
+struct InterleaveSlice {
+  VpuWalk walk;
+  int n, steps, step_i, done;
+  __device__ __forceinline__ void step() {
+    const int target = (int)((long long)++step_i * n / steps);
+    for (; done < target; ++done) walk.run_one();
+  }
+  __device__ __forceinline__ void finish() {
+    for (; done < n; ++done) walk.run_one();
+  }
+};
+
+struct SideInterleave {
+  static constexpr int WARPGROUPS = 3;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  VpuShare w;
+  using Slice = InterleaveSlice;
+  __device__ __forceinline__ Slice consumer(int steps) const {
+    const unsigned stride = gridDim.x * 256u, v = w.begin + blockIdx.x * 256u + threadIdx.x;
+    const int n = v < w.end ? (int)((w.end - v + stride - 1) / stride) : 0;
+    return Slice{VpuWalk(w, v, stride), n, steps > 0 ? steps : 1, 0, 0};
+  }
+};
+
+__global__ void __launch_bounds__(VPU_THREADS)
+vpu_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, unsigned xvecs) {
+  const unsigned xv = blockIdx.x * VPU_THREADS + threadIdx.x;
+  if (xv < xvecs) out[blockIdx.y * xvecs + xv] = vpu_chain(__ldg(x + xv));
 }
 
-bool misaligned(const void* p, uintptr_t bytes) { return ((uintptr_t)p % bytes) != 0; }
+bool misaligned(const void* p) { return ((uintptr_t)p & 15) != 0; }
 
-int check_mxu(const void* t, const void* w1, const void* w2, const void* om,
-              int tokens, int C, int HID) {
-  if (tokens <= 0 || C <= 0 || C % 16 || C > 16 * WARPS * MAXT || HID <= 0 ||
-      HID % HC || misaligned(t, 32) || misaligned(w1, 32) ||
-      misaligned(w2, 32) || misaligned(om, 16)) {
+// The two GEMM phases: a (rows, C) @ w1t^T -> h (rows, HID), h @ w2t^T ->
+// out (rows, C), with `side` (one per phase) beside the products.
+template <class Side>
+int mxu_phases(const void* a, const void* w1t, const void* w2t, void* h, void* out, int rows,
+               int C, int HID, const Side& side1, const Side& side2, cudaStream_t stream) {
+  using namespace axvs_mlp;
+  const Bf16Store store_h{(bf16*)h, HID};
+  int err = launch_gemm<128>(gemm_pingpong_kernel<128, Bf16Store, Side>, a, w1t, rows, HID, C,
+                             store_h, stream, side1);
+  if (err) return err;
+  const Bf16Store store_out{(bf16*)out, C};
+  return launch_gemm<192>(gemm_cooperative_kernel<192, Bf16Store, Side>, h, w2t, rows, C, HID,
+                          store_out, stream, side2);
+}
+
+// The GEMM phases' operands: rows of C and HID that the core takes.
+int check_mxu(const void* const* ptrs, int n, int rows, int C, int HID) {
+  if (rows <= 0 || C <= 0 || C % 16 || C > axvs_mlp::MAX_C || HID <= 0 || HID % 16) {
     return (int)cudaErrorInvalidValue;
   }
+  for (int i = 0; i < n; ++i) {
+    if (ptrs[i] == nullptr || misaligned(ptrs[i])) return (int)cudaErrorInvalidValue;
+  }
   return 0;
-}
-
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
 }
 
 }  // namespace
 
 // x: (tokens, C) bf16; out: (tiles, tokens, C) bf16; tokens * C % 8 == 0,
-// 16-byte aligned. Launches on `stream` and returns cudaGetLastError().
-extern "C" int axvs_overlap_vpu(const void* x, void* out, int tokens, int C,
-                                int tiles, void* stream) {
+// 16-byte aligned, tiles <= 65535. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int axvs_overlap_vpu(const void* x, void* out, int tokens, int C, int tiles,
+                                void* stream) {
   const long long elems = (long long)tokens * C;
-  if (tokens <= 0 || C <= 0 || elems % VEC || tiles <= 0 || misaligned(x, 16) ||
-      misaligned(out, 16)) {
+  if (tokens <= 0 || C <= 0 || elems % VEC || tiles <= 0 || tiles > 65535 ||
+      elems / VEC * tiles > 2147483647LL || misaligned(x) || misaligned(out)) {
     return (int)cudaErrorInvalidValue;
   }
-  vpu_kernel<<<tiles, MXU_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint4*)x, (uint4*)out, elems / VEC);
+  const unsigned xvecs = (unsigned)(elems / VEC);
+  const dim3 grid((xvecs + VPU_THREADS - 1) / VPU_THREADS, tiles);
+  vpu_kernel<<<grid, VPU_THREADS, 0, (cudaStream_t)stream>>>((const uint4*)x, (uint4*)out,
+                                                            xvecs);
   return (int)cudaGetLastError();
 }
 
-// t: (tokens, C), w1: (C, HID), w2: (HID, C), out: (tiles, tokens, C), all
-// bf16, contiguous; C a multiple of 16 up to 768, HID a multiple of 128.
-extern "C" int axvs_overlap_mxu(const void* t, const void* w1, const void* w2,
-                                void* out, int tokens, int C, int HID,
-                                int tiles, void* stream) {
-  const size_t smem = smem_bytes(C);
-  int err = check_mxu(t, w1, w2, out, tokens, C, HID);
-  if (err || tiles <= 0) return (int)cudaErrorInvalidValue;
-  if ((err = allow_smem(mxu_kernel, smem))) return err;
-  mxu_kernel<<<tiles, MXU_THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)t, (const bf16*)w1, (const bf16*)w2, (bf16*)out, tokens, C, HID);
-  return (int)cudaGetLastError();
+// a: (rows, C), the tiles' rows of t; w1t: (HID, C); w2t: (C, HID); h: a
+// (rows, HID) workspace; out: (rows, C); all bf16, contiguous, 16-byte
+// aligned; C a multiple of 16 up to 1536, HID a multiple of 16.
+extern "C" int axvs_overlap_mxu(const void* a, const void* w1t, const void* w2t, void* h,
+                                void* out, int rows, int C, int HID, void* stream) {
+  const void* ptrs[] = {a, w1t, w2t, h, out};
+  const int err = check_mxu(ptrs, 5, rows, C, HID);
+  if (err) return err;
+  const axvs_mlp::NoSide none{};
+  return mxu_phases(a, w1t, w2t, h, out, rows, C, HID, none, none, (cudaStream_t)stream);
 }
 
-// x and t: (tokens, C); w1, w2 as for the mxu kernel; ov, om: (tiles,
-// tokens, C); bf16. `interleave` != 0 runs the interleaved kernel (tokens a
-// multiple of 4), else the warp-specialised one.
-extern "C" int axvs_overlap_both(const void* x, const void* t, const void* w1,
-                                 const void* w2, void* ov, void* om,
-                                 int tokens, int C, int HID, int tiles,
-                                 int interleave, void* stream) {
-  const size_t smem = smem_bytes(C);
-  int err = check_mxu(t, w1, w2, om, tokens, C, HID);
-  if (err || tiles <= 0 || misaligned(x, 16) || misaligned(ov, 16) ||
-      (interleave && tokens % NC)) {
+// x: (tokens, C), the vpu input; a, w1t, w2t, h as for axvs_overlap_mxu
+// with rows = tiles * tokens; ov, om: (tiles, tokens, C), the vpu and mxu
+// outputs; bf16. `interleave` != 0 runs the vpu work in the consumer
+// warpgroups, else in a fourth warpgroup.
+extern "C" int axvs_overlap_both(const void* x, const void* a, const void* w1t,
+                                 const void* w2t, void* h, void* ov, void* om, int tokens,
+                                 int tiles, int C, int HID, int interleave, void* stream) {
+  const long long rows = (long long)tokens * tiles;
+  const void* ptrs[] = {x, a, w1t, w2t, h, ov, om};
+  if (tokens <= 0 || tiles <= 0 || rows > 2147483647LL || rows * C / VEC > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
+  const int err = check_mxu(ptrs, 7, (int)rows, C, HID);
+  if (err) return err;
+  const unsigned xvecs = (unsigned)((long long)tokens * C / VEC);
+  const unsigned vecs = (unsigned)(rows * C / VEC), half = vecs / 2;
+  const VpuShare first{(const uint4*)x, (uint4*)ov, xvecs, 0u, half};
+  const VpuShare second{(const uint4*)x, (uint4*)ov, xvecs, half, vecs};
   cudaStream_t s = (cudaStream_t)stream;
   if (interleave) {
-    if ((err = allow_smem(interleave_kernel, smem))) return err;
-    interleave_kernel<<<tiles, MXU_THREADS, smem, s>>>(
-        (const uint4*)x, (const bf16*)t, (const bf16*)w1, (const bf16*)w2,
-        (uint4*)ov, (bf16*)om, tokens, C, HID);
-  } else {
-    if ((err = allow_smem(both_kernel, smem))) return err;
-    both_kernel<<<tiles, 2 * MXU_THREADS, smem, s>>>(
-        (const uint4*)x, (const bf16*)t, (const bf16*)w1, (const bf16*)w2,
-        (uint4*)ov, (bf16*)om, tokens, C, HID);
+    return mxu_phases(a, w1t, w2t, h, om, (int)rows, C, HID, SideInterleave{first},
+                      SideInterleave{second}, s);
   }
-  return (int)cudaGetLastError();
+  return mxu_phases(a, w1t, w2t, h, om, (int)rows, C, HID, SideWarpgroup{first},
+                    SideWarpgroup{second}, s);
 }

@@ -66,8 +66,9 @@ _SIGNATURES = {
     "axvs_dwconv_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P],
     "axvs_overlap_vpu": [_P, _P, _I, _I, _I, _P],
-    "axvs_overlap_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "axvs_overlap_both": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "axvs_overlap_mxu": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "axvs_overlap_both": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
 }
 
 _lib = None

@@ -1,23 +1,32 @@
-"""Probe: does one SM overlap CUDA-core work with tensor-core work? (P3)
+"""Probe: does an SM overlap CUDA-core work with tensor-core work? (P3)
 
 Counterpart of the JAX package's ``tools/bench_overlap.py``. Four kernels
 (``csrc/overlap.cu``) at ConvNeXt-L's stage-2 tile at 769x1345 (TH x W x C
-= 8 x 84 x 768, TOKENS = 672), each over a grid of 27 tiles, one block a
-tile, all reading the same whole arrays:
+= 8 x 84 x 768, TOKENS = 672), each over 27 tiles that read the same
+inputs, spread over the whole card (the TPU ran its 27 grid steps one
+after another on one core, the card's counterpart of which is the card):
 
   vpu         49 dependent f32 steps ``acc = acc + x * 0.01(i+1)`` (the
-              dwconv's accumulation chain), bf16 out
+              dwconv's accumulation chain), bf16 out: a thread a 16-byte
+              vector
   mxu         ``bf16(bf16(t @ w1) @ w2)``, (672, 768) @ (768, 3072) @
-              (3072, 768) on the tensor cores (the block's MLP)
-  both        the two on independent inputs in one block, half its warps
-              on each (warp specialisation)
-  interleave  4 row chunks; every warp runs chunk j's vpu work between the
-              matrix steps of chunk j's mxu work
+              (3072, 768) a tile (the block's MLP), on the ``wgmma`` GEMM
+              core of K4 and K5 (``csrc/convnext_mlp.cuh``), two phases
+              through a workspace
+  both        the two on independent inputs in the same launches: a fourth
+              warpgroup of each GEMM block runs vpu work while the others
+              run ``wgmma`` (warp specialisation)
+  interleave  the same, the consumer warpgroups running vpu work between
+              issuing a K slice's ``wgmma`` and waiting for it
 
 If t(both) ~ max(t_vpu, t_mxu) the units overlap and a fused ConvNeXt
 block can hide its depthwise conv under its MLP; if t(both) ~ t_vpu +
-t_mxu they serialise. With 27 blocks on the card's SMs no two tiles share
-an SM, so the overlap measured is within one SM. Each kernel is checked
+t_mxu they serialise. Every SM that runs both or interleave runs both
+kinds of work, so the overlap measured is within an SM. The GEMM core
+takes K-major operands, so the mxu kernels take ``mxu_operands``: a
+(tiles x tokens, C) copy of t and the transposed weights, made once by the
+caller (``run`` makes them outside the timed calls), or by the wrapper on
+each call when not given. Each kernel is checked
 against its plain version (``vpu_work``, ``mxu_work``: max |diff|; bound 1
 bf16 ulp of max|out| for vpu, whose f32 chain the kernel may contract into
 FMAs, and 2 for mxu, whose hidden layer is rounded to bf16 after a dot
@@ -47,7 +56,11 @@ NC = 4  # interleave's row chunks
 VARIANTS = ("vpu", "mxu", "both", "interleave")
 #: the chain's 49 multipliers, np.float32(0.01 * (i + 1)) as the JAX tool's
 STEP_SCALES = [float(np.float32(0.01 * (i + 1))) for i in range(49)]
-MXU_MAX_C = 768  # the kernel's output tiles: 6 a warp of 8 warps
+#: the GEMM core's limits (``csrc/convnext_mlp.cuh``): C a multiple of 16 up
+#: to MXU_MAX_C, the hidden width a multiple of 16
+MXU_MAX_C = 1536
+#: the vpu kernels index the tiles' 16-byte vectors with 32 bits
+MAX_VECTORS = 2 ** 31 - 1
 
 
 def vpu_work(x):
@@ -89,28 +102,58 @@ def _check_bf16(*tensors):
     for t in tensors:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernel takes bf16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 32:
-            raise ValueError("inputs must be contiguous and 32-byte aligned")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("inputs must be contiguous and 16-byte aligned")
 
 
-def _check_mxu_shapes(t, w1, w2):
+def _check_tiles(tokens, c, tiles):
+    if tokens < 1 or tiles < 1 or tiles > 65535 or (
+            tokens * c % 8 or tokens * tiles * c // 8 > MAX_VECTORS):
+        raise ValueError(f"the CUDA kernels take 1-65535 tiles of (tokens, C) "
+                         f"with tokens * C a multiple of 8 and at most "
+                         f"{MAX_VECTORS} vectors of 8 in all; got tokens="
+                         f"{tokens}, C={c}, tiles={tiles}")
+
+
+def _check_mxu_shapes(t, w1, w2, tiles):
+    """(tokens, C, hidden); raises ValueError, on the CPU as on the card, on
+    shapes that do not chain or that the GEMM core does not take."""
     tokens, c = t.shape
     hidden = w1.shape[1]
     if w1.shape != (c, hidden) or w2.shape != (hidden, c):
         raise ValueError(f"t {tuple(t.shape)}, w1 {tuple(w1.shape)}, w2 "
                          f"{tuple(w2.shape)}")
+    if c % 16 or c > MXU_MAX_C or hidden % 16 or hidden < 16:
+        raise ValueError(f"the CUDA kernels take C a multiple of 16 up to "
+                         f"{MXU_MAX_C} and a hidden width a multiple of 16; "
+                         f"got C={c}, hidden={hidden}")
+    _check_tiles(tokens, c, tiles)
     return tokens, c, hidden
 
 
-def _check_mxu_kernel(c, hidden):
-    if c % 16 or c > MXU_MAX_C or hidden % 128:
-        raise ValueError(f"the CUDA kernel takes C a multiple of 16 up to "
-                         f"{MXU_MAX_C} and a hidden width a multiple of 128; "
-                         f"got C={c}, hidden={hidden}")
+def mxu_operands(t, w1, w2, tiles: int = TILES):
+    """The mxu kernels' operands, K-major for the GEMM core: the (tiles x
+    tokens, C) rows of every tile's t, w1 transposed (hidden, C) and w2
+    transposed (C, hidden), contiguous copies on t's device."""
+    rows = t.unsqueeze(0).expand(tiles, *t.shape).reshape(-1, t.shape[1])
+    return rows.contiguous(), w1.t().contiguous(), w2.t().contiguous()
+
+
+def _card_operands(t, w1, w2, tiles, operands):
+    """``operands``, checked against t, w1 and w2, or ``mxu_operands``."""
+    if operands is None:
+        return mxu_operands(t, w1, w2, tiles)
+    tokens, c = t.shape
+    want = ((tiles * tokens, c), (w1.shape[1], c), (c, w1.shape[1]))
+    if tuple(tuple(o.shape) for o in operands) != want:
+        raise ValueError(f"operands {[tuple(o.shape) for o in operands]} != "
+                         f"{list(want)}")
+    return operands
 
 
 def overlap_vpu(x, tiles: int = TILES):
     """x (tokens, C) -> (tiles, tokens, C): ``vpu_work`` once per tile."""
+    _check_tiles(x.shape[0], x.shape[1], tiles)
     if native.on_cpu([x]):
         return overlap_vpu_plain(x, tiles)
     _check_bf16(x)
@@ -121,54 +164,59 @@ def overlap_vpu(x, tiles: int = TILES):
     return out
 
 
-def overlap_mxu(t, w1, w2, tiles: int = TILES):
+def overlap_mxu(t, w1, w2, tiles: int = TILES, operands=None):
     """t (tokens, C), w1 (C, hidden), w2 (hidden, C) -> (tiles, tokens, C):
-    ``mxu_work`` once per tile."""
-    tokens, c, hidden = _check_mxu_shapes(t, w1, w2)
+    ``mxu_work`` once per tile. ``operands``: ``mxu_operands(t, w1, w2,
+    tiles)``, made by the caller once, or here when None."""
+    tokens, c, hidden = _check_mxu_shapes(t, w1, w2, tiles)
     if native.on_cpu([t, w1, w2]):
         return overlap_mxu_plain(t, w1, w2, tiles)
-    _check_bf16(t, w1, w2)
-    _check_mxu_kernel(c, hidden)
+    a, w1t, w2t = _card_operands(t, w1, w2, tiles, operands)
+    _check_bf16(a, w1t, w2t)
+    h = torch.empty(tiles * tokens, hidden, dtype=t.dtype, device=t.device)
     out = torch.empty(tiles, tokens, c, dtype=t.dtype, device=t.device)
-    native.launch("axvs_overlap_mxu", t.data_ptr(), w1.data_ptr(),
-                  w2.data_ptr(), out.data_ptr(), tokens, c, hidden, tiles,
-                  device=t.device)
+    native.launch("axvs_overlap_mxu", a.data_ptr(), w1t.data_ptr(),
+                  w2t.data_ptr(), h.data_ptr(), out.data_ptr(), tiles * tokens,
+                  c, hidden, device=t.device)
     overlap_mxu.launches += 1
     return out
 
 
-def _both(x, t, w1, w2, tiles, interleave: bool):
-    tokens, c, hidden = _check_mxu_shapes(t, w1, w2)
+def _both(x, t, w1, w2, tiles, operands, interleave: bool):
+    tokens, c, hidden = _check_mxu_shapes(t, w1, w2, tiles)
     if x.shape != t.shape:
         raise ValueError(f"x {tuple(x.shape)} != t {tuple(t.shape)}")
     if interleave and tokens % NC:
         raise ValueError(f"{tokens} rows do not split into {NC} chunks")
     if native.on_cpu([x, t, w1, w2]):
         return None
-    _check_bf16(x, t, w1, w2)
-    _check_mxu_kernel(c, hidden)
+    a, w1t, w2t = _card_operands(t, w1, w2, tiles, operands)
+    _check_bf16(x, a, w1t, w2t)
+    h = torch.empty(tiles * tokens, hidden, dtype=t.dtype, device=t.device)
     ov = torch.empty(tiles, tokens, c, dtype=x.dtype, device=x.device)
     om = torch.empty_like(ov)
-    native.launch("axvs_overlap_both", x.data_ptr(), t.data_ptr(),
-                  w1.data_ptr(), w2.data_ptr(), ov.data_ptr(), om.data_ptr(),
-                  tokens, c, hidden, tiles, int(interleave), device=x.device)
+    native.launch("axvs_overlap_both", x.data_ptr(), a.data_ptr(),
+                  w1t.data_ptr(), w2t.data_ptr(), h.data_ptr(), ov.data_ptr(),
+                  om.data_ptr(), tokens, tiles, c, hidden, int(interleave),
+                  device=x.device)
     return ov, om
 
 
-def overlap_both(x, t, w1, w2, tiles: int = TILES):
-    """The vpu work on x and the mxu work on t in one kernel, half the
-    warps on each -> (vpu out, mxu out), each (tiles, tokens, C)."""
-    out = _both(x, t, w1, w2, tiles, interleave=False)
+def overlap_both(x, t, w1, w2, tiles: int = TILES, operands=None):
+    """The vpu work on x and the mxu work on t in the same launches, a
+    fourth warpgroup on the vpu work -> (vpu out, mxu out), each (tiles,
+    tokens, C). ``operands`` as for ``overlap_mxu``."""
+    out = _both(x, t, w1, w2, tiles, operands, interleave=False)
     if out is None:
         return overlap_both_plain(x, t, w1, w2, tiles)
     overlap_both.launches += 1
     return out
 
 
-def overlap_interleave(x, t, w1, w2, tiles: int = TILES):
-    """The same two results, every warp interleaving both works over 4 row
-    chunks."""
-    out = _both(x, t, w1, w2, tiles, interleave=True)
+def overlap_interleave(x, t, w1, w2, tiles: int = TILES, operands=None):
+    """The same two results, the GEMM's consumer warpgroups running the
+    vpu work between issuing their products and waiting for them."""
+    out = _both(x, t, w1, w2, tiles, operands, interleave=True)
     if out is None:
         return overlap_interleave_plain(x, t, w1, w2, tiles)
     overlap_interleave.launches += 1
@@ -217,10 +265,12 @@ def run(variants=VARIANTS, iters: int = 50, device="cuda", tokens: int = TOKENS,
     if unknown:
         raise ValueError(f"unknown variants {unknown}")
     x, t, w1, w2 = build_inputs(np.random.RandomState(0), tokens, c, device)
+    ops = mxu_operands(t, w1, w2, tiles) if device.type == "cuda" else None
     calls = {"vpu": lambda: (overlap_vpu(x, tiles),),
-             "mxu": lambda: (overlap_mxu(t, w1, w2, tiles),),
-             "both": lambda: overlap_both(x, t, w1, w2, tiles),
-             "interleave": lambda: overlap_interleave(x, t, w1, w2, tiles)}
+             "mxu": lambda: (overlap_mxu(t, w1, w2, tiles, ops),),
+             "both": lambda: overlap_both(x, t, w1, w2, tiles, ops),
+             "interleave": lambda: overlap_interleave(x, t, w1, w2, tiles,
+                                                      ops)}
     results = {}
     with torch.inference_mode():
         want = {"vpu": vpu_work(x), "mxu": mxu_work(t, w1, w2)}
@@ -273,7 +323,7 @@ def main(argv=None) -> int:
         where = f"{props.name}, {props.multi_processor_count} SMs"
     else:
         where = "the host CPU (not a card's time)"
-    print(f"overlap probe on {where}: grid of {TILES} tiles of ({TOKENS}, {C})")
+    print(f"overlap probe on {where}: {TILES} tiles of ({TOKENS}, {C})")
     summary = results.pop("summary", None)
     for name, r in results.items():
         checks = ", ".join(f"{k} {d:.6g} (bound {r['bound'][k]:.6g})"
@@ -281,7 +331,7 @@ def main(argv=None) -> int:
         line = (f"{name}: {'OK' if r['ok'] else 'MISMATCH'} max |diff| vs "
                 f"plain: {checks}; launches {r['launches']}")
         if "ms" in r:
-            line += f"; {r['ms']:.4f} ms (grid of {TILES} tiles)"
+            line += f"; {r['ms']:.4f} ms ({TILES} tiles)"
             if r["graph_ms"] is not None:
                 line += f", {r['graph_ms']:.4f} ms in a CUDA graph"
         print(line)

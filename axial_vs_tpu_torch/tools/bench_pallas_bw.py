@@ -9,7 +9,9 @@ compiler's fusions. Its three Pallas kernels are CUDA kernels here
   sum_n          12 bf16 (rows, 128) inputs summed in f32 in order, one bf16
                  rounding                                    (``pallas_sum12``)
   column_gather  ``out[i, j] = t[idx[i, j], j]``, int32 indices, f32 or
-                 bf16 table                                  (``vmem_gather``)
+                 bf16 table, held on chip: slices of 8 columns in CTAs'
+                 shared memory, a slice over 128 KB in row ranges
+                                                         (``vmem_gather``)
 
 Each is checked against its plain version before it is timed (max |diff|;
 all three are exact), then timed with CUDA events over back-to-back calls
@@ -44,6 +46,15 @@ N_SUM = 12
 GATHER_CASES = ((4096, torch.float32), (1024, torch.float32),
                 (16384, torch.float32), (4096, torch.bfloat16))
 MAX_INPUTS = 16  # inputs one sum_n launch takes (the kernel's pointer struct)
+#: the gather kernel's table: column slices of GATHER_W columns, a slice in
+#: at most GATHER_RANGES row ranges of at most GATHER_CTA_BYTES, one a CTA
+GATHER_W, GATHER_RANGES, GATHER_CTA_BYTES = 8, 8, 128 * 1024
+
+
+def gather_max_rows(dtype) -> int:
+    """The most table rows the gather kernel holds: 32768 in f32, 65536 in
+    bf16."""
+    return GATHER_RANGES * (GATHER_CTA_BYTES // (GATHER_W * dtype.itemsize))
 
 
 def scale_copy_plain(x):
@@ -103,17 +114,28 @@ def sum_n(xs: Sequence[torch.Tensor]):
 
 
 def column_gather(t, idx):
-    """t (S, C) f32 or bf16, idx (N, C) int32 in [0, S) -> (N, C):
-    ``out[i, j] = t[idx[i, j], j]``."""
+    """t (S, C) f32 or bf16, idx (N, C) int32 -> (N, C):
+    ``out[i, j] = t[idx[i, j], j]``; an index outside [0, S) gives 0 on the
+    card. Raises ValueError, on the CPU as on the card, on tables the
+    kernel does not hold: C not a multiple of 8, S above
+    ``gather_max_rows``, or no rows."""
     if t.dim() != 2 or idx.dim() != 2 or idx.shape[1] != t.shape[1]:
         raise ValueError(f"table {tuple(t.shape)}, indices {tuple(idx.shape)}")
+    (s, c), n = t.shape, idx.shape[0]
+    if c % GATHER_W or not 0 < s <= gather_max_rows(t.dtype) or n < 1:
+        raise ValueError(f"the CUDA kernel takes C a multiple of {GATHER_W}, "
+                         f"1-{gather_max_rows(t.dtype)} table rows in "
+                         f"{t.dtype} and at least one index row; got table "
+                         f"{tuple(t.shape)}, indices {tuple(idx.shape)}")
     if native.on_cpu([t, idx]):
         return column_gather_plain(t, idx)
     if t.dtype not in (torch.float32, torch.bfloat16) or idx.dtype != torch.int32:
         raise TypeError(f"the CUDA kernel takes an f32 or bf16 table and int32 "
                         f"indices, got {t.dtype} and {idx.dtype}")
-    if not (t.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("table and indices must be contiguous")
+    if not (t.is_contiguous() and idx.is_contiguous()) or (
+            t.data_ptr() % 16 or idx.data_ptr() % 16):
+        raise ValueError("table and indices must be contiguous and 16-byte "
+                         "aligned")
     out = torch.empty(idx.shape, dtype=t.dtype, device=t.device)
     native.launch("axvs_column_gather", t.data_ptr(), idx.data_ptr(),
                   out.data_ptr(), t.shape[0], idx.shape[0], t.shape[1],

@@ -246,7 +246,8 @@ def phase_build():
         f"(nvcc {native.build_info['seconds']:.3f} s) -> "
         f"{native.build_info['path']}")
     for line in native.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling", "wgmma",
+                                   "arning")):
             log(f"  ptxas: {line.strip()}")
 
 
@@ -1603,10 +1604,21 @@ def _probe_p4(torch, bw):
                         "graph_ms": r["graph_ms"],
                         "library_graph_ms": r["library_graph_ms"], "per": per}
     entries["P4-sum12"]["library"] = "eager chain of 11 bf16 torch.add"
-    entries["P4-gather"]["tables_graph_ms"] = {k: r["graph_ms"]
-                                               for k, r in tables.items()}
+    shares = {k: bound_ms(0, r["nbytes"], PEAK_BF16)[0] / r["graph_ms"]
+              for k, r in tables.items()}
+    entries["P4-gather"].update(
+        tables_graph_ms={k: r["graph_ms"] for k, r in tables.items()},
+        tables_library_graph_ms={k: r["library_graph_ms"]
+                                 for k, r in tables.items()},
+        tables_bound_share=shares)
     log("P4 share of the bound (CUDA graph): " + ", ".join(
-        f"{k} {e['bound_ms'] / e['graph_ms']:.3f}" for k, e in entries.items()))
+        f"{k} {e['bound_ms'] / e['graph_ms']:.3f}" for k, e in entries.items())
+        + "; the gather at each table: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in shares.items()))
+    log("P4 gather against torch.gather, both in CUDA graphs: " + ", ".join(
+        f"{k} {r['graph_ms']:.4f} vs {r['library_graph_ms']:.4f} ms "
+        f"({'no slower' if r['graph_ms'] <= r['library_graph_ms'] else 'SLOWER'})"
+        for k, r in tables.items()))
     return entries
 
 
@@ -1690,7 +1702,9 @@ def _probe_p1(torch, dv):
 def _probe_p3(torch, ov):
     """P3 at its defaults (27 tiles of (672, 768)): vpu, mxu, both and
     interleave against the plain versions, the overlap efficiency, and the
-    mxu work's library call."""
+    mxu work's library call, eager and in a CUDA graph."""
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
     res = ov.run(iters=PROBE_ITERS)
     summary = res.pop("summary")
     for name, r in res.items():
@@ -1705,30 +1719,39 @@ def _probe_p3(torch, ov):
     want = ov.mxu_work(t, w1, w2).float()
     lib_err = (lib().float() - want).abs().max().item()
     lib_ms = cuda_ms(torch, lib)
+    lib_graph_ms = graph_ms(lib, "cuda", PROBE_ITERS)
     plain = {"P3-vpu": lambda: ov.overlap_vpu_plain(x),
              "P3-mxu": lambda: ov.overlap_mxu_plain(t, w1, w2),
              "P3-both": lambda: ov.overlap_both_plain(x, t, w1, w2),
              "P3-interleave": lambda: ov.overlap_interleave_plain(x, t, w1, w2)}
     mxu_flops, vpu_flops = ov.flops()
-    nbytes = 2 * (x.numel() + t.numel() + w1.numel() + w2.numel())
+    # bytes read once and written once: the mxu kernels read the (27 x 672,
+    # 768) copy of t that mxu_operands makes, and the two weights
     out_bytes = 2 * ov.TILES * x.numel()
+    mxu_bytes = (2 * ov.TILES * t.numel() + 2 * (w1.numel() + w2.numel())
+                 + out_bytes)
     bounds = {"P3-vpu": bound_ms(0, 2 * x.numel() + out_bytes, PEAK_BF16,
                                  vpu_flops),
-              "P3-mxu": bound_ms(mxu_flops, nbytes - 2 * x.numel() + out_bytes,
-                                 PEAK_BF16),
-              "P3-both": bound_ms(mxu_flops, nbytes + 2 * out_bytes, PEAK_BF16,
-                                  vpu_flops)}
+              "P3-mxu": bound_ms(mxu_flops, mxu_bytes, PEAK_BF16),
+              "P3-both": bound_ms(mxu_flops, mxu_bytes + 2 * x.numel()
+                                  + out_bytes, PEAK_BF16, vpu_flops)}
     bounds["P3-interleave"] = bounds["P3-both"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"P3 on {sms} SMs, grid of {ov.TILES}: sum={summary['sum']:.4f}  "
+    row_tiles = -(-ov.TILES * ov.TOKENS // 128)  # the GEMM core's 128-row tiles
+    gemm_tiles = (row_tiles * -(-4 * ov.C // 128), row_tiles * -(-ov.C // 192))
+    tv, tm, tb = (res[k]["graph_ms"] for k in ("vpu", "mxu", "both"))
+    graph_efficiency = (tv + tm - tb) / min(tv, tm)  # run()'s definition
+    log(f"P3 on {sms} SMs, {ov.TILES} tiles: sum={summary['sum']:.4f}  "
         f"max={summary['max']:.4f}  both={summary['both']:.4f}  "
-        f"overlap_efficiency={summary['overlap_efficiency']:.3f}; mxu library "
-        f"call (two torch.matmul over the tiles) {lib_ms:.4f} ms, max |diff| "
-        f"{lib_err:.6g} from the plain version; bounds (whole card) "
-        + ", ".join(f"{k} {b[0]:.4f} ms ({b[1]})" for k, b in bounds.items())
-        + f"; on the {ov.TILES} SMs the grid holds: mxu "
-        f"{mxu_flops / PEAK_BF16 * 1e3 * sms / ov.TILES:.4f} ms, vpu "
-        f"{vpu_flops / PEAK_F32 * 1e3 * sms / ov.TILES:.4f} ms")
+        f"overlap_efficiency={summary['overlap_efficiency']:.3f} (eager; from "
+        f"the CUDA-graph times {graph_efficiency:.3f}); the GEMM phases' {gemm_tiles[0]} and {gemm_tiles[1]} output "
+        f"tiles run on min(tiles, SMs) = {min(gemm_tiles[0], sms)} and "
+        f"{min(gemm_tiles[1], sms)} persistent blocks, one an SM (their "
+        f"rings take more than half an SM's shared memory); mxu library call "
+        f"(two torch.matmul over the tiles) {lib_ms:.4f} ms, {lib_graph_ms:.4f}"
+        f" in a CUDA graph, max |diff| {lib_err:.6g} from the plain version; "
+        f"bounds (whole card) "
+        + ", ".join(f"{k} {b[0]:.4f} ms ({b[1]})" for k, b in bounds.items()))
     entries = {}
     for key, name in (("P3-vpu", "vpu"), ("P3-mxu", "mxu"), ("P3-both", "both"),
                       ("P3-interleave", "interleave")):
@@ -1738,10 +1761,11 @@ def _probe_p3(torch, ov):
             "plain_ms": cuda_ms(torch, plain[key], launches=3, repeats=1),
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": lib_ms if key == "P3-mxu" else None,
-            "per": f"grid of {ov.TILES} tiles of (672, 768); the plain "
+            "per": f"{ov.TILES} tiles of (672, 768); the plain "
                    "version computes one tile and broadcasts it"}
+    entries["P3-mxu"]["library_graph_ms"] = lib_graph_ms
     entries["P3-both"].update(overlap_efficiency=summary["overlap_efficiency"],
-                              sms=sms)
+                              graph_overlap_efficiency=graph_efficiency, sms=sms)
     return entries
 
 

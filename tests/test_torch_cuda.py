@@ -561,7 +561,12 @@ def test_probe_bandwidth_kernels(gen, rows):
 @pytest.mark.parametrize("s,dtype", [(4096, torch.float32),
                                      (16384, torch.float32),
                                      (4096, torch.bfloat16),
-                                     (37, torch.bfloat16)])
+                                     (37, torch.bfloat16),
+                                     # the fourth of the JAX tool's tables;
+                                     # the largest tables the kernel holds
+                                     (1024, torch.float32),
+                                     (32768, torch.float32),
+                                     (65536, torch.bfloat16)])
 def test_probe_column_gather_kernel(gen, s, dtype):
     from axial_vs_tpu_torch.tools.bench_pallas_bw import (column_gather,
                                                           column_gather_plain)
@@ -572,6 +577,40 @@ def test_probe_column_gather_kernel(gen, s, dtype):
     before = column_gather.launches
     assert torch.equal(column_gather(t, idx), column_gather_plain(t, idx))
     assert column_gather.launches == before + 1
+
+
+@pytest.mark.parametrize("s,n,c,dtype", [(4096, 4096, 128, torch.float32),
+                                         (1024, 1024, 128, torch.float32),
+                                         (16384, 16384, 128, torch.float32),
+                                         (4096, 4096, 128, torch.bfloat16),
+                                         (37, 3, 16, torch.float32)])
+def test_probe_column_gather_out_of_range(gen, s, n, c, dtype):
+    """Indices outside [0, S) give 0; the rest equal the plain gather."""
+    from axial_vs_tpu_torch.tools.bench_pallas_bw import (column_gather,
+                                                          column_gather_plain)
+
+    t = torch.randn(s, c, generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(-s, 2 * s, (n, c), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[0, 0], idx[-1, -1] = -2 ** 31, 2 ** 31 - 1
+    inside = (idx >= 0) & (idx < s)
+    want = torch.where(inside, column_gather_plain(t, idx.clamp(0, s - 1)),
+                       torch.zeros((), dtype=dtype, device="cuda"))
+    assert torch.equal(column_gather(t, idx), want)
+
+
+@pytest.mark.parametrize("s,c,dtype", [(32769, 128, torch.float32),
+                                       (65537, 8, torch.bfloat16),
+                                       (64, 12, torch.float32)])
+def test_probe_column_gather_refuses_tables_it_cannot_hold(gen, s, c, dtype):
+    from axial_vs_tpu_torch.tools.bench_pallas_bw import column_gather
+
+    t = torch.zeros(s, c, device="cuda", dtype=dtype)
+    idx = torch.zeros(4, c, device="cuda", dtype=torch.int32)
+    before = column_gather.launches
+    with pytest.raises(ValueError):
+        column_gather(t, idx)
+    assert column_gather.launches == before
 
 
 @pytest.mark.parametrize("unroll", [1, 4, 8])
@@ -612,8 +651,12 @@ def test_probe_dwconv_variant_kernel(gen, variant, shape):
     assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
 
 
-@pytest.mark.parametrize("tokens,c,hidden,tiles", [(672, 768, 3072, 27),
-                                                   (40, 128, 256, 3)])
+@pytest.mark.parametrize("tokens,c,hidden,tiles", [
+    (672, 768, 3072, 27), (40, 128, 256, 3),
+    # rows not a multiple of the GEMM's 128-row tile, C of 192 and 768 with
+    # a hidden width of 4C, one tile and 27
+    *[(n, c, 4 * c, k) for n in (100, 672) for c in (192, 768)
+      for k in (1, 27) if (n, c, k) != (672, 768, 27)]])
 def test_probe_overlap_kernels(gen, tokens, c, hidden, tiles):
     from axial_vs_tpu_torch.tools import bench_overlap as bo
 
@@ -622,15 +665,16 @@ def test_probe_overlap_kernels(gen, tokens, c, hidden, tiles):
     w1 = (torch.randn(c, hidden, generator=gen, device="cuda") * 0.02).bfloat16()
     w2 = (torch.randn(hidden, c, generator=gen, device="cuda") * 0.02).bfloat16()
     want_v, want_m = bo.vpu_work(x), bo.mxu_work(t, w1, w2)
+    ops = bo.mxu_operands(t, w1, w2, tiles)
 
     def err(got, want):
         return (got.float() - want.float()).abs().max().item()
 
     before = {k: fn.launches for k, fn in bo.counted_kernels().items()}
     got_v = bo.overlap_vpu(x, tiles)
-    got_m = bo.overlap_mxu(t, w1, w2, tiles)
-    both = bo.overlap_both(x, t, w1, w2, tiles)
-    inter = bo.overlap_interleave(x, t, w1, w2, tiles)
+    got_m = bo.overlap_mxu(t, w1, w2, tiles)  # the wrapper makes the operands
+    both = bo.overlap_both(x, t, w1, w2, tiles, ops)
+    inter = bo.overlap_interleave(x, t, w1, w2, tiles, ops)
     torch.cuda.synchronize()
     assert {k: fn.launches - before[k]
             for k, fn in bo.counted_kernels().items()} == dict.fromkeys(
@@ -641,3 +685,27 @@ def test_probe_overlap_kernels(gen, tokens, c, hidden, tiles):
     for got in (got_m, both[1], inter[1]):
         assert got.shape == (tiles, tokens, c)
         assert err(got, want_m) <= 2 * _ulp(want_m)
+
+
+@pytest.mark.parametrize("case", ["c24", "c1552", "hidden40", "tiles0",
+                                  "operands"])
+def test_probe_overlap_refuses_shapes_outside_its_limits(gen, case):
+    """Shapes the GEMM core does not take raise ValueError before any
+    launch, as on the CPU; so do operands of the wrong shapes."""
+    from axial_vs_tpu_torch.tools import bench_overlap as bo
+
+    tokens, c, hidden, tiles = {"c24": (8, 24, 96, 1), "c1552": (8, 1552, 64, 1),
+                                "hidden40": (8, 16, 40, 1),
+                                "tiles0": (8, 16, 64, 0),
+                                "operands": (8, 16, 64, 2)}[case]
+    x = torch.zeros(tokens, c, device="cuda", dtype=torch.bfloat16)
+    w1 = torch.zeros(c, hidden, device="cuda", dtype=torch.bfloat16)
+    w2 = torch.zeros(hidden, c, device="cuda", dtype=torch.bfloat16)
+    ops = bo.mxu_operands(x, w1, w2, 1) if case == "operands" else None
+    before = {k: fn.launches for k, fn in bo.counted_kernels().items()}
+    for call in (lambda: bo.overlap_mxu(x, w1, w2, tiles, ops),
+                 lambda: bo.overlap_both(x, x, w1, w2, tiles, ops),
+                 lambda: bo.overlap_interleave(x, x, w1, w2, tiles, ops)):
+        with pytest.raises(ValueError):
+            call()
+    assert {k: fn.launches for k, fn in bo.counted_kernels().items()} == before

@@ -310,6 +310,58 @@ def test_probe_tool_defaults_to_the_card(name):
     assert checks and all(err <= bound for err, bound in checks), checks
 
 
+def test_mxu_operands_are_the_transposes(rng):
+    """P3's mxu kernels take K-major copies: every tile's rows of t in
+    order, w1 transposed and w2 transposed, contiguous."""
+    x, t = _bf16(rng, 5, 16), _bf16(rng, 5, 16)
+    w1, w2 = _bf16(rng, 16, 64), _bf16(rng, 64, 16)
+    a, w1t, w2t = probe_overlap.mxu_operands(t, w1, w2, 3)
+    assert all(o.is_contiguous() and o.dtype == torch.bfloat16
+               for o in (a, w1t, w2t))
+    assert torch.equal(a, torch.cat([t, t, t]))
+    assert torch.equal(w1t, w1.t()) and torch.equal(w2t, w2.t())
+    assert w1t.shape == (64, 16) and w2t.shape == (16, 64)
+
+
+#: shapes outside the P3 and P4 kernels' limits: (wrapper, its inputs)
+OUTSIDE_LIMITS = {
+    "P3 C not a multiple of 16": ("mxu", (8, 24, 96, 1)),
+    "P3 C above MXU_MAX_C": ("mxu", (8, 1552, 64, 1)),
+    "P3 hidden not a multiple of 16": ("both", (8, 16, 40, 1)),
+    "P3 no tiles": ("interleave", (8, 16, 64, 0)),
+    "P3 vpu tokens x C not whole vectors": ("vpu", (3, 5, 0, 2)),
+    "P4 C not a multiple of 8": ("gather", (64, 12, torch.float32)),
+    "P4 f32 table above 32768 rows": ("gather", (32769, 8, torch.float32)),
+    "P4 bf16 table above 65536 rows": ("gather", (65537, 8, torch.bfloat16)),
+}
+
+
+@pytest.mark.parametrize("case", list(OUTSIDE_LIMITS))
+def test_probe_limits_raise_on_cpu(case):
+    """Shapes the P3 and P4 kernels do not take raise ValueError before
+    anything is launched or built, on CPU tensors as on the card's."""
+    from axial_vs_tpu_torch.ops import native
+
+    kind, shape = OUTSIDE_LIMITS[case]
+    if kind == "gather":
+        s, c, dtype = shape
+        call = lambda: probe_bw.column_gather(  # noqa: E731
+            torch.zeros(s, c, dtype=dtype), torch.zeros(4, c, dtype=torch.int32))
+    else:
+        tokens, c, hidden, tiles = shape
+        x = torch.zeros(tokens, c, dtype=torch.bfloat16)
+        w1 = torch.zeros(c, hidden, dtype=torch.bfloat16)
+        w2 = torch.zeros(hidden, c, dtype=torch.bfloat16)
+        call = {"vpu": lambda: probe_overlap.overlap_vpu(x, tiles),
+                "mxu": lambda: probe_overlap.overlap_mxu(x, w1, w2, tiles),
+                "both": lambda: probe_overlap.overlap_both(x, x, w1, w2, tiles),
+                "interleave": lambda: probe_overlap.overlap_interleave(
+                    x, x, w1, w2, tiles)}[kind]
+    with pytest.raises(ValueError):
+        call()
+    assert native._lib is None
+
+
 def test_bf16_segmenter_runs_on_cpu(rng):
     """bf16 inference path end to end at a small size: shapes, finiteness,
     and matrices kept bf16 at rest with f32 vectors."""
