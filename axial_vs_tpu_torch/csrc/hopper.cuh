@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the port's kernels: the SM count of the
-// current device; mbarriers; TMA loads of 2-D boxes through tensor maps with
-// the 128-byte swizzle, and the matching wgmma descriptors of K-major
+// current device; mbarriers; TMA bulk copies, and loads of 2-D boxes through
+// tensor maps with the 128-byte swizzle, and the matching wgmma descriptors of K-major
 // operands in shared memory; and the wgmma m64nNk16 products (bf16 in, f32
 // accumulators in registers). convnext_mlp.cuh (K5 and K4's MLP core),
-// traj.cu (K3's stage 2) and dwconv_ln.cu (K1) include it.
+// traj.cu (K3's stage 2), msda_reduce.cu (K8's bulk copies) and dwconv.cuh (K1
+// and P1: the SM count) include it.
 
 #pragma once
 
@@ -78,6 +79,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA bulk copy, no tensor map: `bytes` (a multiple of 16) from global src
+// to shared dst, both 16-byte aligned; completion counted in bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -29,22 +29,36 @@
 // output element: about 0.33 ms at 3.35 TB/s against 0.016 ms of
 // arithmetic. K8 reads 22 MB and writes 87 MB per layer (all levels).
 //
-// Design: one thread per 8-channel (16-byte) vector of one output row, so
-// a warp's load of one corner slot covers whole 64-byte row segments (D =
-// 32: 8 rows a warp) and every byte of a gathered row is read once, in four
-// 16-byte loads per sample. The 4 x 8 f32 accumulators stay in registers.
-// The input pointers travel by value in a struct of at most 16, and the
-// loops over them are unrolled, so no pointer array lives in memory.
+// Design of K6 and K7: one thread per 8-channel (16-byte) vector of one
+// output row, so a warp's load of one corner slot covers whole 64-byte row
+// segments (D = 32: 8 rows a warp) and every byte of a gathered row is read
+// once, in four 16-byte loads per sample. The 4 x 8 f32 accumulators stay in
+// registers. The input pointers travel by value in a struct of at most 16,
+// and the loops over them are unrolled, so no pointer array lives in memory.
+//
+// Design of K8, a staged row copy: its first version ran a thread per
+// 16-byte output vector that found its source with 64-bit divisions and a
+// modulo (dozens of instructions each, about as long as the vector's bytes
+// take) and read every input row four times through L2. Now a block takes R
+// output rows of one batch row, brings the two contiguous input runs they
+// read (rows s0.. and s0 + W.., R + 1 each) into shared memory with TMA bulk
+// copies, and writes each output row as M * 4 segments of D values with
+// coalesced 16-byte stores; a thread's source is a fixed place in shared
+// memory, found once. R keeps about 8 blocks an SM over a level (1 to 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA bulk copies, the SM count
 
 namespace {
 
 constexpr int MAX_INPUTS = 16;
 constexpr int THREADS = 256;
 constexpr int VEC = 8;  // bf16 channels in 16 bytes
+constexpr long long PACK_MAX_ROW = 16384;  // K8: M*D, two staged rows of each run
+constexpr long long PACK_MAX_SMEM = 232448;  // a block's shared memory on an H100
 
 struct Inputs {
   const __nv_bfloat16* p[MAX_INPUTS];
@@ -153,31 +167,65 @@ corner_reduce_v5_kernel(Inputs gs, int L, int P,
   fold_store(acc, out + r * D + v * VEC);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// K8: a block copies a tile of R output rows [s0, s0 + R) of one batch row.
+// One thread brings the two input runs it reads into shared memory by TMA
+// bulk copies onto one mbarrier: rows [s0, s0 + R] (offsets 0 and 1) and
+// [s0 + off, s0 + off + R] (offsets W and W + 1; off = W mod S), each split
+// where it passes row S - 1 and goes on from row 0 of the batch row. Thread
+// (qt, rt) then writes the output's 16-byte vector q = qt (+ QT, ...) of
+// rows rt, rt + P, ...: lane vector q is slot (m, k) = (q / DV) / 4, % 4
+// and vector q % DV of it (DV = D / 8), whose source in shared memory is a
+// fixed place in run k / 2, row r + k % 2; one division a (thread, q), and
+// 32-bit offsets from the tile's base.
+__device__ __forceinline__ void bulk_run(__nv_bfloat16* dst, const __nv_bfloat16* vb,
+                                         int start, int count, int S, int MD,
+                                         uint64_t* bar) {
+  while (count > 0) {
+    const int n = min(count, S - start);
+    axvs_hopper::bulk_load(dst, vb + (size_t)start * MD, (uint32_t)n * MD * 2, bar);
+    dst += n * MD;
+    count -= n;
+    start = 0;
+  }
+}
+
+__global__ void __launch_bounds__(1024)
 pack_corner_table_kernel(const __nv_bfloat16* __restrict__ v,  // (B, S, M*D)
                          __nv_bfloat16* __restrict__ out,  // (B, S, M*4D)
-                         long long B, int S, long long batch_stride, int M,
-                         int D, int width) {
-  // one thread per 16-byte vector of the output, lanes in (m, k, d) order
-  const int vecs = D / VEC;
-  const long long per_row = (long long)M * 4 * vecs;
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= B * S * per_row) return;
-  const long long row = t / per_row;
-  int rem = (int)(t - row * per_row);
-  const int m = rem / (4 * vecs);
-  rem -= m * 4 * vecs;
-  const int k = rem / vecs;
-  const int dv = rem - k * vecs;
-  const long long b = row / S;
-  const int s = (int)(row - b * S);
-  const long long off = k == 0 ? 0 : k == 1 ? 1 : k == 2 ? width : width + 1LL;
-  const long long src = ((long long)s + off) % S;
-  const __nv_bfloat16* from =
-      v + b * batch_stride + src * M * D + (long long)m * D + dv * VEC;
-  __nv_bfloat16* to = out + row * 4 * M * D + (long long)(m * 4 + k) * D +
-                      dv * VEC;
-  *reinterpret_cast<uint4*>(to) = __ldg(reinterpret_cast<const uint4*>(from));
+                         int S, long long batch_stride, int MD, int D, int off,
+                         int R, int tiles, int QT) {
+  extern __shared__ uint4 pack_smem[];  // two runs of R + 1 rows, then the mbarrier
+  const int b = (int)blockIdx.x / tiles;
+  const int s0 = ((int)blockIdx.x - b * tiles) * R;
+  const int rows = min(R, S - s0);
+  __nv_bfloat16* run0 = reinterpret_cast<__nv_bfloat16*>(pack_smem);
+  __nv_bfloat16* run1 = run0 + (R + 1) * MD;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(run1 + (R + 1) * MD);
+  if (threadIdx.x == 0) {
+    axvs_hopper::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const __nv_bfloat16* vb = v + (size_t)b * batch_stride;
+    axvs_hopper::mbar_expect_tx(bar, 2u * (uint32_t)(rows + 1) * MD * 2);
+    bulk_run(run0, vb, s0, rows + 1, S, MD, bar);
+    bulk_run(run1, vb, (s0 + off) % S, rows + 1, S, MD, bar);
+  }
+  const int vr = MD / 2;  // 16-byte vectors of an output row (4 * MD bf16)
+  const int dvs = D / VEC;
+  const int qt = threadIdx.x % QT, rt = threadIdx.x / QT, P = blockDim.x / QT;
+  __nv_bfloat16* tile = out + ((size_t)b * S + s0) * 4 * MD;
+  axvs_hopper::mbar_wait(bar, 0);
+  for (int q = qt; q < vr; q += QT) {
+    const int seg = q / dvs, dv = q - seg * dvs;
+    const int m = seg >> 2, k = seg & 3;
+    const __nv_bfloat16* src = (k < 2 ? run0 : run1) + (k & 1) * MD + m * D + dv * VEC;
+    for (int r = rt; r < rows; r += P) {
+      *reinterpret_cast<uint4*>(tile + r * 4 * MD + q * VEC) =
+          *reinterpret_cast<const uint4*>(src + r * MD);
+    }
+  }
 }
 
 int grid_for(long long threads, unsigned* blocks) {
@@ -239,18 +287,45 @@ extern "C" int axvs_corner_reduce_v5(const void* const* gs, int L, int P,
 
 // v: (B, S, M*D) bf16 with rows contiguous and batch rows `batch_stride`
 // elements apart (a level's slice of the whole value); out (B, S, M*4D)
-// bf16, contiguous; 16-byte aligned, D and batch_stride multiples of 8.
+// bf16, contiguous; 16-byte aligned, D and batch_stride multiples of 8, M*D
+// at most PACK_MAX_ROW. width: the level's W (offsets 0, 1, W, W + 1, taken
+// mod S).
 extern "C" int axvs_pack_corner_table(const void* v, void* out, int B, int S,
                                       long long batch_stride, int M, int D,
                                       int width, void* stream) {
-  unsigned blocks = 0;
   if (B <= 0 || S <= 0 || M <= 0 || D <= 0 || D % VEC || width <= 0 ||
-      batch_stride % VEC || ((uintptr_t)v & 15) || ((uintptr_t)out & 15) ||
-      grid_for((long long)B * S * M * 4 * (D / VEC), &blocks)) {
+      (long long)M * D > PACK_MAX_ROW || batch_stride % VEC ||
+      ((uintptr_t)v & 15) || ((uintptr_t)out & 15)) {
     return (int)cudaErrorInvalidValue;
   }
-  pack_corner_table_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, B, S, batch_stride, M, D,
-      width);
+  const int MD = M * D;
+  int sms = 0;
+  cudaError_t err = axvs_hopper::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  // rows a tile: about 8 blocks an SM over the level, 1 to 64, and the two
+  // runs within a block's shared memory
+  const long long total = (long long)B * S;
+  long long r = (total + 8LL * sms - 1) / (8LL * sms);
+  const long long fit = (PACK_MAX_SMEM - 16) / (4LL * MD) - 1;
+  r = r < 1 ? 1 : (r > 64 ? 64 : r);
+  r = r > fit ? fit : r;
+  const int R = (int)r;
+  const long long tiles = (S + R - 1) / R;
+  if (tiles * B > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const int vr = MD / 2;
+  const int QT = vr < 1024 ? vr : 1024;
+  int P = 256 / QT;
+  P = P < 1 ? 1 : (P > R ? R : P);
+  const size_t smem = (size_t)2 * (R + 1) * MD * 2 + 16;
+  static size_t allowed = 0;  // raised once, not at every launch (host time)
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(pack_corner_table_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  pack_corner_table_kernel<<<(unsigned)(tiles * B), QT * P, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, batch_stride, MD, D,
+      (int)(width % S), R, (int)tiles, QT);
   return (int)cudaGetLastError();
 }

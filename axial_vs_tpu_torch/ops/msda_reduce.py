@@ -33,6 +33,8 @@ from . import native
 
 #: input arrays one launch of K6 or K7 takes (the kernels' pointer struct)
 MAX_INPUTS = 16
+#: K8's limit on M*D: a block stages at least two rows of each input run
+PACK_MAX_ROW = 16384
 
 
 def fold_slots(acc, d: int):
@@ -155,8 +157,9 @@ def weighted_corner_reduce_v5(gs: Sequence[torch.Tensor], w, p: int,
 def pack_corner_table(v, width: int, n_heads: int = 8):
     """v (B, S, M*D), one level of S = H*W pixels, row-major, W = ``width``
     -> (B, S, M*4D) with lanes (m, k, d). On the card v is bf16 with rows
-    contiguous; its batch rows may lie apart (a level's slice of the
-    whole value)."""
+    contiguous, M*D at most ``PACK_MAX_ROW``; its batch rows may lie apart
+    (a level's slice of the whole value). The kernel copies tiles of rows
+    through shared memory (``csrc/msda_reduce.cu``)."""
     if v.dim() != 3 or v.shape[2] % n_heads or width < 1:
         raise ValueError(f"v {tuple(v.shape)}, {n_heads} heads, width {width}")
     if native.on_cpu([v]):
@@ -170,6 +173,9 @@ def pack_corner_table(v, width: int, n_heads: int = 8):
             or v.data_ptr() % 16 or d % 8):
         raise ValueError("v needs contiguous 16-byte-aligned rows and D a "
                          f"multiple of 8 (strides {v.stride()}, D = {d})")
+    if md > PACK_MAX_ROW:
+        raise ValueError(f"M*D = {md}: the kernel stages rows of at most "
+                         f"{PACK_MAX_ROW} values")
     out = torch.empty(b, s, 4 * md, dtype=v.dtype, device=v.device)
     native.launch("axvs_pack_corner_table", v.data_ptr(), out.data_ptr(), b,
                   s, v.stride(0), n_heads, d, width, device=v.device)

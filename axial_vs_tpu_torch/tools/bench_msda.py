@@ -21,8 +21,11 @@ shape is the WC module's at 769x1345 (levels res5, res4, res3), T=2 frames,
 8 heads of 32, 4 points, every token a query. Inputs come from
 ``numpy.random.RandomState(0)`` as the JAX tool draws them.
 
+``--pack`` times K8 alone instead, per level and per layer, beside its
+one-call yardstick ``corner_gather``, eager and from a CUDA graph.
+
 Run: python3 -m axial_vs_tpu_torch.tools.bench_msda [--iters 20]
-     [--variant NAME ...] [--device cuda]
+     [--variant NAME ...] [--pack] [--device cuda]
 The CPU runs only when asked for (``--device cpu``); its times are the
 host's, not a card's.
 """
@@ -35,9 +38,10 @@ import torch
 
 from ..ops.msda import level_start_index, ms_deform_attn
 from ..ops.msda_reduce import (fold_slots, pack_corner_table,
+                               pack_corner_table_plain,
                                weighted_corner_reduce_multi,
                                weighted_corner_reduce_v5)
-from .timing import require_device, time_ms
+from .timing import graph_ms, require_device, time_ms
 
 SHAPES = ((24, 42), (48, 84), (96, 168))  # res5, res4, res3 at 769x1345
 B, M, D, P = 2, 8, 32, 4
@@ -234,17 +238,83 @@ def run(variants=None, iters: int = 20, device="cuda", shapes=SHAPES, b: int = B
     return results
 
 
+def corner_gather(v, width: int, m: int):
+    """K8's function as one PyTorch call, a yardstick the port never calls:
+    the advanced index ``v4[:, sidx, midx]`` is (B, S, M, 4, D), lanes (m,
+    k, d), and its reshape to (B, S, M*4D) a view. Returns the call; its
+    index tensors are built here, outside its time."""
+    b, s, md = v.shape
+    offsets = torch.tensor((0, 1, width, width + 1), device=v.device)
+    sidx = (torch.arange(s, device=v.device)[:, None, None] + offsets) % s
+    midx = torch.arange(m, device=v.device)[None, :, None]
+    v4 = v.reshape(b, s, m, md // m)
+    return lambda: v4[:, sidx, midx].reshape(b, s, 4 * md)
+
+
+def pack_levels(iters: int = 20, device="cuda", shapes=SHAPES, b: int = B,
+                m: int = M, d: int = D):
+    """K8 and its yardstick ``corner_gather`` on each level's slice of the
+    bench's value, as ``_prep`` calls K8. Returns {"HxW": {"equal" and
+    "library_equal" (bitwise equal to the roll build), "nbytes" (read once
+    and written once), and when ``iters`` > 0 "ms", "graph_ms",
+    "library_ms", "library_graph_ms" (eager CUDA events over ``iters``
+    calls and a CUDA-graph replay of them; graph times None on the
+    CPU)}}, and "layer": the same summed over the levels."""
+    device = require_device(device)
+    value, _, _ = build_inputs(np.random.RandomState(0), shapes, b, m, d,
+                               device=device)
+    v = value.reshape(b, value.shape[1], m * d)
+    results = {}
+    with torch.inference_mode():
+        for (h, w), st in zip(shapes, level_start_index(shapes)):
+            vl = v[:, st:st + h * w]
+            kernel = lambda: pack_corner_table(vl, w, m)  # noqa: E731
+            lib = corner_gather(vl, w, m)
+            want = pack_corner_table_plain(vl, w, m)
+            got = kernel()
+            r = {"equal": torch.equal(got, want),
+                 "library_equal": torch.equal(lib(), want),
+                 "nbytes": (vl.numel() + got.numel()) * vl.element_size()}
+            if iters > 0:
+                r.update(ms=time_ms(kernel, device, iters),
+                         graph_ms=graph_ms(kernel, device, iters),
+                         library_ms=time_ms(lib, device, iters),
+                         library_graph_ms=graph_ms(lib, device, iters))
+            results[f"{h}x{w}"] = r
+    layer = {}
+    for key, first in next(iter(results.values())).items():
+        vals = [r[key] for r in results.values()]
+        layer[key] = (all(vals) if isinstance(first, bool)
+                      else None if first is None else sum(vals))
+    results["layer"] = layer
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--variant", action="append", default=None,
                     choices=list(VARIANTS))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pack", action="store_true",
+                    help="time K8 and corner_gather per level instead")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    results = run(args.variant, args.iters, device)
+    device = require_device(args.device)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "the host CPU (not a card's time)")
+    if args.pack:
+        print(f"K8 per level on {where}: B={B} M={M} D={D}")
+        for level, r in pack_levels(max(args.iters, 1), device).items():
+            times = {k: (f"{r[k]:.4f} ms" + ("" if r[g] is None else
+                                            f", {r[g]:.4f} in a CUDA graph"))
+                     for k, g in (("ms", "graph_ms"),
+                                  ("library_ms", "library_graph_ms"))}
+            print(f"{level}: bitwise equal to the roll build: {r['equal']} "
+                  f"(corner_gather {r['library_equal']}); kernel "
+                  f"{times['ms']}; corner_gather {times['library_ms']}; "
+                  f"{r['nbytes'] / 1e6:.2f} MB")
+        return 0
+    results = run(args.variant, args.iters, device)
     print(f"MSDA bench on {where}: levels {SHAPES}, B={B} M={M} D={D} P={P}")
     for name, r in results.items():
         print(f"{name}: max |diff| vs prod = {r['max_abs_diff']:.4f}; "

@@ -46,17 +46,19 @@ Phases, in order; any failure exits non-zero before the last line:
                one checking pass over its six formulations (each against
                ``prod``, K2), their launch counts and ms per layer; K6, K7
                and K8 against their plain versions at the WC and ragged
-               shapes, with their times, bounds and library calls (an
-               einsum for K6/K7, one advanced-index gather for K8)
+               shapes, with their times (eager and in CUDA graphs; K8 per
+               level and per layer), bounds and library calls (an einsum
+               for K6/K7, one advanced-index gather for K8)
  15. probes - the four probe tools of ``axial_vs_tpu_torch/tools`` at their
                default shapes, each variant checked against its plain
                version: ``bench_pallas_bw`` (P4: copy and 12-input sum at
                338,688 rows, bitwise; the column gather over 4 tables,
                bitwise), ``exp_vmem_gather`` (P2: the slab gather with 1, 4
-               and 8 rows in flight at tube_l0 and kmax_l0, 1 bf16 ulp),
-               ``exp_dwconv_variants`` (P1: 8 variants and K1 at ConvNeXt-L
-               stages 0 and 2, 1 bf16 ulp; K1 2) and ``bench_overlap`` (P3:
-               vpu 1 ulp, mxu 2 ulp, both, interleave, and the overlap
+               and 8 rows in flight at tube_l0 and kmax_l0, 1 bf16 ulp;
+               beside ``embedding_bag``), ``exp_dwconv_variants`` (P1: 8
+               variants and K1 at ConvNeXt-L stages 0 and 2, 1 bf16 ulp; K1
+               2; noln beside a depthwise ``conv2d``) and ``bench_overlap``
+               (P3: vpu 1 ulp, mxu 2 ulp, both, interleave, and the overlap
                efficiency); their launches, times, bounds, plain versions'
                and library calls' times
 The line before the last is one JSON object with each kernel's route,
@@ -1416,19 +1418,6 @@ def _reduce_cases(torch, gen, bm):
                               for i in range(0, n, p)], w
 
 
-def corner_gather(torch, v, width: int, m: int):
-    """K8's function as one PyTorch call: the advanced index
-    ``v4[:, sidx, midx]`` is (B, S, M, 4, D), lanes (m, k, d), and its
-    reshape to (B, S, M*4D) a view. Returns the call; its index tensors are
-    built here, outside its time."""
-    b, s, md = v.shape
-    offsets = torch.tensor((0, 1, width, width + 1), device=v.device)
-    sidx = (torch.arange(s, device=v.device)[:, None, None] + offsets) % s
-    midx = torch.arange(m, device=v.device)[None, :, None]
-    v4 = v.reshape(b, s, m, md // m)
-    return lambda: v4[:, sidx, midx].reshape(b, s, 4 * md)
-
-
 def phase_msda_bench(torch, gen):
     """The MSDA bench at the WC shape (``bench_msda.run``): one checking pass
     over its six formulations, counted, each held to ``prod`` within
@@ -1437,11 +1426,13 @@ def phase_msda_bench(torch, gen):
     same terms in f32 in the same order) and K8 bitwise, at the WC shape and
     a ragged one. Returns the checking pass's launch counts, K6-K8's
     result dicts and each variant's ms per layer."""
+    from axial_vs_tpu_torch.ops.msda import level_start_index
     from axial_vs_tpu_torch.ops.msda_reduce import (
         pack_corner_table, pack_corner_table_plain,
         weighted_corner_reduce_multi, weighted_corner_reduce_multi_plain,
         weighted_corner_reduce_v5, weighted_corner_reduce_v5_plain)
     from axial_vs_tpu_torch.tools import bench_msda as bm
+    from axial_vs_tpu_torch.tools.timing import graph_ms
 
     shape = (f"levels {bm.SHAPES}, B={bm.B} M={bm.M} D={bm.D} P={bm.P}, "
              f"{bm.B * bm.M * sum(h * w for h, w in bm.SHAPES)} rows")
@@ -1492,7 +1483,8 @@ def phase_msda_bench(torch, gen):
                 raise AssertionError(f"{key} disagrees on the {case} case")
             if case == "wc":
                 times[key] = (err, cuda_ms(torch, kernel),
-                              cuda_ms(torch, plain, launches=3))
+                              cuda_ms(torch, plain, launches=3),
+                              graph_ms(kernel, "cuda", 10))
         if case != "wc":
             continue
         # each input read once, the output written once; a multiply and an
@@ -1505,64 +1497,82 @@ def phase_msda_bench(torch, gen):
         lib = lambda: torch.einsum("rnkd,rnk->rd", stacked, w3)  # noqa: E731
         lib_err = (lib().float() - kernels["K7"][1]().float()).abs().max().item()
         lib_ms = cuda_ms(torch, lib)
+        lib_graph_ms = graph_ms(lib, "cuda", 10)
         del stacked
-        log(f"MSDA reduce at the WC shape, per call: K6 {times['K6'][1]:.4f} "
-            f"ms (plain {times['K6'][2]:.4f}), K7 p=1 {times['K7'][1]:.4f} ms "
-            f"(plain {times['K7'][2]:.4f}), K7 p={p} {times['K7 p'][1]:.4f} ms "
-            f"(plain {times['K7 p'][2]:.4f}); bound {bound:.4f} ms ({by}, "
+        log(f"MSDA reduce at the WC shape, per call (CUDA graph in brackets): "
+            f"K6 {times['K6'][1]:.4f} ({times['K6'][3]:.4f}) ms (plain "
+            f"{times['K6'][2]:.4f}), K7 p=1 {times['K7'][1]:.4f} "
+            f"({times['K7'][3]:.4f}) ms (plain {times['K7'][2]:.4f}), K7 p={p} "
+            f"{times['K7 p'][1]:.4f} ({times['K7 p'][3]:.4f}) ms (plain "
+            f"{times['K7 p'][2]:.4f}); bound {bound:.4f} ms ({by}, "
             f"{nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP f32); library "
-            f"call einsum('rnkd,rnk->rd') on pre-stacked rows {lib_ms:.4f} ms, "
-            f"max |diff| {lib_err:.6g} against K7's plain version")
+            f"call einsum('rnkd,rnk->rd') on pre-stacked rows {lib_ms:.4f} "
+            f"({lib_graph_ms:.4f}) ms, max |diff| {lib_err:.6g} against K7's "
+            "plain version")
         for key, t in (("K6", times["K6"]), ("K7", times["K7"])):
             results[key] = {"max_abs_err": t[0], "ms": t[1], "plain_ms": t[2],
-                            "bound_ms": bound, "bound_by": by,
-                            "library_ms": lib_ms, "library_err": lib_err,
-                            "per": "MSDA layer (1 call)"}
+                            "graph_ms": t[3], "bound_ms": bound, "bound_by": by,
+                            "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+                            "library_err": lib_err, "per": "MSDA layer (1 call)"}
         results["K7"].update(p4_ms=times["K7 p"][1], p4_plain_ms=times["K7 p"][2],
+                             p4_graph_ms=times["K7 p"][3],
                              max_abs_err=max(times["K7"][0], times["K7 p"][0]))
     del samples, merged, w
 
-    # K8 on each level's slice of the whole value (batch rows apart)
+    # K8 on each level's slice of the whole value (batch rows apart), as
+    # _prep calls it, beside one advanced-index gather (bm.corner_gather),
+    # eager and in CUDA graphs; then bitwise at a ragged pair of levels
+    levels = bm.pack_levels(iters=20)
+    for level, r in levels.items():
+        if not (r["equal"] and r["library_equal"]):
+            raise AssertionError(f"K8 or the library gather differs from the "
+                                 f"roll build at {level}")
     value, _, _ = bm.build_inputs(np.random.RandomState(0), device="cuda")
-    cases = [("wc", value.reshape(value.shape[0], value.shape[1], -1),
-              bm.SHAPES, bm.M),
-             ("ragged", torch.randn(2, 5 * 517 + 12, 3 * 40, generator=gen,
-                                    device="cuda").bfloat16(),
-              ((5, 517), (3, 4)), 3)]
-    for case, v, levels, m in cases:
-        ms = plain_ms = lib_ms = nbytes = 0.0
-        start = 0
-        for h, w in levels:
-            vl = v[:, start:start + h * w]
-            start += h * w
-            got = pack_corner_table(vl, w, m)
-            want_out = pack_corner_table_plain(vl, w, m)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want_out):
-                raise AssertionError(f"K8 differs from the roll build at level "
-                                     f"{(h, w)} ({case})")
-            if case == "wc":
-                lib = corner_gather(torch, vl, w, m)
-                if not torch.equal(lib(), got):
-                    raise AssertionError(f"K8 differs from the library gather "
-                                         f"at level {(h, w)}")
-                ms += cuda_ms(torch, lambda: pack_corner_table(vl, w, m))
-                plain_ms += cuda_ms(torch, lambda: pack_corner_table_plain(
-                    vl, w, m), launches=3)
-                lib_ms += cuda_ms(torch, lib)
-                nbytes += (vl.numel() + got.numel()) * 2
-        log(f"K8 {case} levels {levels}, M={m}, D={v.shape[-1] // m}: bitwise "
-            "equal to the roll build")
-        if case == "wc":
-            bound, by = bound_ms(0, nbytes, PEAK_BF16)
-            log(f"K8 per layer (3 calls): kernel {ms:.4f} ms, plain (the "
-                f"roll + cat chain) {plain_ms:.4f} ms, library call (one "
-                f"advanced-index gather, bitwise equal) {lib_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
-            results["K8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by,
-                             "library_ms": lib_ms, "per": "MSDA layer (3 calls)"}
-    del value, cases
+    v = value.reshape(value.shape[0], value.shape[1], -1)
+    plain_ms = sum(
+        cuda_ms(torch, lambda st=st, h=h, w=w: pack_corner_table_plain(
+            v[:, st:st + h * w], w, bm.M), launches=3)
+        for (h, w), st in zip(bm.SHAPES, level_start_index(bm.SHAPES)))
+    layer = levels.pop("layer")
+    bound, by = bound_ms(0, layer["nbytes"], PEAK_BF16)
+    for level, r in levels.items():
+        log(f"K8 level {level}: bitwise equal to the roll build and to the "
+            f"library gather; kernel {r['ms']:.4f} ms, {r['graph_ms']:.4f} in "
+            f"a CUDA graph; library {r['library_ms']:.4f} ms, "
+            f"{r['library_graph_ms']:.4f} in a graph; bound "
+            f"{bound_ms(0, r['nbytes'], PEAK_BF16)[0]:.4f} ms "
+            f"({r['nbytes'] / 1e6:.2f} MB)")
+    log(f"K8 per layer (3 calls): kernel {layer['ms']:.4f} ms, "
+        f"{layer['graph_ms']:.4f} in CUDA graphs ({bound / layer['graph_ms']:.3f}"
+        f" of the bound); plain (the roll + cat chain) {plain_ms:.4f} ms; "
+        f"library call (one advanced-index gather, bitwise equal) "
+        f"{layer['library_ms']:.4f} ms, {layer['library_graph_ms']:.4f} in "
+        f"graphs; bound {bound:.4f} ms ({by}, {layer['nbytes'] / 1e6:.2f} MB)")
+    results["K8"] = {"max_abs_err": 0.0, "ms": layer["ms"],
+                     "graph_ms": layer["graph_ms"], "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": layer["library_ms"],
+                     "library_graph_ms": layer["library_graph_ms"],
+                     "per": "MSDA layer (3 calls)",
+                     "levels": {k: {t: r[t] for t in ("ms", "graph_ms",
+                                                      "library_ms",
+                                                      "library_graph_ms")}
+                                for k, r in levels.items()}}
+    ragged = torch.randn(2, 5 * 517 + 12, 3 * 40, generator=gen,
+                         device="cuda").bfloat16()
+    start = 0
+    for h, w in ((5, 517), (3, 4)):
+        vl = ragged[:, start:start + h * w]
+        start += h * w
+        got = pack_corner_table(vl, w, 3)
+        want_out = pack_corner_table_plain(vl, w, 3)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want_out):
+            raise AssertionError(f"K8 differs from the roll build at level "
+                                 f"{(h, w)} (ragged)")
+    log("K8 ragged levels ((5, 517), (3, 4)), M=3, D=40: bitwise equal to the "
+        "roll build")
+    del value, v, ragged
     torch.cuda.empty_cache()
     return launches, {k: results[k] for k in ("K6", "K7", "K8")}, {
         name: r["ms"] for name, r in timed.items()}
@@ -1638,10 +1648,38 @@ def _probe_p2(torch, vg):
     kernel = [kmax[v] for v in ("pl_u1", "pl_u4", "pl_u8")]
     s, nq, p, _ = vg.SHAPES["kmax_l0"]
     bound, by = bound_ms(0, vg.nbytes(s, nq, p), PEAK_BF16, 2 * nq * p * 128)
+    # the same weighted gather as one library call: embedding_bag over bags
+    # of P rows, the weights cast to the slab's dtype (the call takes them in
+    # the weight's dtype)
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
+    idx, w, slab = vg.build_inputs(np.random.RandomState(0), s, nq, p,
+                                   device="cuda")
+    wb = w.to(slab.dtype)
+    lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        idx, slab, mode="sum", per_sample_weights=wb)
+    try:
+        lib_err = (lib().float() - vg.slab_gather_plain(idx, w, slab).float()
+                   ).abs().max().item()
+    except RuntimeError as refused:  # the yardstick only; no kernel's check
+        lib_ms = lib_graph_ms = lib_err = None
+        log(f"P2 library call embedding_bag refused bf16 on torch "
+            f"{torch.__version__}: {refused}")
+    else:
+        lib_ms, lib_graph_ms = cuda_ms(torch, lib), graph_ms(lib, "cuda",
+                                                            PROBE_ITERS)
+        log(f"P2 kmax_l0 library call embedding_bag(mode='sum', bf16 "
+            f"per_sample_weights): {lib_ms:.4f} ms, {lib_graph_ms:.4f} in a "
+            f"CUDA graph, max |diff| {lib_err:.6g} from slab_gather_plain; the "
+            f"kernel (mean of pl_u1/u4/u8) "
+            f"{statistics.mean(r['graph_ms'] for r in kernel):.4f} in a graph")
+    del idx, w, slab, wb
     return {"max_abs_err": max(r["max_abs_diff"] for r in kernel),
             "ms": statistics.mean(r["ms"] for r in kernel),
             "plain_ms": kmax["xla"]["ms"], "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
+            "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+            "library_err": lib_err,
+            "library": "embedding_bag(mode='sum', per_sample_weights in bf16)",
             "graph_ms": statistics.mean(r["graph_ms"] for r in kernel),
             "plain_graph_ms": kmax["xla"]["graph_ms"],
             "per": "one kmax_l0 call (S=16128, NQ=21168, P=4), mean of "
@@ -1652,8 +1690,13 @@ def _probe_p2(torch, vg):
 
 
 def _probe_p1(torch, dv):
-    """P1 at stages 0 and 2: K1 (``ship``) and the 8 variants, each against
-    its plain version (1 bf16 ulp; K1 2), with plain and conv2d times."""
+    """P1 at stages 0 and 2: K1 (``ship``, its taps made once a stage) and
+    the 8 variants, each against its plain version (1 bf16 ulp; K1 2), with
+    the plain versions' times at stage 0, and noln's function as one library
+    call (a depthwise ``conv2d``) beside noln at both stages, eager and in
+    CUDA graphs. The kernels-line entry is noln at stage 0."""
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
     res = dv.run(stages=PROBE_STAGES, iters=PROBE_ITERS)
     for stage, by_variant in res.items():
         for variant, r in by_variant.items():
@@ -1665,35 +1708,61 @@ def _probe_p1(torch, dv):
                 f"({r['flops'] / r['graph_ms'] / 1e9:.2f} TFLOP/s)")
             if not r["max_abs_diff"] <= r["bound"]:
                 raise AssertionError(f"P1 {variant} disagrees at {stage}")
-    shape = dv.STAGES["stage0"]
-    args = dv.build_inputs(np.random.RandomState(0), shape, "cuda")
-    plain = {v: cuda_ms(torch, lambda v=v: dv.plain_version(v)(*args),
-                        launches=2, repeats=1) for v in dv.VARIANTS}
-    # the noln function as one library call: a depthwise conv2d on the
-    # channels-last view (cuDNN, bf16 out)
-    x_nchw = args[0].permute(0, 3, 1, 2)
-    conv = lambda: torch.nn.functional.conv2d(  # noqa: E731
-        x_nchw, args[1], args[2].bfloat16(), padding=3, groups=shape[3])
-    conv_err = (conv().permute(0, 2, 3, 1).float() - dv.plain_version("noln")(
-        *args).float()).abs().max().item()
-    conv_ms = cuda_ms(torch, conv)
-    del args, x_nchw
-    elems = math.prod(shape)
-    bound, by = bound_ms(0, 4 * elems + shape[3] * (49 * 2 + 12), PEAK_BF16,
-                         2 * 49 * elems)
-    stage0 = res["stage0"]
-    log(f"P1 stage0 {shape}: plain versions {', '.join(f'{v} {t:.2f}' for v, t in plain.items())} ms;"
-        f" bound {bound:.4f} ms ({by}); conv2d (noln's function) {conv_ms:.4f}"
-        f" ms, max |diff| {conv_err:.6g} from noln's plain version")
+    library, plain, bounds = {}, {}, {}
+    for stage in PROBE_STAGES:
+        shape = dv.STAGES[stage]
+        args = dv.build_inputs(np.random.RandomState(0), shape, "cuda")
+        if stage == "stage0":
+            plain = {v: cuda_ms(torch, lambda v=v: dv.plain_version(v)(*args),
+                                launches=2, repeats=1) for v in dv.VARIANTS}
+        # the noln function as one library call: a depthwise conv2d on the
+        # channels-last view (cuDNN, bf16 out)
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        conv = lambda: torch.nn.functional.conv2d(  # noqa: E731
+            x_nchw, args[1], args[2].bfloat16(), padding=3, groups=shape[3])
+        err = (conv().permute(0, 2, 3, 1).float() - dv.plain_version("noln")(
+            *args).float()).abs().max().item()
+        library[stage] = (cuda_ms(torch, conv), graph_ms(conv, "cuda", PROBE_ITERS),
+                          err)
+        elems = math.prod(shape)
+        bounds[stage] = bound_ms(0, 4 * elems + shape[3] * (49 * 2 + 12),
+                                 PEAK_BF16, 2 * 49 * elems)
+        noln = res[stage]["noln"]
+        log(f"P1 {stage} {shape}: noln {noln['ms']:.4f} ms, "
+            f"{noln['graph_ms']:.4f} in a CUDA graph, against the library call "
+            f"conv2d (noln's function) {library[stage][0]:.4f} ms, "
+            f"{library[stage][1]:.4f} in a graph (max |diff| {err:.6g} from "
+            f"noln's plain version); ship {res[stage]['ship']['graph_ms']:.4f} "
+            f"in a graph; bound {bounds[stage][0]:.4f} ms ({bounds[stage][1]})")
+        del args, x_nchw
+    log("P1 stage0 plain versions: " + ", ".join(
+        f"{v} {t:.2f}" for v, t in plain.items()) + " ms")
+    from axial_vs_tpu_torch.ops import native
+
+    mix = dv.instruction_mix(native.build_info["path"])
+    for variant, counts in (mix or {}).items():
+        log(f"P1 {variant} SASS (static: instructions in the code, a loop "
+            "counted once): " + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    if mix is None:
+        log("P1 SASS census: not measured (no cuobjdump beside nvcc)")
+    noln = res["stage0"]["noln"]
     return {"max_abs_err": max(r["max_abs_diff"] for rv in res.values()
                                for v, r in rv.items() if v != "ship"),
-            "ms": statistics.mean(stage0[v]["ms"] for v in dv.VARIANTS),
-            "graph_ms": statistics.mean(stage0[v]["graph_ms"]
-                                        for v in dv.VARIANTS),
-            "plain_ms": statistics.mean(plain.values()), "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
-            "per": f"one stage-0 call {shape}, mean of the 8 variants",
-            "noln_conv2d_ms": conv_ms,
+            "ms": noln["ms"], "graph_ms": noln["graph_ms"],
+            "plain_ms": plain["noln"], "bound_ms": bounds["stage0"][0],
+            "bound_by": bounds["stage0"][1],
+            "library_ms": library["stage0"][0],
+            "library_graph_ms": library["stage0"][1],
+            "library": "depthwise conv2d, noln's function",
+            "per": f"one stage-0 noln call {dv.STAGES['stage0']}",
+            "stage2": {"ms": res["stage2"]["noln"]["ms"],
+                       "graph_ms": res["stage2"]["noln"]["graph_ms"],
+                       "library_ms": library["stage2"][0],
+                       "library_graph_ms": library["stage2"][1],
+                       "bound_ms": bounds["stage2"][0]},
+            "instruction_mix": mix,
+            "variants_ms": {stage: {v: r["ms"] for v, r in rv.items()}
+                            for stage, rv in res.items()},
             "variants_graph_ms": {stage: {v: r["graph_ms"]
                                           for v, r in rv.items()}
                                   for stage, rv in res.items()}}

@@ -508,10 +508,17 @@ def test_weighted_corner_reduce_v5_kernel(gen, r, n, p, d, slot_major):
 
 @pytest.mark.parametrize("levels,m,d", [
     (((24, 42), (48, 84), (96, 168)), 8, 32),  # the WC levels
-    (((5, 517), (3, 4)), 3, 40)])              # W + 1 wider than a block
+    (((5, 517), (3, 4)), 3, 40),               # W + 1 wider than a block
+    # H = 1 (the offsets W and W + 1 reach past S: taken mod S); a level of
+    # one pixel, whose runs wrap at S on every row; S = 1961, no multiple of
+    # the 4-row tiles two batch rows of it get
+    (((1, 7), (1, 1), (37, 53)), 8, 32),
+    # rows of 1024 and of 2048 16-byte vectors (a thread walks 2 of them)
+    (((6, 7), (2, 3)), 4, 512), (((4, 5), (1, 3)), 16, 256)])
 def test_pack_corner_table_kernel(gen, levels, m, d):
     """K8 on each level's slice of the whole value (batch rows apart) and
-    on a contiguous copy, bitwise equal to the roll build."""
+    on a contiguous copy, bitwise equal to the roll build; the last level
+    50 times, each call bitwise equal to the first."""
     from axial_vs_tpu_torch.ops.msda_reduce import (pack_corner_table,
                                                     pack_corner_table_plain)
 
@@ -528,6 +535,10 @@ def test_pack_corner_table_kernel(gen, levels, m, d):
             assert pack_corner_table.launches == before + 1
             torch.cuda.synchronize()
             assert torch.equal(got, want), (h, w)
+    outs = [pack_corner_table(v, w, m) for _ in range(50)]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, outs[0]) and torch.equal(got, want)
     with pytest.raises(TypeError):
         pack_corner_table(value.float(), levels[0][1], m)
 
@@ -633,8 +644,19 @@ def test_probe_slab_gather_kernel(gen, unroll, s, nq, p):
 
 @pytest.mark.parametrize("variant", ["noln", "tree", "bf16mul", "f32once",
                                      "dxpart", "acc2", "acc4", "dxonce"])
-@pytest.mark.parametrize("shape", [(2, 24, 42, 1536), (1, 11, 9, 16)])
+@pytest.mark.parametrize("shape", [
+    (2, 24, 42, 1536), (1, 11, 9, 16),
+    # the other ConvNeXt-L stages at 769x1345
+    (2, 192, 336, 192), (2, 96, 168, 384), (2, 48, 84, 768),
+    # strips of 5 and 25 threads, blocks that are not whole warps
+    (1, 13, 21, 40), (2, 9, 37, 200),
+    # H < 7 with a ragged W, at the widest C and at the narrowest
+    (1, 5, 19, 1536), (2, 3, 11, 8)])
 def test_probe_dwconv_variant_kernel(gen, variant, shape):
+    """Each variant against its plain version; with the taps made once
+    (``taps=``) bitwise equal to the call that makes them; where a block's
+    strips are not whole warps, 50 calls each bitwise equal to the first."""
+    from axial_vs_tpu_torch.ops.convnext_cuda import dwconv_taps
     from axial_vs_tpu_torch.tools.exp_dwconv_variants import (
         dwconv_variant, dwconv_variant_plain)
 
@@ -647,8 +669,13 @@ def test_probe_dwconv_variant_kernel(gen, variant, shape):
     got = dwconv_variant(x, wt, b, lw + 1, lb, variant)
     assert dwconv_variant.launches == before + 1
     want = dwconv_variant_plain(x, wt, b, lw + 1, lb, variant)
+    taps = dwconv_taps(wt)
+    outs = [dwconv_variant(x, wt, b, lw + 1, lb, variant, taps=taps)
+            for _ in range(50 if c in (40, 200) else 1)]
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
+    for again in outs:
+        assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("tokens,c,hidden,tiles", [

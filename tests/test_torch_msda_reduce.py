@@ -158,10 +158,12 @@ def test_v5_rounds_f32_weights_to_bf16(rows, rng):
     assert_ulps(got, want, 1)
 
 
-@pytest.mark.parametrize("h,w,n_heads", [(9, 7, 2), (7, 11, 3)])
+@pytest.mark.parametrize("h,w,n_heads", [(9, 7, 2), (7, 11, 3),
+                                         (1, 7, 2)])  # H = 1: W, W + 1 >= S
 def test_pack_corner_table_matches_pallas(rng, h, w, n_heads):
     """Every row equals the roll build; rows that do not wrap equal the
-    interpret-mode kernel (S is no multiple of its 16-row blocks)."""
+    interpret-mode kernel (S is no multiple of its 16-row blocks; at H = 1
+    the offsets W and W + 1 wrap every row)."""
     b, s, md = 2, h * w, n_heads * D
     jv, tv = both(rng.randn(b, s, md))
     got = port.pack_corner_table_plain(tv, w, n_heads).float().numpy()
@@ -174,8 +176,9 @@ def test_pack_corner_table_matches_pallas(rng, h, w, n_heads):
     for m in range(n_heads):
         for k, off in enumerate((0, 1, w, w + 1)):
             lanes = slice((m * 4 + k) * D, (m * 4 + k + 1) * D)
-            np.testing.assert_array_equal(got[:, :s - off, lanes],
-                                          kern[:, :s - off, lanes])
+            rows = slice(0, max(s - off, 0))  # the rows that do not wrap
+            np.testing.assert_array_equal(got[:, rows, lanes],
+                                          kern[:, rows, lanes])
 
 
 @pytest.fixture(scope="module")

@@ -154,6 +154,91 @@ def test_bf16mul_rounds_each_product_to_bf16(tools):
     assert np.abs(f32_products - np.asarray(want)).max() > 8 * ulp
 
 
+def _variant_args(shape, seed=0):
+    """bf16 x and weight, f32 bias and norm, on the CPU."""
+    rng = np.random.RandomState(seed)
+    n, h, w, c = shape
+    x = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32)).bfloat16()
+    wt = torch.from_numpy((rng.randn(c, 1, 7, 7) * 0.1).astype(np.float32))
+    vecs = (torch.from_numpy(rng.randn(c).astype(np.float32)) for _ in range(3))
+    return (x, wt.bfloat16(), *vecs)
+
+
+@pytest.mark.parametrize("variant", ["ship", *port_dw.VARIANTS])
+def test_dwconv_variant_takes_the_taps(variant):
+    """With the weight tap-major (``taps=dwconv_taps(weight)``, as ``run``
+    passes it) a variant equals the call that makes the copy itself."""
+    from axial_vs_tpu_torch.ops.convnext_cuda import dwconv_taps
+
+    args = _variant_args((1, 8, 10, 24))
+    want = port_dw.run_variant(*args, variant)
+    got = port_dw.run_variant(*args, variant, taps=dwconv_taps(args[1]))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["taps", "taps_transposed", "c_not_8",
+                                  "c_too_wide", "h_too_tall", "not_nhwc",
+                                  "strided", "misaligned", "variant"])
+def test_dwconv_variant_refuses_what_the_kernel_cannot_take(case):
+    """The kernel's limits hold on the CPU too, as ``ValueError``: taps of
+    another shape, C not a multiple of 8 or above 1536, H above 65535, x
+    not NHWC, not contiguous or not 16-byte aligned, an unknown variant."""
+    from axial_vs_tpu_torch.ops.convnext_cuda import dwconv_taps
+
+    shape = {"c_not_8": (1, 4, 5, 12), "c_too_wide": (1, 2, 3, 1544),
+             "h_too_tall": (1, 65536, 1, 8)}.get(case, (1, 4, 5, 16))
+    x, wt, b, lw, lb = _variant_args(shape)
+    kw, variant = {}, "noln"
+    if case == "taps":
+        kw["taps"] = dwconv_taps(wt)[:, :6]
+    elif case == "taps_transposed":
+        kw["taps"] = wt.reshape(shape[3], 7, 7)
+    elif case == "not_nhwc":
+        x = x[0]
+    elif case == "strided":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "misaligned":
+        x = torch.zeros(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    elif case == "variant":
+        variant = "acc8"
+    with pytest.raises(ValueError):
+        port_dw.dwconv_variant(x, wt, b, lw, lb, variant, **kw)
+
+
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_121dwconv_variant_kernelILi0EEEvPK13__nv_bfloat16
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;  /* 0x00000a00ff017624 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;         /* 0x0000000402047981 */
+        /*0020*/                   IMAD.U32 R8, R4, 0x10000, RZ ;           /* 0x0001000004087824 */
+        /*0030*/                   LOP3.LUT R9, R4, 0xffff0000, RZ, 0xc0, !PT ; /* 0x0 */
+        /*0040*/              @!P0 FFMA R10, R8, R12, R10 ;               /* 0x0000000c080a7223 */
+        /*0050*/                   FFMA R11, R9, R13, R11 ;                 /* 0x0000000d090b7223 */
+        /*0060*/                   EXIT ;                                   /* 0x000000000000794d */
+\t\tFunction : _ZN12_GLOBAL__N_121dwconv_variant_kernelILi1EEEvPK13__nv_bfloat16
+        /*0000*/                   FMUL R2, R3, R4 ;                        /* 0x0000000403027220 */
+        /*0010*/                   FADD R2, R2, R5 ;                        /* 0x0000000502027221 */
+\t\tFunction : _ZN12_GLOBAL__N_116overlap_vpu_kernelEv
+        /*0000*/                   FFMA R2, R3, R4, R5 ;                    /* 0x0000000403027223 */
+"""
+
+
+def test_instruction_mix_counts_the_sass(monkeypatch):
+    """P1's SASS census counts each named kernel's instructions by class
+    (a predicated one too) and skips the kernels it does not name."""
+    class Done:
+        stdout = SASS
+
+    monkeypatch.setattr(port_dw.native, "_nvcc", lambda: __file__)
+    monkeypatch.setattr(port_dw.Path, "exists", lambda self: True)
+    monkeypatch.setattr(port_dw.subprocess, "run", lambda *a, **k: Done())
+    mix = port_dw.instruction_mix("libaxvs_kernels.so")
+    assert mix == {
+        "noln": {"total": 7, "ffma": 2, "fmul_fadd": 0, "load": 1, "move": 1,
+                 "unpack": 2},
+        "tree": {"total": 2, "ffma": 0, "fmul_fadd": 2, "load": 0, "move": 0,
+                 "unpack": 0}}
+
+
 @pytest.mark.parametrize("variant", list(port_gather.VARIANTS))
 def test_slab_gather_matches_jax(tools, variant):
     s, nq, p = 50, 37, 4
