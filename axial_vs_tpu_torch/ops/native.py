@@ -62,7 +62,7 @@ _SIGNATURES = {
     "axvs_scale_copy": [_P, _P, ctypes.c_longlong, _P],
     "axvs_sum_n": [ctypes.POINTER(_P), _I, _P, ctypes.c_longlong, _P],
     "axvs_column_gather": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "axvs_slab_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "axvs_slab_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "axvs_dwconv_variant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P],
     "axvs_overlap_vpu": [_P, _P, _I, _I, _I, _P],

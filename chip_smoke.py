@@ -54,8 +54,11 @@ Phases, in order; any failure exits non-zero before the last line:
                version: ``bench_pallas_bw`` (P4: copy and 12-input sum at
                338,688 rows, bitwise; the column gather over 4 tables,
                bitwise), ``exp_vmem_gather`` (P2: the slab gather with 1, 4
-               and 8 rows in flight at tube_l0 and kmax_l0, 1 bf16 ulp;
-               beside ``embedding_bag``), ``exp_dwconv_variants`` (P1: 8
+               and 8 query rows a group at tube_l0 and kmax_l0, 1 bf16 ulp,
+               bitwise expected; each beside its byte bound and its L2
+               floor, the rows it reads over the L2 rate of P4's copy of
+               one slab in a CUDA graph; ``embedding_bag`` beside it),
+               ``exp_dwconv_variants`` (P1: 8
                variants and K1 at ConvNeXt-L stages 0 and 2, 1 bf16 ulp; K1
                2; noln beside a depthwise ``conv2d``) and ``bench_overlap``
                (P3: vpu 1 ulp, mxu 2 ulp, both, interleave, and the overlap
@@ -1632,22 +1635,90 @@ def _probe_p4(torch, bw):
     return entries
 
 
-def _probe_p2(torch, vg):
+#: P4's copy of one kmax_l0 slab (16128 x 128 bf16, 4.13 MB) that reads the
+#: card's L2 rate: L2 holds it and its output across the back-to-back calls
+#: of a CUDA graph, L2_RATE_ITERS of them. A copy of twice the rows, still
+#: in L2, gives the marginal rate, without the fixed cost of a launch.
+L2_RATE_ROWS, L2_RATE_ITERS = 16128, 50
+
+
+def _l2_rate(torch, bw):
+    """(bytes a ms, ms a call, marginal bytes a ms): this card's L2 rate,
+    P4's ``scale_copy`` of ``L2_RATE_ROWS`` rows in a CUDA graph, the bytes
+    it reads and writes over its time; and the extra bytes of a copy of
+    twice the rows over its extra time. Each copy is checked bitwise
+    against its plain version first and counts ``L2_RATE_ITERS`` + 2 P4-copy
+    launches (check, warm-up, captured)."""
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
+    rng = np.random.RandomState(0)
+    ms, nbytes = [], []
+    for rows in (L2_RATE_ROWS, 2 * L2_RATE_ROWS):
+        x = torch.from_numpy(rng.randn(rows, 128).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        if not torch.equal(bw.scale_copy(x), bw.scale_copy_plain(x)):
+            raise AssertionError(f"P4 copy differs from its plain version at "
+                                 f"{rows} rows")
+        ms.append(graph_ms(lambda: bw.scale_copy(x), "cuda", L2_RATE_ITERS))
+        nbytes.append(2 * x.numel() * x.element_size())
+    return (nbytes[0] / ms[0], ms[0],
+            (nbytes[1] - nbytes[0]) / (ms[1] - ms[0]) if ms[1] > ms[0] else None)
+
+
+def _probe_p2(torch, vg, bw):
     """P2 at tube_l0 and kmax_l0: xla (the plain version) and the kernel with
-    1, 4 and 8 rows in flight, each within 1 bf16 ulp of xla."""
+    1, 4 and 8 query rows a group, each within 1 bf16 ulp of xla (bitwise
+    expected); each variant's share of the byte bound and of the L2 floor
+    (the rows read over the L2 rate of ``_l2_rate``), eager and in graphs;
+    ``embedding_bag`` beside them at kmax_l0."""
     res = vg.run(iters=PROBE_ITERS)
+    rate, copy_ms, marginal = _l2_rate(torch, bw)
+    log(f"P2 L2 rate: P4 copy of {L2_RATE_ROWS} x 128 bf16 "
+        f"({2 * L2_RATE_ROWS * 128 * 2 / 1e6:.2f} MB read + written) "
+        f"{copy_ms:.4f} ms in a CUDA graph of {L2_RATE_ITERS} calls: "
+        f"{rate / 1e9:.3f} TB/s, a launch's fixed cost included; marginal "
+        f"rate from a copy of twice the rows: "
+        + (f"{marginal / 1e9:.3f} TB/s" if marginal else "not measured")
+        + " (the L2 floor below uses the first)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bounds, floors = {}, {}
     for shape, by_variant in res.items():
+        s, nq, p, _ = vg.SHAPES[shape]
+        bounds[shape] = bound_ms(0, vg.nbytes(s, nq, p), PEAK_BF16,
+                                 2 * nq * p * 128)
+        floors[shape] = vg.row_bytes(nq, p) / rate
+        log(f"P2 {shape} (S={s}, NQ={nq}, P={p}): byte bound "
+            f"{bounds[shape][0]:.4f} ms ({vg.nbytes(s, nq, p) / 1e6:.2f} MB at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s, {bounds[shape][1]}); L2 floor "
+            f"{floors[shape]:.4f} ms ({vg.row_bytes(nq, p) / 1e6:.2f} MB of "
+            f"rows at the L2 rate)")
         for variant, r in by_variant.items():
-            log(f"P2 {shape} {variant}: max |diff| vs xla {r['max_abs_diff']:.6g}"
-                f" (bound 1 bf16 ulp = {r['bound']:.6g}); {r['ms']:.4f} ms, "
-                f"{r['graph_ms']:.4f} in a CUDA graph "
-                f"({r['points'] / r['graph_ms'] / 1e3:.0f} M rows/s)")
+            kind = "bitwise" if r["max_abs_diff"] == 0 else "NOT bitwise"
+            line = (f"P2 {shape} {variant}: max |diff| vs xla "
+                    f"{r['max_abs_diff']:.6g} ({kind}; bound 1 bf16 ulp = "
+                    f"{r['bound']:.6g}); {r['ms']:.4f} ms, {r['graph_ms']:.4f} "
+                    f"in a CUDA graph ({r['points'] / r['graph_ms'] / 1e3:.0f} "
+                    f"M rows/s)")
+            if variant != "xla":
+                u = int(variant.split("_u")[1])
+                threads, blocks = vg.launch_shape(nq, u, p, sms)
+                line += (f"; {threads} threads x {blocks} blocks on {sms} SMs; "
+                         f"share of the byte bound {bounds[shape][0] / r['ms']:.3f}"
+                         f" ({bounds[shape][0] / r['graph_ms']:.3f} in a graph), "
+                         f"of the L2 floor {floors[shape] / r['graph_ms']:.3f} "
+                         f"in a graph")
+            log(line)
             if not r["max_abs_diff"] <= r["bound"]:
                 raise AssertionError(f"P2 {variant} disagrees at {shape}")
     kmax = res["kmax_l0"]
     kernel = [kmax[v] for v in ("pl_u1", "pl_u4", "pl_u8")]
     s, nq, p, _ = vg.SHAPES["kmax_l0"]
-    bound, by = bound_ms(0, vg.nbytes(s, nq, p), PEAK_BF16, 2 * nq * p * 128)
+    bound, by = bounds["kmax_l0"]
+    mean_graph = statistics.mean(r["graph_ms"] for r in kernel)
+    log(f"P2 kmax_l0 kernel, mean of pl_u1/u4/u8: {mean_graph:.4f} ms in a "
+        f"graph, {bound / mean_graph:.3f} of its byte bound ("
+        + ("at least" if bound / mean_graph >= 0.5 else "under")
+        + f" half), {floors['kmax_l0'] / mean_graph:.3f} of its L2 floor")
     # the same weighted gather as one library call: embedding_bag over bags
     # of P rows, the weights cast to the slab's dtype (the call takes them in
     # the weight's dtype)
@@ -1671,8 +1742,7 @@ def _probe_p2(torch, vg):
         log(f"P2 kmax_l0 library call embedding_bag(mode='sum', bf16 "
             f"per_sample_weights): {lib_ms:.4f} ms, {lib_graph_ms:.4f} in a "
             f"CUDA graph, max |diff| {lib_err:.6g} from slab_gather_plain; the "
-            f"kernel (mean of pl_u1/u4/u8) "
-            f"{statistics.mean(r['graph_ms'] for r in kernel):.4f} in a graph")
+            f"kernel (mean of pl_u1/u4/u8) {mean_graph:.4f} in a graph")
     del idx, w, slab, wb
     return {"max_abs_err": max(r["max_abs_diff"] for r in kernel),
             "ms": statistics.mean(r["ms"] for r in kernel),
@@ -1680,10 +1750,17 @@ def _probe_p2(torch, vg):
             "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
             "library_err": lib_err,
             "library": "embedding_bag(mode='sum', per_sample_weights in bf16)",
-            "graph_ms": statistics.mean(r["graph_ms"] for r in kernel),
+            "graph_ms": mean_graph,
             "plain_graph_ms": kmax["xla"]["graph_ms"],
+            "l2_rate_tbs": rate / 1e9, "l2_floor_ms": floors["kmax_l0"],
+            "l2_marginal_tbs": marginal and marginal / 1e9,
             "per": "one kmax_l0 call (S=16128, NQ=21168, P=4), mean of "
                    "pl_u1/u4/u8",
+            "tube_l0": {"bound_ms": bounds["tube_l0"][0],
+                        "l2_floor_ms": floors["tube_l0"],
+                        "plain_ms": res["tube_l0"]["xla"]["ms"]},
+            "variants_ms": {shape: {v: r["ms"] for v, r in rv.items()}
+                            for shape, rv in res.items()},
             "variants_graph_ms": {shape: {v: r["graph_ms"]
                                           for v, r in rv.items()}
                                   for shape, rv in res.items()}}
@@ -1849,7 +1926,7 @@ def phase_probes(torch):
     reset_counts()
     t0 = time.perf_counter()
     results = _probe_p4(torch, bench_pallas_bw)
-    results["P2"] = _probe_p2(torch, exp_vmem_gather)
+    results["P2"] = _probe_p2(torch, exp_vmem_gather, bench_pallas_bw)
     results["P1"] = _probe_p1(torch, exp_dwconv_variants)
     results.update(_probe_p3(torch, bench_overlap))
     launches = read_counts()
@@ -1861,7 +1938,8 @@ def phase_probes(torch):
         P1=len(PROBE_STAGES) * len(exp_dwconv_variants.VARIANTS) * calls,
         P2=len(exp_vmem_gather.SHAPES) * 3 * calls,
         **{k: calls for k in bench_overlap.counted_kernels()},
-        **{"P4-copy": calls, "P4-sum12": calls,
+        # P4's copy also reads the L2 rate for P2 (_l2_rate)
+        **{"P4-copy": calls + 2 * (L2_RATE_ITERS + 2), "P4-sum12": calls,
            "P4-gather": len(bench_pallas_bw.GATHER_CASES) * calls})
     log(f"probes: {time.perf_counter() - t0:.1f} s; launches {launches} "
         f"(want {want})")

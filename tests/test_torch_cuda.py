@@ -625,21 +625,36 @@ def test_probe_column_gather_refuses_tables_it_cannot_hold(gen, s, c, dtype):
 
 
 @pytest.mark.parametrize("unroll", [1, 4, 8])
-@pytest.mark.parametrize("s,nq,p", [(16128, 21168, 4), (50, 37, 3)])
-def test_probe_slab_gather_kernel(gen, unroll, s, nq, p):
+@pytest.mark.parametrize("s,nq,p,outside", [
+    (16128, 21168, 4, False), (50, 37, 3, False),
+    # tube_l0; an odd NQ, which no block's rows divide; P = 1 and P = 8
+    (3600, 4760, 4, False), (16128, 21167, 4, False), (1000, 1237, 1, False),
+    (1000, 1237, 8, False),
+    # one index at -1 and one at S, each a zero row
+    (3600, 4760, 4, True), (50, 37, 3, True)])
+def test_probe_slab_gather_kernel(gen, unroll, s, nq, p, outside):
+    """Bitwise equal to the plain version (the same f32 products and sums
+    in the same order, one rounding), the first and the last slab rows
+    among the indices; an index outside [0, S) reads a zero row, which the
+    plain version gets from a zero row appended to the slab."""
     from axial_vs_tpu_torch.tools.exp_vmem_gather import (slab_gather,
                                                           slab_gather_plain)
 
     slab = torch.randn(s, 128, generator=gen, device="cuda").bfloat16()
     idx = torch.randint(0, s, (nq, p), generator=gen, device="cuda",
                         dtype=torch.int32)
+    idx[0, 0], idx[-1, -1] = 0, s - 1
+    if outside:
+        idx[1, 0], idx[nq // 2, p - 1] = -1, s
     w = torch.rand(nq, p, generator=gen, device="cuda")
     before = slab_gather.launches
     got = slab_gather(idx, w, slab, unroll)
     assert slab_gather.launches == before + 1
-    want = slab_gather_plain(idx, w, slab)
+    inside = (idx >= 0) & (idx < s)
+    zero_row = torch.cat([slab, slab.new_zeros(1, 128)])
+    want = slab_gather_plain(torch.where(inside, idx, s), w, zero_row)
     torch.cuda.synchronize()
-    assert (got.float() - want.float()).abs().max().item() <= _ulp(want)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("variant", ["noln", "tree", "bf16mul", "f32once",

@@ -323,8 +323,10 @@ def test_mxu_operands_are_the_transposes(rng):
     assert w1t.shape == (64, 16) and w2t.shape == (16, 64)
 
 
-#: shapes outside the P3 and P4 kernels' limits: (wrapper, its inputs)
+#: shapes outside the P2, P3 and P4 kernels' limits: (wrapper, its inputs)
 OUTSIDE_LIMITS = {
+    "P2 no points a query": ("slab", 0),
+    "P2 more points a query than MAX_P": ("slab", 9),
     "P3 C not a multiple of 16": ("mxu", (8, 24, 96, 1)),
     "P3 C above MXU_MAX_C": ("mxu", (8, 1552, 64, 1)),
     "P3 hidden not a multiple of 16": ("both", (8, 16, 40, 1)),
@@ -338,12 +340,16 @@ OUTSIDE_LIMITS = {
 
 @pytest.mark.parametrize("case", list(OUTSIDE_LIMITS))
 def test_probe_limits_raise_on_cpu(case):
-    """Shapes the P3 and P4 kernels do not take raise ValueError before
+    """Shapes the P2, P3 and P4 kernels do not take raise ValueError before
     anything is launched or built, on CPU tensors as on the card's."""
     from axial_vs_tpu_torch.ops import native
 
     kind, shape = OUTSIDE_LIMITS[case]
-    if kind == "gather":
+    if kind == "slab":
+        call = lambda: probe_gather.slab_gather(  # noqa: E731
+            torch.zeros(5, shape, dtype=torch.int32), torch.zeros(5, shape),
+            torch.zeros(10, 128, dtype=torch.bfloat16), 4)
+    elif kind == "gather":
         s, c, dtype = shape
         call = lambda: probe_bw.column_gather(  # noqa: E731
             torch.zeros(s, c, dtype=dtype), torch.zeros(4, c, dtype=torch.int32))
@@ -360,6 +366,34 @@ def test_probe_limits_raise_on_cpu(case):
     with pytest.raises(ValueError):
         call()
     assert native._lib is None
+
+
+@pytest.mark.parametrize("shape", list(probe_gather.SHAPES))
+@pytest.mark.parametrize("unroll", [1, 4, 8])
+def test_slab_gather_grid_fills_the_card(shape, unroll):
+    """P2's launch on an H100's 132 SMs: the most threads (32-256) whose row
+    slots fit and whose grid keeps 4 blocks an SM; the grid a multiple of
+    the SM count, at least 2 blocks an SM, with room for NQ; the kernel's
+    spread of the queries gives blocks that differ by at most one query,
+    so no SM takes half again another's share."""
+    sms, (s, nq, p, _) = 132, probe_gather.SHAPES[shape]
+    threads, blocks = probe_gather.launch_shape(nq, unroll, p, sms)
+    per_block = threads // probe_gather.ROW_THREADS * unroll
+
+    def fits(t):
+        return (t * p * unroll * 16 <= probe_gather.ROW_SLOT_BYTES
+                and -(-nq // (t // probe_gather.ROW_THREADS * unroll))
+                >= probe_gather.BLOCKS_PER_SM * sms)
+
+    assert threads in (32, 64, 128, 256) and (fits(threads) or threads == 32)
+    assert threads == 256 or not fits(2 * threads)
+    assert blocks % sms == 0 and blocks >= 2 * sms and blocks * per_block >= nq
+    b = np.arange(blocks + 1, dtype=np.int64)
+    counts = np.diff(b * nq // blocks)  # the kernel's run of queries a block
+    assert counts.sum() == nq and counts.max() <= per_block
+    assert counts.max() - counts.min() <= 1
+    shares = counts.reshape(-1, sms).sum(axis=0)  # blocks b, b + sms, ...
+    assert shares.max() < 1.5 * shares.min()
 
 
 def test_bf16_segmenter_runs_on_cpu(rng):
