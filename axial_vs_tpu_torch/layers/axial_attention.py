@@ -1,5 +1,5 @@
-"""1-D axial attention with relative positional encodings, eval path
-(counterpart of ``axial_vs_tpu/layers/axial_attention.py``).
+"""1-D axial attention with relative positional encodings (counterpart of
+``axial_vs_tpu/layers/axial_attention.py``).
 
 Height-axis then width-axis single-axis attention with query/key/value
 relative position embeddings (``MAX_SPAN`` 255) and BatchNorm on the
@@ -7,7 +7,10 @@ similarity logits and the retrieved output. At eval both BatchNorms are
 per-channel affines and are folded as in the JAX package's
 ``_BNFoldParams`` path: the similarity BN's scale pre-multiplies the einsum
 operands and its bias is dropped (softmax is invariant to it); the retrieved
-BN becomes two scaled adds. Names follow the upstream module
+BN becomes two scaled adds. In ``train()`` both BatchNorms need batch
+statistics, so they run as in the JAX package's train branch: over the
+concatenated (content, query-RPE, key-RPE) similarities, and over the
+concatenated (content, value-RPE) outputs. Names follow the upstream module
 (``qkv_transform.conv``, ``_query_rpe._embeddings``, ``_batch_norm_qkv``,
 ``_batch_norm_similarity``, ``_batch_norm_retrieved_output``).
 """
@@ -74,6 +77,8 @@ class AxialAttention(nn.Module):
         qr = self._query_rpe(length).to(q.dtype)
         kr = self._key_rpe(length).to(q.dtype)
         vr = self._value_rpe(length)
+        if self.training:
+            return self._train_attention(q, k, v, qr, kr, vr)
 
         s3, _ = self._batch_norm_similarity.folded()
         s3 = s3.to(q.dtype)
@@ -91,6 +96,23 @@ class AxialAttention(nn.Module):
         s2 = s2.to(content.dtype)
         return (content * s2[:tv] + rpe * s2[tv:]
                 + (b2[:tv] + b2[tv:]).to(content.dtype))
+
+
+    def _train_attention(self, q, k, v, qr, kr, vr):
+        n, length, h = q.shape[:3]
+        tv = self.tv
+        sim = torch.cat([torch.einsum("nlhd,nmhd->nlmh", q, k),
+                         torch.einsum("nlhd,lmd->nlmh", q, qr),
+                         torch.einsum("nmhd,lmd->nlmh", k, kr)], -1)
+        sim = self._batch_norm_similarity(sim)
+        logits = sim.reshape(n, length, length, 3, h).sum(3)
+        weights = F.softmax(logits.float(), dim=2).to(v.dtype)
+        retrieved = torch.cat([
+            torch.einsum("nlmh,nmhd->nlhd", weights, v).reshape(n, length, tv),
+            torch.einsum("nlmh,lmd->nlhd", weights,
+                         vr.to(weights.dtype)).reshape(n, length, tv)], -1)
+        retrieved = self._batch_norm_retrieved_output(retrieved)
+        return retrieved.reshape(n, length, 2, tv).sum(2)
 
 
 class AxialAttention2D(nn.Module):

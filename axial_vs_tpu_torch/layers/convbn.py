@@ -1,9 +1,13 @@
-"""Linear, channels-last conv and ConvBN (counterpart of
-``axial_vs_tpu/layers/convbn.py``).
+"""Linear, channels-last conv, ConvBN and the stochastic layers DropPath and
+Dropout (counterpart of ``axial_vs_tpu/layers/convbn.py``).
 
 Weights keep torch's layouts (Linear (O, I), Conv (O, I / groups, *k)) and
 names, so ``state_dict`` keys match the upstream torch modules. The input is
 channels-last (NLC / NHWC); a 1x1 conv is a matmul over the last axis.
+
+DropPath and Dropout draw their masks from a ``torch.Generator`` that the
+caller passes to ``forward``; they are the identity in ``eval()`` and at
+rate 0, and raise in ``train()`` at a positive rate without a generator.
 """
 from __future__ import annotations
 
@@ -44,11 +48,13 @@ class Conv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
                  bias: bool = True, ndim: int = 2,
-                 weight_init=("he_normal", None), device=None):
+                 weight_init=("he_normal", None), dilation: int = 1,
+                 device=None):
         super().__init__()
         if ndim == 1 and (kernel_size != 1 or stride != 1 or groups != 1):
             raise NotImplementedError("1-D convs of kernel size 1 only")
         self.stride, self.padding, self.groups = stride, padding, groups
+        self.dilation = dilation
         self.pointwise = kernel_size == 1 and stride == 1 and groups == 1
         shape = (out_channels, in_channels // groups) + (kernel_size,) * ndim
         self.weight = nn.Parameter(torch.empty(shape, device=device))
@@ -67,18 +73,18 @@ class Conv(nn.Module):
         if self.pointwise:
             return F.linear(x, w.reshape(w.shape[0], w.shape[1]), b)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
-                     groups=self.groups)
+                     self.dilation, self.groups)
         # NHWC and dense, as the kernels downstream require (a no-op when
         # the conv already returned channels-last memory)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
 class ConvBN(nn.Module):
-    """Conv (+ eval BatchNorm) (+ activation), the reference's ConvBN.
+    """Conv (+ BatchNorm) (+ activation), the reference's ConvBN.
 
     ``conv_init``: he_normal (trunc_normal with std sqrt(2 / in_channels))
     or xavier_uniform; ``conv_init_std`` overrides it with
-    trunc_normal(std). ``norm`` is "syncbn" (eval BatchNorm) or None;
+    trunc_normal(std). ``norm`` is "syncbn" (BatchNorm) or None;
     ``norm_init`` sets its gamma (0.0 for residual-ending convs). ``act`` is
     "gelu" or None."""
 
@@ -86,7 +92,7 @@ class ConvBN(nn.Module):
                  stride: int = 1, padding: int = 0, groups: int = 1,
                  bias: bool = True, norm=None, act=None, conv_type: str = "2d",
                  conv_init: str = "he_normal", conv_init_std=None,
-                 norm_init: float = 1.0, device=None):
+                 norm_init: float = 1.0, dilation: int = 1, device=None):
         super().__init__()
         if norm not in ("syncbn", None) or act not in ("gelu", None):
             raise NotImplementedError(f"norm {norm!r}, act {act!r}")
@@ -95,7 +101,7 @@ class ConvBN(nn.Module):
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
                          padding, groups, bias,
                          ndim=2 if conv_type == "2d" else 1, weight_init=winit,
-                         device=device)
+                         dilation=dilation, device=device)
         self.norm = (BatchNorm(out_channels, scale_init=norm_init,
                                device=device) if norm else None)
         self.act = act
@@ -105,3 +111,43 @@ class ConvBN(nn.Module):
         if self.norm is not None:
             y = self.norm(y)
         return gelu(y) if self.act else y
+
+
+def _keep_mask(x, rate: float, shape, generator):
+    if generator is None:
+        raise TypeError("a stochastic layer in train() at a positive rate "
+                        "needs the step's torch.Generator")
+    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: in ``train()`` each sample of the
+    leading axis is kept with probability 1 - rate and scaled by
+    1 / (1 - rate)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = _keep_mask(x, self.rate, (x.shape[0],) + (1,) * (x.ndim - 1),
+                          generator)
+        return (x / keep) * mask.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout: in ``train()`` each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        mask = _keep_mask(x, self.rate, x.shape, generator)
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))

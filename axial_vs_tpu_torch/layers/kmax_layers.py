@@ -1,13 +1,15 @@
-"""kMaX-DeepLab transformer building blocks, eval path (counterpart of
-``axial_vs_tpu/layers/kmax_layers.py``; ASPP and the auxiliary semantic
-predictor are training-only and not ported yet).
+"""kMaX-DeepLab transformer building blocks (counterpart of
+``axial_vs_tpu/layers/kmax_layers.py``), with the training-only auxiliary
+semantic head (``ASPP``, ``SemanticPredictor``).
 
 Pixel features are (B, H, W, C), object queries (B, N, C). The k-means
 cross-attention assigns every pixel to its argmax mask slot (a hard one-hot)
 and averages nothing: it sums the pixels' values per slot. Softmaxes over
 similarity logits run in f32. Names follow the upstream modules
 (``_pixel_space_head_conv0bnact``, ``_transformer_class_head``,
-``_kmeans_query_batch_norm_retrieved_value``, ...).
+``_kmeans_query_batch_norm_retrieved_value``, ``_aspp``, ...). The
+stochastic layers (the transformer layer's three DropPaths, ASPP's dropout)
+draw from the ``generator`` passed to ``forward`` in ``train()``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from torch import nn
 
 from ..ops.act import gelu
 from ..ops.norm import BatchNorm
-from .convbn import ConvBN
+from ..ops.resize import resize_bilinear
+from .convbn import ConvBN, Dropout, DropPath
 
 
 def add_bias_towards_void(class_logits, void_prior_prob: float = 0.9):
@@ -97,10 +100,14 @@ class KMaXPredictor(nn.Module):
 class KMaXTransformerLayer(nn.Module):
     """k-means cross-attention + query self-attention + FFN, at the
     reference's fixed widths: 256-d queries and bottleneck, key depth 128,
-    value depth 256, 8 heads, FFN 2048."""
+    value depth 256, 8 heads, FFN 2048. Each of the three residual branches
+    ends in a DropPath of rate ``drop_path_prob``."""
 
-    def __init__(self, num_classes: int, in_channel_pixel: int, device=None):
+    def __init__(self, num_classes: int, in_channel_pixel: int,
+                 drop_path_prob: float = 0.0, device=None):
         super().__init__()
+        self._drop_path_kmeans, self._drop_path_attn, self._drop_path_ffn = (
+            DropPath(drop_path_prob) for _ in range(3))
         in_channel_query = bottleneck = 256
         self.key_depth, self.value_depth, self.num_heads = 128, 256, 8
         init_std = bottleneck ** -0.5
@@ -135,7 +142,7 @@ class KMaXTransformerLayer(nn.Module):
             self.value_depth, in_channel_query, 1, bias=False, norm="syncbn",
             conv_type="1d", norm_init=0.0, **dev)
 
-    def forward(self, pixel_feature, query_feature):
+    def forward(self, pixel_feature, query_feature, generator=None):
         b, n = query_feature.shape[:2]
         h, kd, vd = self.num_heads, self.key_depth, self.value_depth
         query_space = self._query_conv1_bn_act(query_feature)
@@ -150,8 +157,8 @@ class KMaXTransformerLayer(nn.Module):
                                   pixel_value.reshape(b, -1, vd).float())
         kmeans_update = self._kmeans_query_batch_norm_retrieved_value(
             kmeans_update.to(query_feature.dtype))
-        query_feature = query_feature + self._kmeans_query_conv3_bn(
-            kmeans_update)
+        query_feature = query_feature + self._drop_path_kmeans(
+            self._kmeans_query_conv3_bn(kmeans_update), generator)
 
         # query self-attention
         qkv = self._query_qkv_conv_bn(query_space)
@@ -159,9 +166,88 @@ class KMaXTransformerLayer(nn.Module):
         k = qkv[..., kd:2 * kd].reshape(b, n, h, kd // h)
         v = qkv[..., 2 * kd:].reshape(b, n, h, vd // h)
         attn = self._query_conv3_bn(self._query_self_attention(q, k, v))
-        query_feature = gelu(query_feature + attn)
+        query_feature = gelu(query_feature
+                             + self._drop_path_attn(attn, generator))
 
         # FFN
         ffn = self._query_ffn_conv2_bn(self._query_ffn_conv1_bn_act(
             query_feature))
-        return gelu(query_feature + ffn), pred
+        return gelu(query_feature + self._drop_path_ffn(ffn, generator)), pred
+
+
+def _conv_bn_act(cin, cout, k=1, act="gelu", device=None, **kw):
+    return ConvBN(cin, cout, k, padding=kw.pop("padding", 0), bias=False,
+                  norm="syncbn", act=act, device=device, **kw)
+
+
+def _dw_conv_bn_act(c, device=None):
+    return ConvBN(c, c, 5, padding=2, groups=c, bias=False, norm="syncbn",
+                  act="gelu", conv_init="xavier_uniform", device=device)
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling on (N, H, W, C): a 1x1 branch, three
+    3x3 branches at the atrous rates, and image pooling, concatenated and
+    projected, then dropout at rate 0.1 in ``train()`` (the JAX module's
+    fixed rate)."""
+
+    def __init__(self, in_channels: int, output_channels: int,
+                 atrous_rates=(6, 12, 18), device=None):
+        super().__init__()
+        c = output_channels
+        self._aspp_conv0 = _conv_bn_act(in_channels, c, device=device)
+        for i, r in enumerate(atrous_rates, 1):
+            setattr(self, f"_aspp_conv{i}", _conv_bn_act(
+                in_channels, c, 3, padding=r, dilation=r, device=device))
+        self._aspp_pool = _conv_bn_act(in_channels, c, device=device)
+        self._proj_conv_bn_act = _conv_bn_act(5 * c, c, device=device)
+        self._proj_drop = Dropout(0.1)
+
+    def forward(self, x, generator=None):
+        results = [getattr(self, f"_aspp_conv{i}")(x) for i in range(4)]
+        pooled = self._aspp_pool(x.mean((-3, -2), keepdim=True))
+        results.append(resize_bilinear(pooled, x.shape[-3:-1],
+                                       align_corners=x.shape[-2] % 2 == 1))
+        y = self._proj_conv_bn_act(torch.cat(results, -1))
+        return self._proj_drop(y, generator)
+
+
+class SemanticPredictor(nn.Module):
+    """The auxiliary semantic head: ASPP on the OS32 features, then the
+    Panoptic-DeepLab decoder fusing the OS8 and OS4 features. Returns
+    (N, H4, W4, num_classes) logits (void included)."""
+
+    def __init__(self, in_channels: int, os8_channels: int, os4_channels: int,
+                 num_classes: int, device=None):
+        super().__init__()
+        dev = dict(device=device)
+        self._aspp = ASPP(in_channels, 256, **dev)
+        self._low_level_projection_os8 = _conv_bn_act(os8_channels, 64, **dev)
+        self._low_level_fusion_os8_conv0_bn_act = _dw_conv_bn_act(256 + 64,
+                                                                  **dev)
+        self._low_level_fusion_os8_conv1_bn_act = _conv_bn_act(256 + 64, 256,
+                                                               **dev)
+        self._low_level_projection_os4 = _conv_bn_act(os4_channels, 32, **dev)
+        self._low_level_fusion_os4_conv0_bn_act = _dw_conv_bn_act(256 + 32,
+                                                                  **dev)
+        self._low_level_fusion_os4_conv1_bn_act = _conv_bn_act(256 + 32, 256,
+                                                               **dev)
+        self.conv_block_0 = _dw_conv_bn_act(256, **dev)
+        self.conv_block_1 = _conv_bn_act(256, 256, **dev)
+        self.final_conv = ConvBN(256, num_classes, 1, bias=True,
+                                 conv_init_std=0.01, **dev)
+
+    def forward(self, x, low_features_os8, low_features_os4, generator=None):
+        x = self._aspp(x, generator)
+        align_corners = x.shape[-2] % 2 == 1
+        for proj, conv0, conv1, low in (
+                (self._low_level_projection_os8,
+                 self._low_level_fusion_os8_conv0_bn_act,
+                 self._low_level_fusion_os8_conv1_bn_act, low_features_os8),
+                (self._low_level_projection_os4,
+                 self._low_level_fusion_os4_conv0_bn_act,
+                 self._low_level_fusion_os4_conv1_bn_act, low_features_os4)):
+            low = proj(low)
+            x = resize_bilinear(x, low.shape[-3:-1], align_corners=align_corners)
+            x = conv1(conv0(torch.cat([x, low], -1)))
+        return self.final_conv(self.conv_block_1(self.conv_block_0(x)))

@@ -18,7 +18,7 @@ from torch import nn
 
 from ..ops.msda import level_start_index, ms_deform_attn
 from ..ops.norm import LayerNorm
-from .convbn import Linear
+from .convbn import Dropout, Linear
 
 _ZERO = ("constant", 0.0)
 
@@ -90,11 +90,15 @@ class MSDeformAttn(nn.Module):
 
 class MSDeformAttnEncoderLayer(nn.Module):
     """Deformable self-attention + ReLU FFN over flattened multi-level
-    tokens."""
+    tokens, with dropout (rate ``dropout``, in ``train()``) after the
+    attention, the FFN's activation and its output."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024, n_levels: int = 3,
-                 n_heads: int = 8, n_points: int = 4, device=None):
+                 n_heads: int = 8, n_points: int = 4, dropout: float = 0.0,
+                 device=None):
         super().__init__()
+        self.dropout1, self.dropout2, self.dropout3 = (
+            Dropout(dropout) for _ in range(3))
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       device=device)
         self.norm1 = LayerNorm(d_model, eps=1e-5, device=device)
@@ -102,7 +106,8 @@ class MSDeformAttnEncoderLayer(nn.Module):
         self.linear2 = Linear(d_ffn, d_model, device=device)
         self.norm2 = LayerNorm(d_model, eps=1e-5, device=device)
 
-    def forward(self, src, pos, spatial_shapes):
+    def forward(self, src, pos, spatial_shapes, generator=None):
         attn = self.self_attn(src + pos.to(src.dtype), src, spatial_shapes)
-        src = self.norm1(src + attn)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        src = self.norm1(src + self.dropout1(attn, generator))
+        y = self.dropout2(F.relu(self.linear1(src)), generator)
+        return self.norm2(src + self.dropout3(self.linear2(y), generator))

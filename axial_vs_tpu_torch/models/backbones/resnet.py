@@ -3,7 +3,7 @@
 
 torchvision's ResNet as detectron2 builds it for the reference: a 7x7/2 stem
 and a 3x3/2 max-pool (padded with -inf), then bottleneck blocks (R50 and
-deeper; stride on the 3x3) or basic blocks (R18, R34), eval BatchNorm with
+deeper; stride on the 3x3) or basic blocks (R18, R34), BatchNorm with
 eps 1e-3, outputs res2..res5 at strides 4/8/16/32. Parameter names are
 torchvision's (``conv1``, ``bn1``, ``layer{1-4}.{j}.conv{1-3}``,
 ``bn{1-3}``, ``downsample.{0,1}``), so

@@ -38,15 +38,19 @@ class KMaXSegmenter(nn.Module):
         self.sem_seg_head = _Head(wc_module, pixel_decoder, transformer_decoder)
         self.dtype = dtype
 
-    def forward(self, images):
+    def forward(self, images, generator=None):
         """images (B*T, H, W, 3) -> {"pred_logits" (B, N, K+1), "pred_masks"
         (B, T, H/4, W/4, N), "pred_mask_embeddings" (B, N, 128),
-        "pixel_feature", "aux_outputs", "cluster_centers"}."""
+        "pixel_feature", "aux_outputs", "cluster_centers"}, and in
+        ``train()`` with the semantic head "aux_semantic_pred" (B, T, H/4,
+        W/4, K+1). ``generator`` draws the dropout and drop-path masks in
+        ``train()``."""
         head = self.sem_seg_head
         x = images if self.dtype is None else images.to(self.dtype)
-        features = head.wc_module(self.backbone(x))
-        pano, multi_scale = head.pixel_decoder(features)
-        return head.predictor(multi_scale, pano, dtype=self.dtype)
+        features = head.wc_module(self.backbone(x), generator)
+        pano, semantic, multi_scale = head.pixel_decoder(features, generator)
+        return head.predictor(multi_scale, pano, semantic, dtype=self.dtype,
+                              generator=generator)
 
 
 def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
@@ -73,15 +77,19 @@ def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
     return backbone, channels
 
 
-def materialize(model: nn.Module, device, generator, dtype):
+def materialize(model: nn.Module, device, generator, dtype,
+                train: bool = False):
     """Allocate a model built on the meta device on ``device``, draw every
     parameter from ``generator`` and, in bf16, keep the matrices bf16 at
-    rest and the vectors f32. Returns it in eval mode."""
+    rest and the vectors f32. Returns it in eval mode, or with ``train``
+    (f32 only) in train mode."""
     if generator is None:
         raise TypeError("pass a torch.Generator on the model's device: the "
                         "random weights are drawn from it")
     model = model.to_empty(device=device)
     init_parameters(model, generator)
+    if train:
+        return model.train()
     if dtype is not None:
         cast_for_inference(model, dtype)
     return model.eval()
@@ -90,19 +98,37 @@ def materialize(model: nn.Module, device, generator, dtype):
 def build_segmenter(cfg, device=torch.device("cuda"),
                     generator: torch.Generator | None = None,
                     num_frames: int | None = None, *,
-                    block_kernel: str = "dwln"):
-    """Build the inference segmenter from a config tree (attribute access,
-    the fields of ``axial_vs_tpu.config.get_default_config()``), on
-    ``device`` (the card unless the caller asks for another), with every
-    parameter drawn from ``generator`` (required; it must live on
-    ``device``). In bf16 the matrices are kept bf16 at rest and the vectors
-    f32. ``block_kernel`` is the ConvNeXt blocks' route at inference:
-    ``"dwln"`` (K1 + two Linear layers, the default), ``"mlp"`` (K1 + K5) or
-    ``"block"`` (K4)."""
+                    block_kernel: str = "dwln", train: bool = False):
+    """Build the segmenter from a config tree (the port's own,
+    ``axial_vs_tpu_torch.config.get_default_config()`` with a yaml of
+    ``configs/`` merged in), on ``device`` (the card unless the caller asks
+    for another), with every parameter drawn from ``generator`` (required;
+    it must live on ``device``). For inference (the default) the model is
+    returned in ``eval()``; in bf16 the matrices are kept bf16 at rest and
+    the vectors f32. ``block_kernel`` is the ConvNeXt blocks' route at
+    inference: ``"dwln"`` (K1 + two Linear layers, the default), ``"mlp"``
+    (K1 + K5) or ``"block"`` (K4).
+
+    ``train=True`` returns the model in ``train()`` with every parameter
+    f32, and adds the auxiliary semantic head when
+    ``kmax.aux_semantic_weight > 0``, as the JAX builder does. Training
+    runs f32 only, and a ConvNeXt backbone only without drop path."""
     w = cfg.model.maxtron.wc
     if not w.enable:
         raise NotImplementedError("only the within-clip model is ported")
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
+    kmax = cfg.model.kmax
+    aux_semantic = train and kmax.aux_semantic_weight > 0
+    if train:
+        if dtype is not None:
+            raise NotImplementedError("bf16 training is not ported yet")
+        if (cfg.model.backbone.name.startswith("convnext")
+                and cfg.model.backbone.convnext.drop_path_rate > 0):
+            raise NotImplementedError("ConvNeXt training with drop path is "
+                                      "not ported yet")
+        if aux_semantic and not kmax.use_aux_semantic_decoder:
+            raise NotImplementedError("the semantic head without its "
+                                      "decoder is not ported")
     t = num_frames or cfg.input.num_clip_frames
     meta = torch.device("meta")
     backbone, channels = build_backbone(cfg, device=meta,
@@ -114,21 +140,25 @@ def build_segmenter(cfg, device=torch.device("cuda"),
         temporal_attn_type=w.temporal_attn_type,
         spatial_in_features=tuple(w.spatial_in_features),
         temporal_in_features=tuple(w.temporal_in_features),
-        enc_n_points=w.enc_n_points, num_frames=t, device=meta)
-    kmax = cfg.model.kmax
+        enc_n_points=w.enc_n_points, num_frames=t, dropout=w.dropout,
+        device=meta)
     in_features = tuple(sorted(kmax.pixel_dec.in_features, reverse=True))
     pixel_decoder = KMaXPixelDecoder(
         channels, in_features=in_features,
         dec_layers=tuple(kmax.pixel_dec.dec_layers),
         dec_channels=tuple(kmax.pixel_dec.dec_channels),
-        layer_types=tuple(kmax.pixel_dec.layer_types), device=meta)
+        layer_types=tuple(kmax.pixel_dec.layer_types),
+        drop_path_prob=kmax.pixel_dec.drop_path_prob, device=meta)
     stage_channels = [s.out_channels for s in pixel_decoder._stages]
     predictor = KMaXTransformerDecoder(
         num_classes=cfg.model.num_classes, in_channels=stage_channels[:3],
         panoptic_channels=stage_channels[-1],
         dec_layers=tuple(kmax.trans_dec.dec_layers),
         num_queries=kmax.trans_dec.num_object_queries, num_frames=t,
+        drop_path_prob=kmax.trans_dec.drop_path_prob,
+        aux_semantic=(tuple(channels[in_features[i]] for i in (0, 2, 3))
+                      if aux_semantic else None),
         device=meta)
     model = KMaXSegmenter(backbone, wc_module, pixel_decoder, predictor,
                           dtype=dtype)
-    return materialize(model, device, generator, dtype)
+    return materialize(model, device, generator, dtype, train)

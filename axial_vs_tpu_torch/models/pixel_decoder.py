@@ -14,18 +14,20 @@ from typing import Sequence
 from torch import nn
 
 from ..layers.axial_attention import AxialAttention2D
-from ..layers.convbn import ConvBN
+from ..layers.convbn import ConvBN, DropPath
 from ..ops.act import gelu
 from ..ops.norm import LayerNorm
 from ..ops.resize import resize_bilinear
 
 
 class SingleBlock(nn.Module):
-    """gelu -> 1x1 -> (axial attention | 3x3) -> 1x1 (BN gamma 0) + shortcut."""
+    """gelu -> 1x1 -> (axial attention | 3x3) -> 1x1 (BN gamma 0) ->
+    DropPath + shortcut."""
 
     def __init__(self, in_channels: int, filter_list: Sequence[int],
-                 block_type: str, device=None):
+                 block_type: str, drop_path_prob: float = 0.0, device=None):
         super().__init__()
+        self.drop_path = DropPath(drop_path_prob)
         f0, f1, f2 = filter_list
         self._shortcut = (ConvBN(in_channels, f2, 1, bias=False, norm="syncbn",
                                  device=device)
@@ -46,7 +48,7 @@ class SingleBlock(nn.Module):
         self._conv3_bn = ConvBN(mid, f2, 1, bias=False, norm="syncbn",
                                 norm_init=0.0, device=device)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = gelu(x)
         shortcut = x if self._shortcut is None else self._shortcut(x)
         y = self._conv1_bn_act(x)
@@ -54,14 +56,14 @@ class SingleBlock(nn.Module):
             y = gelu(self._attention(y))
         else:
             y = self._conv2_bn_act(y)
-        return self._conv3_bn(y) + shortcut
+        return self.drop_path(self._conv3_bn(y), generator) + shortcut
 
 
 class BlockGroup(nn.Module):
     """num_blocks blocks; filters [2f, f, 4f] (axial) or [f, f, 4f]."""
 
     def __init__(self, in_channels: int, base_filter: int, num_blocks: int,
-                 block_type: str, device=None):
+                 block_type: str, drop_path_prob: float = 0.0, device=None):
         super().__init__()
         bt = block_type.lower()
         filter_list = ([base_filter * 2, base_filter, base_filter * 4]
@@ -70,13 +72,13 @@ class BlockGroup(nn.Module):
         self._blocks = nn.ModuleList()
         for _ in range(num_blocks):
             self._blocks.append(SingleBlock(in_channels, filter_list, bt,
-                                            device=device))
+                                            drop_path_prob, device=device))
             in_channels = filter_list[-1]
         self.out_channels = filter_list[-1]
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for block in self._blocks:
-            x = block(x)
+            x = block(x, generator)
         return x
 
 
@@ -106,9 +108,10 @@ class ResizedFuse(nn.Module):
 
 
 class KMaXPixelDecoder(nn.Module):
-    """Returns (panoptic features OS4, multi-scale features [OS32, OS16,
-    OS8]). The raw features the JAX decoder also returns feed only the
-    training-time semantic head, which is not ported yet."""
+    """Returns (panoptic features OS4, the semantic head's inputs [OS32,
+    OS8, OS4] as the backbone (or WC module) gave them, multi-scale
+    features [OS32, OS16, OS8]). ``drop_path_prob`` is every block's
+    DropPath rate in ``train()``."""
 
     def __init__(self, in_channels: dict,
                  in_features: Sequence[str] = ("res5", "res4", "res3", "res2"),
@@ -116,7 +119,7 @@ class KMaXPixelDecoder(nn.Module):
                  dec_channels: Sequence[int] = (512, 256, 128, 64),
                  layer_types: Sequence[str] = ("axial", "axial", "bottleneck",
                                                "bottleneck"),
-                 device=None):
+                 drop_path_prob: float = 0.0, device=None):
         super().__init__()
         self.in_features = tuple(in_features)
         n = len(self.in_features)
@@ -128,7 +131,7 @@ class KMaXPixelDecoder(nn.Module):
         ch = in_channels[self.in_features[0]]
         for i in range(n):
             stage = BlockGroup(ch, dec_channels[i], dec_layers[i],
-                               layer_types[i], device=device)
+                               layer_types[i], drop_path_prob, device=device)
             self._stages.append(stage)
             if i < n - 1:
                 self._resized_fuses.append(ResizedFuse(
@@ -136,13 +139,14 @@ class KMaXPixelDecoder(nn.Module):
                     dec_channels[i + 1], device=device))
                 ch = dec_channels[i + 1]
 
-    def forward(self, features: dict):
+    def forward(self, features: dict, generator=None):
         out = []
         x = self._in_norms[0](features[self.in_features[0]])
         for i, fuse in enumerate(self._resized_fuses):
-            x = self._stages[i](x)
+            x = self._stages[i](x, generator)
             out.append(x)
             high = self._in_norms[i + 1](features[self.in_features[i + 1]])
             x = fuse(x, high)
-        x = self._stages[-1](x)
-        return x, out
+        x = self._stages[-1](x, generator)
+        semantic = [features[self.in_features[i]] for i in (0, 2, 3)]
+        return x, semantic, out

@@ -1,4 +1,4 @@
-"""MaXTron video transformer decoder, eval path (counterpart of
+"""MaXTron video transformer decoder (counterpart of
 ``axial_vs_tpu/models/transformer_decoder.py`` with ``num_frames > 1``).
 
 The per-frame pixel features (B*T, H, W, C) are folded into the height
@@ -7,7 +7,9 @@ the 128-d mask embeddings are returned for cross-clip matching. Auxiliary
 predictions are resized per frame to the final resolution. Names follow the
 upstream decoder (``_cluster_centers``, ``_kmax_transformer_layers``,
 ``_class_embedding_projection``, ``_mask_embedding_projection``,
-``_predictor``).
+``_predictor``, ``_auxiliary_semantic_predictor``). With ``aux_semantic``
+the decoder owns the auxiliary semantic head, which runs in ``train()``
+only and adds ``aux_semantic_pred`` (B, T, H4, W4, K+1) to the outputs.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from torch import nn
 
 from ..layers.convbn import ConvBN
-from ..layers.kmax_layers import KMaXPredictor, KMaXTransformerLayer
+from ..layers.kmax_layers import (KMaXPredictor, KMaXTransformerLayer,
+                                  SemanticPredictor)
 from ..ops.resize import resize_bilinear
 
 
@@ -32,7 +35,10 @@ class KMaXTransformerDecoder(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: Sequence[int],
                  panoptic_channels: int, dec_layers: Sequence[int] = (2, 2, 2),
-                 num_queries: int = 128, num_frames: int = 2, device=None):
+                 num_queries: int = 128, num_frames: int = 2,
+                 drop_path_prob: float = 0.0, aux_semantic=None, device=None):
+        """``aux_semantic``: None, or the (OS32, OS8, OS4) channels of the
+        semantic head's inputs."""
         super().__init__()
         self.dec_layers = tuple(dec_layers)
         self.num_frames = num_frames
@@ -41,7 +47,7 @@ class KMaXTransformerDecoder(nn.Module):
         self._cluster_centers._inits = {"weight": ("trunc_normal", 1.0)}
         self._kmax_transformer_layers = nn.ModuleList([
             KMaXTransformerLayer(num_classes + 1, in_channels[i],
-                                 device=device)
+                                 drop_path_prob, device=device)
             for i, n in enumerate(self.dec_layers) for _ in range(n)])
         self._class_embedding_projection = ConvBN(
             256, 256, 1, bias=False, norm="syncbn", act="gelu",
@@ -51,8 +57,13 @@ class KMaXTransformerDecoder(nn.Module):
             conv_type="1d", device=device)
         self._predictor = KMaXPredictor(panoptic_channels, num_classes + 1,
                                         device=device)
+        self._auxiliary_semantic_predictor = (
+            None if aux_semantic is None
+            else SemanticPredictor(*aux_semantic, num_classes + 1,
+                                   device=device))
 
-    def forward(self, multi_scale_features, panoptic_features, dtype=None):
+    def forward(self, multi_scale_features, panoptic_features,
+                semantic_features=None, dtype=None, generator=None):
         t = self.num_frames
         b = multi_scale_features[0].shape[0] // t
         query = self._cluster_centers.weight.t()[None].expand(
@@ -63,7 +74,7 @@ class KMaXTransformerDecoder(nn.Module):
         for i, feat in enumerate(multi_scale_features):
             feat = _fold_time(feat, t)
             for _ in range(self.dec_layers[i]):
-                query, pred = next(layers)(feat, query)
+                query, pred = next(layers)(feat, query, generator)
                 preds.append(pred)
 
         final = self._predictor(self._mask_embedding_projection(query),
@@ -84,7 +95,7 @@ class KMaXTransformerDecoder(nn.Module):
                                              final_hw,
                                              align_corners=align_corners),
         } for p in preds]
-        return {
+        out = {
             "pred_logits": final["class_logits"],
             "pred_masks": unfold(final["mask_logits"]),
             "pixel_feature": unfold(final["pixel_feature"]),
@@ -92,3 +103,8 @@ class KMaXTransformerDecoder(nn.Module):
             "pred_mask_embeddings": final["mask_embeddings"],  # (B, N, 128)
             "cluster_centers": query,  # (B, N, 256)
         }
+        if self._auxiliary_semantic_predictor is not None and self.training:
+            sem = self._auxiliary_semantic_predictor(*semantic_features,
+                                                     generator=generator)
+            out["aux_semantic_pred"] = sem.reshape(b, t, *sem.shape[1:])
+        return out

@@ -53,7 +53,8 @@ class _Transformer(nn.Module):
 
 class WithinClipTrackingModule(nn.Module):
     """features {res*: (B*T, H, W, C)} -> the same dict with the spatial
-    levels replaced by their tracked versions."""
+    levels replaced by their tracked versions. ``generator`` draws the
+    deformable layers' dropout masks in ``train()``."""
 
     def __init__(self, in_channels: dict, conv_dims: int = 256, nheads: int = 8,
                  dim_feedforward: int = 1024, num_stages: int = 2,
@@ -61,7 +62,8 @@ class WithinClipTrackingModule(nn.Module):
                  temporal_attn_type: str = "axial_trajectory",
                  spatial_in_features: Sequence[str] = ("res3", "res4", "res5"),
                  temporal_in_features: Sequence[str] = ("res4", "res5"),
-                 enc_n_points: int = 4, num_frames: int = 2, device=None):
+                 enc_n_points: int = 4, num_frames: int = 2,
+                 dropout: float = 0.0, device=None):
         super().__init__()
         self.levels = sorted(spatial_in_features, reverse=True)  # res5 first
         self.num_temporal_levels = (len(temporal_in_features)
@@ -75,7 +77,8 @@ class WithinClipTrackingModule(nn.Module):
             _proj_gn(c, in_channels[n], device) for n in self.levels])
         spatial = [
             MSDeformAttnEncoderLayer(c, dim_feedforward, len(self.levels),
-                                     nheads, enc_n_points, device=device)
+                                     nheads, enc_n_points, dropout,
+                                     device=device)
             for _ in range(num_stages if spatial_layers > 0 else 0)]
         per_stage = temporal_layers // num_stages if temporal_layers else 0
         temporal = [
@@ -87,7 +90,7 @@ class WithinClipTrackingModule(nn.Module):
                                         self.num_temporal_levels, c,
                                         _Encoder(spatial, temporal), device)
 
-    def forward(self, features: dict):
+    def forward(self, features: dict, generator=None):
         t, c = self.num_frames, self.conv_dims
         tr = self.transformer
         srcs, shapes = [], []
@@ -113,7 +116,8 @@ class WithinClipTrackingModule(nn.Module):
         enc = tr.encoder
         for stage in range(self.num_stages):
             if len(enc.spatial_layers):
-                src = enc.spatial_layers[stage](src, pos_flat, shapes)
+                src = enc.spatial_layers[stage](src, pos_flat, shapes,
+                                                generator)
             if len(enc.temporal_layers):
                 # the temporal levels are the first ones of the token
                 # sequence; the updated prefix is concatenated back

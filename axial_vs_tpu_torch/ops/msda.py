@@ -1,4 +1,5 @@
-"""Multi-scale deformable attention core op (kernel K2), forward.
+"""Multi-scale deformable attention core op (kernel K2), forward and
+backward.
 
 Counterpart of ``axial_vs_tpu/ops/msda.py::ms_deform_attn`` together with
 its Pallas reduce ``ops/msda_pallas.py::weighted_corner_reduce_v4``: per
@@ -13,6 +14,13 @@ raises. On the card the wrapper picks the kernel's path: 16-byte loads of
 ``VECTOR_BYTES // element size`` channels a lane where D and the pointers
 allow, else one channel a lane (a path of the same kernel, not the plain
 version).
+
+Under autograd the card's path is ``_MSDeformAttn``, a
+``torch.autograd.Function`` (the port of the JAX package's custom VJP
+``weighted_corner_reduce_v4_ad``): its forward launches K2; its backward
+recomputes ``ms_deform_attn_plain`` from the saved inputs and returns that
+function's VJP, the gradients of value, locations and weights. K2's
+workspace-free forward saves only its inputs.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ VECTOR_BYTES = 16
 #: block, by 3%) and 1 in f32 (32 rows a block, by 2-6%), in CUDA graphs on
 #: an H100 80GB HBM3 at 700 W; the order does not change the result
 ROW_ORDER = {torch.bfloat16: 0, torch.float32: 1}
+#: the profiler range of K2's backward (the plain version's VJP)
+BACKWARD_RANGE = "K2 backward (plain VJP)"
 
 
 def level_start_index(spatial_shapes: Sequence[Tuple[int, int]]):
@@ -110,7 +120,6 @@ def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
     if native.on_cpu([value, locations, weights]):
         return ms_deform_attn_plain(value, spatial_shapes, level_start,
                                     locations, weights)
-    native.refuse_grad(value, locations, weights)
     if value.dtype not in KERNEL_DTYPES or weights.dtype != value.dtype:
         raise TypeError("the CUDA kernel takes value and weights both bf16 or "
                         f"both f32, got {value.dtype} / {weights.dtype}")
@@ -119,6 +128,17 @@ def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
     for t in (value, locations, weights):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, locations, weights)):
+        return _MSDeformAttn.apply(value, locations, weights, spatial_shapes,
+                                   level_start)
+    return _launch(value, spatial_shapes, level_start, locations, weights)
+
+
+def _launch(value, spatial_shapes, level_start, locations, weights):
+    """K2 on checked card tensors; counts the launch."""
+    b, s, m, d = value.shape
+    _, lq, _, num_levels, p, _ = locations.shape
     levels = (ctypes.c_int * (3 * num_levels))(
         *[x for (h, w), st in zip(spatial_shapes, level_start)
           for x in (h, w, st)])
@@ -130,6 +150,25 @@ def ms_deform_attn(value, spatial_shapes, level_start, locations, weights):
                   ROW_ORDER[value.dtype], device=value.device)
     ms_deform_attn.launches += 1
     return out
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """K2 forward; backward = the VJP of ``ms_deform_attn_plain``,
+    recomputed from the saved inputs (as ``_v4_ad_bwd`` takes the VJP of
+    ``_v4_math``)."""
+
+    @staticmethod
+    def forward(ctx, value, locations, weights, spatial_shapes, level_start):
+        ctx.save_for_backward(value, locations, weights)
+        ctx.levels = (spatial_shapes, level_start)
+        return _launch(value, spatial_shapes, level_start, locations, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        shapes, starts = ctx.levels
+        return (*native.plain_vjp(
+            lambda v, loc, w: ms_deform_attn_plain(v, shapes, starts, loc, w),
+            ctx.saved_tensors, grad_out, BACKWARD_RANGE), None, None)
 
 
 #: kernel launches since the count was last set to 0

@@ -167,10 +167,13 @@ def on_cpu(tensors) -> bool:
 
 def refuse_grad(*tensors) -> None:
     """Raise ``RuntimeError`` when grad mode is on and a tensor argument
-    requires grad. The kernels have no backward: a launch would hand back
-    an output without ``grad_fn`` and silently cut the graph. Every kernel
-    wrapper calls this before it launches on the card; run inference under
-    ``torch.inference_mode()`` or ``torch.no_grad()``."""
+    requires grad. K1 and K4-K8 and the probes have no backward: a launch
+    would hand back an output without ``grad_fn`` and silently cut the
+    graph. Their wrappers call this before they launch on the card; run
+    inference under ``torch.inference_mode()`` or ``torch.no_grad()``. K2
+    and K3 (``ops/msda.py``, ``ops/traj.py``) do not: under grad they run
+    as autograd Functions whose backward is ``plain_vjp`` of their plain
+    versions."""
     import torch
 
     if torch.is_grad_enabled() and any(
@@ -179,6 +182,23 @@ def refuse_grad(*tensors) -> None:
             "a CUDA kernel of the port has no backward: call it under "
             "torch.inference_mode() or torch.no_grad(), or on tensors that "
             "do not require grad")
+
+
+def plain_vjp(fn, inputs, grad_out, name: str = "plain VJP"):
+    """The VJP of ``fn`` at ``inputs`` against ``grad_out``, recomputed
+    under grad mode from detached copies of the inputs: one gradient per
+    input, in that input's dtype, None for an input that needs none. The
+    backward of K2's and K3's autograd Functions, as the JAX package's
+    custom VJPs take ``jax.vjp`` of their plain math. It runs inside a
+    profiler range called ``name``."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
+    wanted = [t for t in leaves if t.requires_grad]
+    with torch.profiler.record_function(name), torch.enable_grad():
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, grad_out,
+                                         allow_unused=True))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
 def launch(name: str, *args, device) -> None:

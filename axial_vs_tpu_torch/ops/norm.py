@@ -1,12 +1,15 @@
-"""Normalization layers, eval paths (counterpart of ``axial_vs_tpu/ops/norm.py``).
+"""Normalization layers (counterpart of ``axial_vs_tpu/ops/norm.py``).
 
 Channels-last: the normalized axis is the last one. Parameter and buffer
 names are torch's (``weight``, ``bias``, ``running_mean``, ``running_var``).
 The statistics and affines follow the JAX package's formulas, so the two
 agree to f32 rounding:
 
-- BatchNorm (eps 1e-3): running stats folded into an f32 affine, applied in
-  the input dtype;
+- BatchNorm (eps 1e-3): in ``eval()`` the running stats are folded into an
+  f32 affine, applied in the input dtype; in ``train()`` the batch
+  statistics normalize in f32 (the biased variance, E[x^2] - E[x]^2) and
+  the running stats take momentum 0.01 of the new statistic, the variance
+  with the unbiased correction n / (n - 1);
 - LayerNorm: f32, variance as E[x^2] - E[x]^2;
 - GroupNorm (32 groups, eps 1e-5): f32 statistics over spatial axes and the
   channels of a group.
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.01  # torch convention: the weight of the NEW batch statistic
 
 
 def _vector(n, device):
@@ -24,7 +28,8 @@ def _vector(n, device):
 
 
 class BatchNorm(nn.Module):
-    """Eval-time BatchNorm over the last axis; ``scale_init`` sets gamma."""
+    """BatchNorm over the last axis (every leading axis is reduced in
+    training); ``scale_init`` sets gamma."""
 
     def __init__(self, features: int, scale_init: float = 1.0, device=None):
         super().__init__()
@@ -45,8 +50,24 @@ class BatchNorm(nn.Module):
         return s, self.bias - self.running_mean * s
 
     def forward(self, x):
+        if self.training:
+            return self._train_forward(x)
         s, b = self.folded()
         return x * s.to(x.dtype) + b.to(x.dtype)
+
+    def _train_forward(self, x):
+        xf = x.float()
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(axes)
+        var = (xf.square().mean(axes) - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            n = x.numel() // x.shape[-1]
+            correction = n / max(n - 1, 1)
+            self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            self.running_var.mul_(1 - BN_MOMENTUM).add_(
+                BN_MOMENTUM * var * correction)
+        y = (xf - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.Module):

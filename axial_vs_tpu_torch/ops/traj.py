@@ -1,4 +1,5 @@
-"""Middle section of two-stage trajectory attention (kernel K3), forward.
+"""Middle section of two-stage trajectory attention (kernel K3), forward
+and backward.
 
 Counterpart of ``axial_vs_tpu/ops/traj_pallas.py::fused_trajectory_attention``
 (its math is ``_traj_math``): everything between the q/k/v projections and
@@ -26,6 +27,14 @@ both are register-tiled on the CUDA cores (every product an f32 FMA, no
 TF32), stage 2 a persistent SGEMM with one head's weights resident. The
 wrapper takes the plain version for a tensor on the CPU only; a CUDA tensor
 launches the kernel or raises.
+
+Under autograd the card's path is ``_TrajectoryAttentionCore``, a
+``torch.autograd.Function`` (the port of the JAX package's custom VJP of
+``fused_trajectory_attention``): its forward launches K3; its backward
+recomputes ``trajectory_attention_core_plain`` from the saved inputs (the
+stage-2 weights in their own dtypes, so f32 master weights get f32
+gradients) and returns that function's VJP. The kernel's two workspaces are
+not saved.
 """
 from __future__ import annotations
 
@@ -52,6 +61,8 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: enters a convex combination, or one of 256 products). 2 ulp leaves room
 #: for both; it is 2^-6 of max|out| at most.
 TRAJ_ULPS = 2
+#: the profiler range of K3's backward (the plain version's VJP)
+BACKWARD_RANGE = "K3 backward (plain VJP)"
 
 
 def trajectory_attention_core_plain(q, k, v, wq, bq, wkv, bkv,
@@ -107,7 +118,6 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
         raise ValueError("stage-2 weights do not match C")
     if native.on_cpu([q, k, v]):
         return trajectory_attention_core_plain(q, k, v, wq, bq, wkv, bkv, f, h)
-    native.refuse_grad(q, k, v, wq, bq, wkv, bkv)
     dt = q.dtype
     for t in (q, k, v):
         if t.dtype not in KERNEL_DTYPES or t.dtype != dt:
@@ -120,17 +130,29 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
                          f"at most {KERNEL_MAX_HEADS} heads and "
                          f"{KERNEL_MAX_FRAMES} frames; got d={c // h}, h={h}, "
                          f"f={f}")
-    # no-ops for matrices kept in q's dtype at rest; the biases are cast per call
-    wq, bq, wkv, bkv = (t.to(device=q.device, dtype=dt).contiguous()
-                        for t in (wq, bq, wkv, bkv))
-    tensors = (q, k, v, wq, bq, wkv, bkv)
-    if any(t.data_ptr() % 32 for t in tensors):
-        raise ValueError("the CUDA kernel needs 32-byte aligned tensors")
     suffix = "" if dt == torch.bfloat16 else "_f32"
     smem = getattr(native.library(), "axvs_traj_smem_bytes" + suffix)(nt // f, f, h)
     if not 0 < smem <= MAX_SHARED_BYTES:
         raise ValueError(f"n={nt // f} tokens per frame at f={f} need {smem} B "
                          f"of shared memory, more than {MAX_SHARED_BYTES}")
+    weights = (wq, bq, wkv, bkv)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, *weights)):
+        return _TrajectoryAttentionCore.apply(q, k, v, *weights, f, h)
+    return _launch(q, k, v, *weights, f, h)
+
+
+def _launch(q, k, v, wq, bq, wkv, bkv, f: int, h: int):
+    """K3 on checked card tensors; counts the launch. The stage-2 weights
+    are cast to q's dtype (no-ops for matrices kept in it at rest)."""
+    b, nt, c = q.shape
+    dt = q.dtype
+    wq, bq, wkv, bkv = (t.detach().to(device=q.device, dtype=dt).contiguous()
+                        for t in (wq, bq, wkv, bkv))
+    tensors = (q, k, v, wq, bq, wkv, bkv)
+    if any(t.data_ptr() % 32 for t in tensors):
+        raise ValueError("the CUDA kernel needs 32-byte aligned tensors")
+    suffix = "" if dt == torch.bfloat16 else "_f32"
     out = torch.empty_like(q)
     scale = float((c // h) ** -0.5)
     x_ws = torch.empty(f, b * nt, c, dtype=dt, device=q.device)
@@ -140,6 +162,25 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
                   scale, device=q.device)
     trajectory_attention_core.launches += 1
     return out
+
+
+class _TrajectoryAttentionCore(torch.autograd.Function):
+    """K3 forward; backward = the VJP of ``trajectory_attention_core_plain``,
+    recomputed from the saved inputs (as ``_fta_bwd`` takes the VJP of
+    ``_traj_math``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wq, bq, wkv, bkv, f, h):
+        ctx.save_for_backward(q, k, v, wq, bq, wkv, bkv)
+        ctx.fh = (f, h)
+        return _launch(q, k, v, wq, bq, wkv, bkv, f, h)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        f, h = ctx.fh
+        return (*native.plain_vjp(
+            lambda *a: trajectory_attention_core_plain(*a, f, h),
+            ctx.saved_tensors, grad_out, BACKWARD_RANGE), None, None)
 
 
 #: kernel launches since the count was last set to 0

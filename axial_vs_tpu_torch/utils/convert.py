@@ -288,9 +288,41 @@ def kmax_transformer_layer(p, s) -> dict:
     return sd
 
 
+_SEMANTIC_NAMES = {
+    "low_level_projection_os8": "_low_level_projection_os8",
+    "low_level_fusion_os8_conv0": "_low_level_fusion_os8_conv0_bn_act",
+    "low_level_fusion_os8_conv1": "_low_level_fusion_os8_conv1_bn_act",
+    "low_level_projection_os4": "_low_level_projection_os4",
+    "low_level_fusion_os4_conv0": "_low_level_fusion_os4_conv0_bn_act",
+    "low_level_fusion_os4_conv1": "_low_level_fusion_os4_conv1_bn_act",
+    "conv_block_0": "conv_block_0",
+    "conv_block_1": "conv_block_1",
+    "final_conv": "final_conv",
+}
+
+
+def semantic_predictor(p, s) -> dict:
+    """The auxiliary semantic head (``SemanticPredictor``, training only)."""
+    a, sa = p["aspp"], s["aspp"]
+    sd = {}
+    for name in ("aspp_conv0", "aspp_conv1", "aspp_conv2", "aspp_conv3",
+                 "aspp_pool"):
+        sd.update(_prefix(f"_aspp._{name}", _convbn(a[name], sa[name])))
+    sd.update(_prefix("_aspp._proj_conv_bn_act",
+                      _convbn(a["proj_conv"], sa["proj_conv"])))
+    for jax_name, torch_name in _SEMANTIC_NAMES.items():
+        sd.update(_prefix(torch_name, _convbn(p[jax_name], s.get(jax_name, {}))))
+    return sd
+
+
 def transformer_decoder(params, stats) -> dict:
-    """``params/batch_stats["transformer_decoder"]``."""
+    """``params/batch_stats["transformer_decoder"]``, the semantic head's
+    too where the tree has it (a training build)."""
     sd = {"_cluster_centers.weight": np.asarray(params["cluster_centers"]).T}
+    if "auxiliary_semantic_predictor" in params:
+        sd.update(_prefix("_auxiliary_semantic_predictor", semantic_predictor(
+            params["auxiliary_semantic_predictor"],
+            stats["auxiliary_semantic_predictor"])))
     for name in ("class_embedding_projection", "mask_embedding_projection"):
         sd.update(_prefix(f"_{name}", _convbn(params[name], stats[name])))
     sd.update(_prefix("_predictor", kmax_predictor(params["predictor"],

@@ -25,6 +25,15 @@ Phases, in order; any failure exits non-zero before the last line:
   8b. R50 f32 - the ResNet-50 WC model of configs/vipseg/maxtron_wc_r50.yaml
                in f32, its dtype there: one 769x1345 clip, finite f32
                outputs, K2 and K3 launch counts, ms a clip, peak memory
+  8c. train r50 f32 - 3 steps of the port's ``train_step`` on the R50 WC
+               model of the same yaml in f32 at 713x713, T=2, on
+               ``tools/bench_train.py``'s batch: finite losses and
+               gradients, K2 and K3 launched per step as in 8b (their
+               autograd Functions), non-zero gradients of the MSDA and
+               trajectory projections, BatchNorm statistics and parameters
+               moved; K2's and K3's backward against autograd of their
+               plain versions at the first step's inputs; ms per step and
+               peak memory
   9. VIPSeg eval - the same model built on the fused-block route (K4):
                ``evaluate_vipseg`` on two synthetic 720x1280 VIPSeg-format
                videos (6 and 18 frames), VPQ@{1,2,4,6} and STQ in [0, 1],
@@ -710,63 +719,25 @@ def phase_k4_k5(torch, gen):
 
 
 def wc_convnext_large_config():
-    """The configuration ``bench.py`` builds by default (the repo's default
-    config with bench.py's overrides), as plain objects: ConvNeXt-L, the
-    within-clip module, the kMaX decoders, 124 VIPSeg classes, bf16, and
-    the default input normalisation and video test thresholds that
-    ``evaluate_vipseg`` reads."""
-    from types import SimpleNamespace as N
+    """The configuration ``bench.py`` builds by default, from the port's own
+    config (``tools/bench.py::bench_config``: the repo's default config with
+    bench.py's overrides): ConvNeXt-L, the within-clip module, the kMaX
+    decoders, 124 VIPSeg classes, bf16, and the default input normalisation
+    and video test thresholds that ``evaluate_vipseg`` reads."""
+    from axial_vs_tpu_torch.tools.bench import bench_config
 
-    return N(
-        input=N(num_clip_frames=T, image_size=[H, W],
-                pixel_mean=[123.675, 116.28, 103.53],
-                pixel_std=[58.395, 57.12, 57.375]),
-        model=N(
-            dtype="bfloat16", num_classes=124,
-            backbone=N(name="convnext_large",
-                       out_features=["res2", "res3", "res4", "res5"],
-                       convnext=N(depths=list(CONVNEXT_L_DEPTHS),
-                                  dims=[192, 384, 768, 1536],
-                                  layer_scale_init_value=1e-6,
-                                  use_grn=False)),
-            maxtron=N(wc=N(enable=True, nheads=8, dim_feedforward=1024,
-                           conv_dims=256, num_stages=2, spatial_layers=2,
-                           temporal_layers=4,
-                           temporal_attn_type="axial_trajectory",
-                           spatial_in_features=["res3", "res4", "res5"],
-                           temporal_in_features=["res4", "res5"],
-                           enc_n_points=4),
-                       test=N(pixel_confidence_threshold=0.3,
-                              class_threshold_thing=0.1,
-                              class_threshold_stuff=0.3,
-                              overlap_threshold=0.8, reorder_class_weight=1.0,
-                              reorder_mask_weight=1.0, mem_weight=0.0,
-                              cost_limit=0.5)),
-            kmax=N(pixel_dec=N(in_features=["res2", "res3", "res4", "res5"],
-                               dec_layers=[1, 5, 1, 1],
-                               dec_channels=[512, 256, 128, 64],
-                               layer_types=["axial", "axial", "bottleneck",
-                                            "bottleneck"]),
-                   trans_dec=N(dec_layers=[2, 2, 2],
-                               num_object_queries=128))))
+    return bench_config("convnext_large", (H, W), T)
 
 
 def wc_r50_config():
     """``configs/vipseg/maxtron_wc_r50.yaml`` over the repo's default
-    config, as plain objects: ResNet-50, the within-clip module of 2 stages,
-    the kMaX decoders, 124 VIPSeg classes, and f32, the default dtype (the
-    yaml sets none); its pixel mean and std and its thing threshold."""
-    from types import SimpleNamespace as N
+    config, from the port's own config: ResNet-50, the within-clip module
+    of 2 stages, the kMaX decoders, 124 VIPSeg classes, and f32, the
+    default dtype (the yaml sets none); its 769x1345 frames, 2-frame clips,
+    pixel mean and std and thresholds."""
+    from axial_vs_tpu_torch.config import load_config
 
-    cfg = wc_convnext_large_config()
-    cfg.model.dtype = "float32"
-    cfg.model.backbone = N(name="resnet50",
-                           out_features=["res2", "res3", "res4", "res5"],
-                           resnet=N(depth=50))
-    cfg.input.pixel_mean = [127.5, 127.5, 127.5]
-    cfg.input.pixel_std = [127.5, 127.5, 127.5]
-    cfg.model.maxtron.test.class_threshold_thing = 0.2
-    return cfg
+    return load_config("vipseg/maxtron_wc_r50.yaml")
 
 
 OUTPUT_SHAPES = {  # one clip of T frames at H x W
@@ -973,6 +944,198 @@ def phase_r50_f32(torch):
     return launches
 
 
+TRAIN_HW = (713, 713)  # tools/bench_train.py's crops
+TRAIN_STEPS = 3
+#: bound on max |Function - plain| / max |plain| for each input's gradient
+#: of K2's and K3's autograd Functions against autograd of their plain
+#: versions, on the card in f32, at the inputs of the first K2 and K3 call
+#: of the first training step. Both backward passes are the plain version's
+#: VJP on the same inputs; they differ only by the order of the gradient
+#: scatters' atomic f32 adds: measured 2.2e-7 (K2's value gradient) and 0
+#: for every other input on an NVIDIA H100 80GB HBM3 at 700 W.
+TRAIN_GRAD_BOUND = 1e-4
+#: the projections of the MSDA and trajectory layers whose weights must get
+#: non-zero gradients
+TRAIN_PROJECTIONS = ("self_attn.value_proj.weight",
+                     "self_attn.sampling_offsets.weight",
+                     "self_attn.attention_weights.weight", "attn.q.weight",
+                     "attn.k.weight", "attn.v.weight", "attn.proj_q.weight",
+                     "attn.proj_kv.weight")
+
+
+@contextlib.contextmanager
+def first_train_calls(box: dict):
+    """While active, the arguments of the first K2 and the first K3 call
+    of the WC module's layers are kept in ``box["K2"]`` and ``box["K3"]``
+    (detached copies on the card, with each tensor's ``requires_grad``),
+    and every call's device is counted in ``box["devices"]``."""
+    import torch
+
+    from axial_vs_tpu_torch.layers import msda_attention, trajectory_attention
+
+    sites = ((msda_attention, "ms_deform_attn", "K2"),
+             (trajectory_attention, "trajectory_attention_core", "K3"))
+    box["devices"] = []
+
+    def wrap(real, key):
+        def call(*args, **kwargs):
+            box["devices"].append(args[0].device.type)
+            if key not in box:
+                box[key] = tuple(
+                    _Leaf((a.detach().clone(), a.requires_grad))
+                    if torch.is_tensor(a) else a for a in args)
+            return real(*args, **kwargs)
+        return call
+
+    reals = [getattr(mod, name) for mod, name, _ in sites]
+    for (mod, name, key), real in zip(sites, reals):
+        setattr(mod, name, wrap(real, key))
+    try:
+        yield
+    finally:
+        for (mod, name, _), real in zip(sites, reals):
+            setattr(mod, name, real)
+
+
+class _Leaf(tuple):
+    """A captured tensor argument: (tensor, requires_grad)."""
+
+
+def _function_grads(torch, fn, args, seed):
+    """(output, gradients) of ``fn`` at ``args`` (tensors as ``_Leaf``)
+    against a seeded N(0, 1) cotangent, by autograd."""
+    leaves = [a[0].clone().requires_grad_(a[1]) if isinstance(a, _Leaf) else a
+              for a in args]
+    wanted = [t for t in leaves if torch.is_tensor(t) and t.requires_grad]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        ct = torch.randn(out.shape, device=out.device,
+                         generator=torch.Generator(device=out.device)
+                         .manual_seed(seed)).to(out.dtype)
+        return out.detach(), torch.autograd.grad(out, wanted, ct)
+
+
+def _check_train_backward(torch, captured):
+    """K2's and K3's autograd Functions against autograd of their plain
+    versions at the captured inputs: the forward (kernel against plain) and
+    each input's gradient, max |diff| / max |ref|."""
+    from axial_vs_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
+    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+                                             trajectory_attention_core_plain)
+
+    out = {}
+    for key, fn, plain in (
+            ("K2", ms_deform_attn, ms_deform_attn_plain),
+            ("K3", trajectory_attention_core, trajectory_attention_core_plain)):
+        got, g_got = _function_grads(torch, fn, captured[key], 7)
+        want, g_want = _function_grads(torch, plain, captured[key], 7)
+        rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(g_got, g_want)]
+        out[key] = {"forward_max_abs_err": (got - want).abs().max().item(),
+                    "grad_max_rel_err": rel, "bound": TRAIN_GRAD_BOUND}
+        log(f"train backward {key}: forward |kernel - plain| "
+            f"{out[key]['forward_max_abs_err']:.3g} (bound "
+            f"{f32_bound(want):.3g}); gradients of its {len(rel)} inputs, "
+            f"max |Function - plain| / max |plain| "
+            + ", ".join(f"{r:.3g}" for r in rel)
+            + f"; bound {TRAIN_GRAD_BOUND}")
+        if not (out[key]["forward_max_abs_err"] <= f32_bound(want)
+                and all(r <= TRAIN_GRAD_BOUND for r in rel)):
+            raise AssertionError(f"train backward {key}: {out[key]}")
+    return out
+
+
+def phase_train_r50_f32(torch, card: str):
+    """``TRAIN_STEPS`` steps of the port's ``train_step`` on the R50 WC model
+    of ``configs/vipseg/maxtron_wc_r50.yaml`` in f32 at full width and
+    depth, on ``tools/bench_train.py``'s batch (713x713, T = 2, one clip,
+    24 GT segments). Checks each step's losses, launches and gradients, the
+    BatchNorm statistics and the parameters after the first step, and K2's
+    and K3's backward at the first step's inputs. Returns the launch counts
+    of the steps and the backward check."""
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.tools import bench_train
+
+    dev = torch.device("cuda")
+    full_f32(torch)
+    t0 = time.perf_counter()
+    cfg = bench_train.train_config(TRAIN_HW)
+    parts = bench_train.build(cfg, dev)
+    model = parts[0]
+    batch = bench_train.synthetic_batch(cfg.model.num_classes, TRAIN_HW, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train r50 f32: built the training model, {n_params} parameters, "
+        f"{time.perf_counter() - t0:.2f} s")
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    torch.cuda.reset_peak_memory_stats()
+    totals = {k: 0 for k in counted_kernels()}
+    captured, ms = {}, []
+    for step in range(TRAIN_STEPS):
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with first_train_calls(captured) if step == 0 else contextlib.nullcontext():
+            start.record()
+            losses = train_step(*parts, batch, gen)
+            end.record()
+            end.synchronize()
+        ms.append(start.elapsed_time(end))
+        launches = read_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        want = expect(K2=2, K3=4 * K3_WC_CALLS)
+        grads = [p.grad for p in model.parameters()]
+        finite = bool(torch.stack([g.isfinite().all() for g in grads]).all())
+        flat = {n: p.grad.abs().max().item() for n, p in model.named_parameters()
+                if n.endswith(TRAIN_PROJECTIONS)}
+        log(f"train r50 f32 step {step}: total_loss {losses['total_loss']:.6g}"
+            f", {len(losses) - 1} losses; launches {launches} (want {want}); "
+            f"gradients finite {finite}; {len(flat)} MSDA and trajectory "
+            f"projection weights, min max|grad| {min(flat.values()):.3g}; "
+            f"{ms[-1]:.2f} ms")
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train step {step}: losses {losses}")
+        # 2 MSDA layers x 3 projections; 2 stages x 2 temporal layers x 2
+        # axes x 5 trajectory projections
+        if launches != want or not finite or len(flat) != 2 * 3 + 8 * 5:
+            raise AssertionError(f"train step {step}: launches {launches}, "
+                                 f"finite {finite}, {len(flat)} projections")
+        if not min(flat.values()) > 0:
+            raise AssertionError(f"train step {step}: zero projection grads "
+                                 f"{[n for n, v in flat.items() if v == 0]}")
+        if step == 0:
+            if set(captured["devices"]) != {"cuda"}:  # never on the CPU
+                raise AssertionError(f"K2/K3 called on {captured['devices']}")
+            moved = [n for n, b in model.named_buffers()
+                     if n in stats0 and not torch.equal(b, stats0[n])]
+            changed = [n for n, p in model.named_parameters()
+                       if not torch.equal(p, params0[n])]
+            stuck = [n for n in flat if n not in changed]
+            log(f"train r50 f32 step 0: {len(moved)} of {len(stats0)} "
+                f"BatchNorm statistics moved; {len(changed)} of "
+                f"{len(params0)} parameter tensors changed (all of the "
+                f"projections: {not stuck})")
+            if len(moved) != len(stats0) or stuck or 2 * len(changed) < len(params0):
+                raise AssertionError("train step 0: statistics or parameters "
+                                     "did not move")
+            del params0, stats0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del parts, model, batch
+    torch.cuda.empty_cache()
+    backward = _check_train_backward(torch, captured)
+    del captured
+    torch.cuda.empty_cache()
+    med = statistics.median(ms)
+    log(f"train r50 f32 ({card}): {TRAIN_STEPS} steps at "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, T={T}, 1 clip, 24 GT segments: ms per "
+        f"step {', '.join(f'{t:.2f}' for t in ms)} (median {med:.2f}, "
+        f"{1e3 / med:.4f} steps/s, CUDA events, eager, first step included); "
+        f"peak memory {peak:.3f} GiB; launches {totals}")
+    return totals, backward
+
+
 EVAL_HW = (720, 1280)      # VIPSeg's common frame size
 EVAL_LENGTHS = (6, 18)     # frames per video; 18 > 16 takes the windowed path
 EVAL_CLIPS = 3 + 8 + 1     # clips of 2: 6 frames; windows of 16 and 2 frames
@@ -1070,8 +1233,6 @@ def phase_eval(torch, root: str):
     """``evaluate_vipseg`` over the two synthetic videos with the full-size
     model on the fused-block route. Returns the model and the launch
     counts."""
-    from types import SimpleNamespace as N
-
     from PIL import Image
 
     from axial_vs_tpu_torch.data.vipseg import (register_vipseg_video,
@@ -1086,7 +1247,7 @@ def phase_eval(torch, root: str):
     name = "chip_smoke_vipseg_val"
     set_panoptic_metadata(register_vipseg_video(name, *paths), categories)
     cfg = wc_convnext_large_config()
-    cfg.datasets = N(test=[name])
+    cfg.datasets.test = [name]
     cfg.output_dir = os.path.join(root, "eval_out")
     log(f"eval: wrote {len(EVAL_LENGTHS)} videos of {EVAL_LENGTHS} frames at "
         f"{EVAL_HW[0]}x{EVAL_HW[1]}, {time.perf_counter() - t0:.2f} s")
@@ -1210,22 +1371,17 @@ def phase_mlp_route(torch):
 
 def tube_link_r50_config():
     """The configuration ``tools/bench_tube_link.py`` builds (the repo's
-    default config with its overrides), as plain objects: ResNet-50, the
-    fused MSDA + axial-trajectory pixel decoder, the Mask2Former tube head
-    (100 queries, 9 layers, 256 channels), 40 YTVIS-19 classes, 5-frame
-    tubes, bf16."""
-    from types import SimpleNamespace as N
+    default config with its overrides, ``:38-44``), from the port's own
+    config: ResNet-50, the fused MSDA + axial-trajectory pixel decoder, the
+    Mask2Former tube head (100 queries, 9 layers, 256 channels), 40 YTVIS-19
+    classes, 5-frame tubes, bf16."""
+    from axial_vs_tpu_torch.config import load_config
 
-    return N(
-        input=N(num_clip_frames=TL_T),
-        model=N(
-            meta_architecture="TubeLinkVIS", dtype="bfloat16", num_classes=40,
-            backbone=N(name="resnet50",
-                       out_features=["res2", "res3", "res4", "res5"],
-                       resnet=N(depth=50)),
-            tube_link=N(num_queries=100, feat_channels=256, out_channels=256,
-                        num_decoder_layers=9, clip_len=TL_T, overlap=0,
-                        use_temporal_attn=True, test_topk=30)))
+    return load_config(opts=[
+        "model.meta_architecture", "TubeLinkVIS",
+        "model.backbone.name", "resnet50", "model.num_classes", 40,
+        "model.dtype", "bfloat16", "model.tube_link.clip_len", TL_T,
+        "input.num_clip_frames", TL_T])
 
 
 TL_MASK_HW = (90, 160)  # res2 of 360x640
@@ -1965,6 +2121,8 @@ def main() -> int:
     phase_reference(torch, [("dwln", model)], f32=True)
     del model
     paths["r50_f32_1_clip"] = phase_r50_f32(torch)
+    paths["train_r50_f32_3_steps"], train_backward = phase_train_r50_f32(
+        torch, card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         block_model, paths["vipseg_eval_2_videos"] = phase_eval(torch, root)
@@ -2024,7 +2182,8 @@ def main() -> int:
             "source": f"axial_vs_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **results[key]})
+            **results[key], **({"train_backward": train_backward[key]}
+                               if key in train_backward else {})})
     log("msda bench, ms per layer: " + ", ".join(
         f"{k} {v:.4f}" for k, v in variant_ms.items()))
     log(card)  # as nvidia-smi gives it: name, power limit

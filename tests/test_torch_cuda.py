@@ -408,8 +408,10 @@ def test_trajectory_attention_core_kernel_f32_repeatable(gen, full_f32):
 
 
 def test_kernels_refuse_grad(gen):
-    """K1-K8 raise on a CUDA input that requires grad while grad mode is on
-    (they have no backward), and launch under inference_mode."""
+    """K1 and K4-K8 raise on a CUDA input that requires grad while grad
+    mode is on (they have no backward), and launch under inference_mode.
+    K2 and K3 launch under grad too, through their autograd Functions, and
+    return an output with a ``grad_fn``."""
     from axial_vs_tpu_torch.ops import convnext_cuda as cc
     from axial_vs_tpu_torch.ops import msda_reduce as mr
     from axial_vs_tpu_torch.ops.msda import level_start_index, ms_deform_attn
@@ -445,13 +447,114 @@ def test_kernels_refuse_grad(gen):
     for key, (fn, args) in calls.items():
         leaf = inputs[key].clone().requires_grad_(True)
         before = fn.launches
-        with pytest.raises(RuntimeError, match="no backward"):
-            fn(*args(leaf))
-        assert fn.launches == before, key
+        if key in ("K2", "K3"):
+            out = fn(*args(leaf))
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1 and out.grad_fn is not None, key
+            before += 1
+        else:
+            with pytest.raises(RuntimeError, match="no backward"):
+                fn(*args(leaf))
+            assert fn.launches == before, key
         with torch.inference_mode():
             out = fn(*args(leaf))
         torch.cuda.synchronize()
         assert fn.launches == before + 1 and out.grad_fn is None, key
+
+
+def _autograd_check(fn, plain, args, seed):
+    """``fn`` (an autograd Function on the card) against autograd of its
+    plain version at the same inputs: launches once, forward within the
+    kernel's bound, each gradient in its input's dtype and within ``_bound``
+    of the reference gradient (both sides are the plain version's VJP; the
+    gradient scatters' atomic adds may sum in another order). ``args``:
+    tensors are leaves that may require grad."""
+    def grads(f):
+        leaves = [a.detach().clone().requires_grad_(a.requires_grad)
+                  if torch.is_tensor(a) else a for a in args]
+        out = f(*leaves)
+        ct = torch.randn(out.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(seed)).to(out.dtype)
+        wanted = [t for t in leaves if torch.is_tensor(t) and t.requires_grad]
+        return out, wanted, torch.autograd.grad(out, wanted, ct)
+
+    before = fn.launches
+    out, leaves, got = grads(fn)
+    assert fn.launches == before + 1
+    want_out, _, want = grads(plain)
+    torch.cuda.synchronize()
+    assert (out.float() - want_out.float()).abs().max().item() <= _bound(
+        want_out)
+    for leaf, g, w in zip(leaves, got, want):
+        assert g.dtype == leaf.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= _bound(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ms_deform_attn_autograd(gen, full_f32, dtype):
+    """K2's autograd Function at the WC shape on model-like inputs: the
+    gradients of value, locations (f32) and weights against autograd of
+    the plain version."""
+    from axial_vs_tpu_torch.ops.msda import (
+        level_start_index, ms_deform_attn, ms_deform_attn_plain)
+
+    value, loc, w = msda_model_inputs(gen, 2, WC_LEVELS, 8, 32, 4, dtype)
+    starts = level_start_index(WC_LEVELS)
+    args = [value.requires_grad_(), WC_LEVELS, starts, loc.requires_grad_(),
+            w.requires_grad_()]
+    _autograd_check(ms_deform_attn, ms_deform_attn_plain, args, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_trajectory_attention_core_autograd(gen, full_f32, dtype):
+    """K3's autograd Function at the widest WC row: the gradients of q, k,
+    v and the stage-2 weights against autograd of the plain version, each
+    in its own dtype (in bf16 the matrices are bf16 and the biases f32
+    master weights)."""
+    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+                                             trajectory_attention_core_plain)
+
+    args = [t.requires_grad_() for t in traj_inputs(gen, 48, 2, 84,
+                                                     dtype=dtype)]
+    assert args[4].dtype == args[6].dtype == torch.float32
+    _autograd_check(trajectory_attention_core, trajectory_attention_core_plain,
+                    [*args, 2, 8], 2)
+
+
+def test_train_step_on_card(gen, full_f32):
+    """One ``train_step`` of a narrow WC training model (R18, 64x64 frames,
+    T = 2, the WC module at its 256 channels and 8 heads, which K3 needs)
+    on the card: finite losses and gradients, K2 and K3 launched once per
+    call of their layers, non-zero gradients of the MSDA and trajectory
+    projections."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.ops.msda import ms_deform_attn
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+    from axial_vs_tpu_torch.tools import bench_train
+
+    cfg = load_config("vipseg/maxtron_wc_r50.yaml", [
+        "model.backbone.name", "resnet18", "model.backbone.resnet.depth", 18,
+        "model.num_classes", 7, "input.image_size", [64, 64],
+        "model.maxtron.wc.dim_feedforward", 96,
+        "model.kmax.pixel_dec.dec_layers", [1, 1, 1, 1],
+        "model.kmax.pixel_dec.dec_channels", [32, 16, 16, 16],
+        "model.kmax.trans_dec.dec_layers", [1, 1, 1],
+        "model.kmax.trans_dec.num_object_queries", 16])
+    dev = torch.device("cuda")
+    parts = bench_train.build(cfg, dev)
+    batch = bench_train.synthetic_batch(7, (64, 64), dev)
+    k2, k3 = ms_deform_attn.launches, trajectory_attention_core.launches
+    losses = train_step(*parts, batch, torch.Generator(device=dev).manual_seed(1))
+    assert all(math.isfinite(v) for v in losses.values()) and len(losses) == 18
+    # 2 stages: 1 MSDA layer, 2 temporal layers x 2 axes x 2 levels each
+    assert ms_deform_attn.launches - k2 == 2
+    assert trajectory_attention_core.launches - k3 == 16
+    for n, p in parts[0].named_parameters():
+        assert torch.isfinite(p.grad).all(), n
+        if n.endswith(("value_proj.weight", "sampling_offsets.weight",
+                       "attn.q.weight", "attn.proj_kv.weight")):
+            assert p.grad.abs().max() > 0, n
 
 
 #: (R, N, P, D) of the MSDA reduces: the WC bench shape (R = 2*8*21168

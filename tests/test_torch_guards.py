@@ -103,7 +103,11 @@ def test_port_imports_without_jax():
                    "models.postprocess", "models.video_inference",
                    "ops.msda_reduce", "tools.bench_msda", "tools.timing",
                    "tools.bench_pallas_bw", "tools.exp_vmem_gather",
-                   "tools.exp_dwconv_variants", "tools.bench_overlap"):
+                   "tools.exp_dwconv_variants", "tools.bench_overlap",
+                   "config", "config.node", "config.defaults",
+                   "losses.matcher", "losses.criterion", "ops.hungarian",
+                   "engine.lr_schedule", "engine.optim", "engine.train_step",
+                   "tools.bench", "tools.bench_train"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
@@ -262,6 +266,39 @@ def test_msda_bench_defaults_to_the_card():
             assert r["max_abs_diff"] <= 0.05, (name, r)
 
 
+@pytest.mark.parametrize("name", ["bench", "bench_train"])
+def test_bench_tool_defaults_to_the_card(name):
+    """The inference and training benches run on the card unless asked for
+    the CPU: ``run`` and ``main`` default to ``cuda`` (and fail here, where
+    there is none); on request they run on the CPU at a small size (the
+    full-width R50 models at 64x64 frames), print-ready, with no kernel
+    launched and nothing built."""
+    import importlib
+
+    from axial_vs_tpu_torch.ops import native
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    mod = importlib.import_module(f"axial_vs_tpu_torch.tools.{name}")
+    assert inspect.signature(mod.run).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(["--iters", "0"])
+    kernels = (ms_deform_attn, trajectory_attention_core)
+    before = [k.launches for k in kernels]
+    if name == "bench":
+        res = mod.run(backbone="resnet50", image_size=(64, 64), iters=2,
+                      device="cpu")
+        assert res["unit"] == "frames/sec" and res["dtype"] == "bfloat16"
+        assert res["ms_per_forward_min"] <= res["ms_per_forward_median"]
+    else:
+        res = mod.run(image_size=(64, 64), iters=1, device="cpu")
+        assert res["unit"] == "steps/sec" and res["dtype"] == "float32"
+        assert res["matching"] == "exact" and res["gt_segments"] == 24
+        assert np.isfinite([res["loss_first"], res["loss_last"]]).all()
+    assert res["value"] > 0 and res["device"] == "cpu"
+    assert [k.launches for k in kernels] == before and native._lib is None
+
+
 #: each probe tool's ``run`` arguments for a small CPU run
 PROBE_RUNS = {
     "bench_pallas_bw": dict(rows=64),
@@ -413,28 +450,28 @@ def test_bf16_segmenter_runs_on_cpu(rng):
         assert torch.isfinite(out[k].float()).all(), k
 
 
-def _leaves(ns, prefix=""):
-    from types import SimpleNamespace
-
-    for k, v in vars(ns).items():
-        if isinstance(v, SimpleNamespace):
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
             yield from _leaves(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
 
 
 def test_smoke_config_is_the_bench_config():
-    """chip_smoke.py builds bench.py's default configuration from plain
-    objects (it imports nothing of the JAX package); every value it sets is
-    the one the repo's config tree gives with bench.py's overrides, the
-    evaluation's fields (``input.pixel_mean/std``, ``model.maxtron.test.*``)
-    included."""
+    """chip_smoke.py builds bench.py's default configuration from the
+    port's own config (it imports nothing of the JAX package); every value
+    of it is the one the repo's config tree gives with bench.py's
+    overrides, the evaluation's fields (``input.pixel_mean/std``,
+    ``model.maxtron.test.*``) included."""
     from axial_vs_tpu.config import get_default_config
 
     cfg = get_default_config()  # bench.py:93-109, the ConvNeXt-L default
     cfg.model.backbone.name = "convnext_large"
     cfg.model.backbone.convnext.depths = [3, 3, 27, 3]
     cfg.model.backbone.convnext.dims = [192, 384, 768, 1536]
+    cfg.model.backbone.convnext.drop_path_rate = 0.0
+    cfg.model.backbone.convnext.use_scan = True
     cfg.model.num_classes = 124
     cfg.model.dtype = "bfloat16"
     cfg.input.image_size = [769, 1345]
@@ -446,7 +483,7 @@ def test_smoke_config_is_the_bench_config():
 def test_smoke_r50_config_is_the_yaml_config():
     """chip_smoke.py's R50 f32 configuration is the repo's default config
     with ``configs/vipseg/maxtron_wc_r50.yaml`` merged in, at the WC
-    bench's frame size and clip length: every value it sets, f32 (the
+    bench's frame size and clip length: every value of it, f32 (the
     default dtype, which the yaml leaves) included."""
     from axial_vs_tpu.config import get_default_config
 

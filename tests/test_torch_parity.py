@@ -273,12 +273,12 @@ def test_pixel_decoder(rng):
     jm = J(spatial_shape=(65, 97), **kw)
     jfeats = {k: jnp.asarray(x) for k, x in feats.items()}
     v = jax_init(jm, jfeats, train=False)
-    pano, _, ms = jax_apply(jm, v, jfeats, train=False)
+    pano, sem, ms = jax_apply(jm, v, jfeats, train=False)
     got = port(KMaXPixelDecoder(chans, **kw), convert.pixel_decoder(
         v["params"], v["batch_stats"]))({k: t(x) for k, x in feats.items()})
     close(got[0], pano, TOL_MODULE)
-    assert len(got[1]) == len(ms) == 3
-    for g, w in zip(got[1], ms):
+    assert len(got[1]) == len(sem) == len(got[2]) == len(ms) == 3
+    for g, w in zip(got[1] + got[2], list(sem) + list(ms)):
         close(g, w, TOL_MODULE)
 
 
