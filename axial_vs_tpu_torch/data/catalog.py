@@ -19,6 +19,12 @@ class _DatasetCatalog:
     def get(self, name: str):
         return self._registry[name]()
 
+    def list(self):
+        return sorted(self._registry)
+
+    def __contains__(self, name):
+        return name in self._registry
+
 
 class _Metadata(dict):
     """A dict whose keys read and write as attributes."""

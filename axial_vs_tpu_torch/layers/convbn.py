@@ -120,6 +120,11 @@ def _keep_mask(x, rate: float, shape, generator):
     return torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
 
 
+def drop_path_mask(x, rate: float, generator):
+    """DropPath's per-sample keep mask for ``x``, (N, 1, ...) bool."""
+    return _keep_mask(x, rate, (x.shape[0],) + (1,) * (x.ndim - 1), generator)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth: in ``train()`` each sample of the
     leading axis is kept with probability 1 - rate and scaled by
@@ -132,10 +137,8 @@ class DropPath(nn.Module):
     def forward(self, x, generator=None):
         if not self.training or self.rate == 0.0:
             return x
-        keep = 1.0 - self.rate
-        mask = _keep_mask(x, self.rate, (x.shape[0],) + (1,) * (x.ndim - 1),
-                          generator)
-        return (x / keep) * mask.to(x.dtype)
+        mask = drop_path_mask(x, self.rate, generator)
+        return (x / (1.0 - self.rate)) * mask.to(x.dtype)
 
 
 class Dropout(nn.Module):

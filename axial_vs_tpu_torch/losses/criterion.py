@@ -188,13 +188,15 @@ def process_gt(outputs, targets, match, num_classes, eos_coef=1e-5):
 
 class SetCriterion:
     """The PQ losses of one step; ``weights`` maps a loss name to its
-    weight in ``weighted_total``."""
+    weight in ``weighted_total``; ``exact_matching`` picks the matcher's
+    solver (scipy on the host, or the auction on the device)."""
 
     def __init__(self, num_classes, weights=None, eos_coef=1e-5,
                  share_final_matching=True, pixel_insdis_temperature=1.5,
                  pixel_insdis_sample_k=4096, aux_semantic_temperature=2.0,
                  aux_semantic_sample_k=4096, masking_void_pixel=True,
-                 losses=("labels", "masks", "pixels", "aux_semantic")):
+                 losses=("labels", "masks", "pixels", "aux_semantic"),
+                 exact_matching=True):
         self.num_classes = num_classes
         self.weights = weights or {}
         self.eos_coef = eos_coef
@@ -205,6 +207,7 @@ class SetCriterion:
         self.aux_semantic_sample_k = aux_semantic_sample_k
         self.masking_void_pixel = masking_void_pixel
         self.losses = losses
+        self.exact_matching = exact_matching
 
     def _losses_for(self, generator, outputs, processed, with_semantic):
         out = {}
@@ -258,13 +261,15 @@ class SetCriterion:
                 targets["semantic_masks"] = sem[
                     (slice(None),) * (sem.ndim - 2)
                     + (slice(0, pr_sp[-2]), slice(0, pr_sp[-1]))]
-        match = hungarian_match(outputs, targets, self.masking_void_pixel)
+        match = hungarian_match(outputs, targets, self.masking_void_pixel,
+                                self.exact_matching)
         processed = process_gt(outputs, targets, match, self.num_classes,
                                self.eos_coef)
         losses = self._losses_for(generator, outputs, processed, True)
         for i, aux in enumerate(outputs.get("aux_outputs", [])):
             if not self.share_final_matching:
-                match = hungarian_match(aux, targets, self.masking_void_pixel)
+                match = hungarian_match(aux, targets, self.masking_void_pixel,
+                                        self.exact_matching)
             processed_aux = process_gt(aux, targets, match, self.num_classes,
                                        self.eos_coef)
             # the GT semantic is used on the final output only

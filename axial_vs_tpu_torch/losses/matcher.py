@@ -4,8 +4,9 @@
 cost = -(mask dice-similarity x class probability), with void pixels masked
 out of the prediction before the dice; the matched dice and class
 probability are returned as the PQ-loss weights. Everything runs under
-``torch.no_grad()`` in f32; only the assignment itself goes to the host
-(``ops/hungarian.py``).
+``torch.no_grad()`` in f32; the assignment goes to the host with
+``exact=True`` (scipy) or stays on the device with ``exact=False`` (the
+auction; ``ops/hungarian.py``).
 """
 from __future__ import annotations
 
@@ -52,10 +53,10 @@ def flatten_masks(pred_masks, n: int):
 
 
 @torch.no_grad()
-def hungarian_match(outputs, targets, masking_void_pixel=True):
+def hungarian_match(outputs, targets, masking_void_pixel=True, exact=True):
     """outputs: "pred_logits" (B, N, C+1), "pred_masks" (B, [T,] H, W, N)
     or (B, N, S); targets: "labels" (B, M), "masks" (B, M, [T,] H, W)
-    binary, "valid" (B, M) bool."""
+    binary, "valid" (B, M) bool. ``exact`` picks the assignment's solver."""
     pred_logits = outputs["pred_logits"]
     b, n = pred_logits.shape[:2]
     pred_masks = flatten_masks(outputs["pred_masks"], n)
@@ -67,7 +68,7 @@ def hungarian_match(outputs, targets, masking_void_pixel=True):
                                        masking_void_pixel)
     cost = torch.where(valid[:, None, :], -(mask_sim * class_sim),
                        torch.zeros_like(mask_sim))
-    assignment = hungarian_assign(cost, valid)
+    assignment = hungarian_assign(cost, valid, exact=exact)
     safe = assignment.clamp_min(0)
     zero = torch.zeros((), device=cost.device)
     matched_dice = torch.where(valid, _gather_matched(mask_sim, safe), zero)

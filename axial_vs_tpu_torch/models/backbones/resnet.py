@@ -105,7 +105,8 @@ class ResNet(nn.Module):
                 in_ch = out_ch
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """``generator`` is unused: ResNet has no stochastic layer."""
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1)
         y = y.permute(0, 2, 3, 1).contiguous()

@@ -47,7 +47,7 @@ class KMaXSegmenter(nn.Module):
         ``train()``."""
         head = self.sem_seg_head
         x = images if self.dtype is None else images.to(self.dtype)
-        features = head.wc_module(self.backbone(x), generator)
+        features = head.wc_module(self.backbone(x, generator), generator)
         pano, semantic, multi_scale = head.pixel_decoder(features, generator)
         return head.predictor(multi_scale, pano, semantic, dtype=self.dtype,
                               generator=generator)
@@ -57,7 +57,9 @@ def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
     """(backbone, {res*: channels}) for a ``resnet*`` or ``convnext*``
     backbone config. ``block_kernel`` is the ConvNeXt blocks' route at
     inference (``"dwln"``, ``"mlp"`` or ``"block"``, see
-    ``backbones/convnext.py``); a ResNet has no such blocks."""
+    ``backbones/convnext.py``); a ResNet has no such blocks. A ConvNeXt
+    takes the config's ``drop_path_rate`` and ``backbone.remat`` (both act
+    in ``train()`` only)."""
     name = cfg.model.backbone.name
     out_features = tuple(cfg.model.backbone.out_features)
     if name.startswith("resnet"):
@@ -72,6 +74,8 @@ def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
     backbone = ConvNeXt(depths=tuple(c.depths), dims=tuple(c.dims),
                         layer_scale_init_value=c.layer_scale_init_value,
                         out_features=out_features, block_kernel=block_kernel,
+                        drop_path_rate=c.drop_path_rate,
+                        remat=bool(cfg.model.backbone.get("remat", False)),
                         device=device)
     channels = {f"res{i + 2}": d for i, d in enumerate(c.dims)}
     return backbone, channels
@@ -80,9 +84,10 @@ def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
 def materialize(model: nn.Module, device, generator, dtype,
                 train: bool = False):
     """Allocate a model built on the meta device on ``device``, draw every
-    parameter from ``generator`` and, in bf16, keep the matrices bf16 at
-    rest and the vectors f32. Returns it in eval mode, or with ``train``
-    (f32 only) in train mode."""
+    parameter from ``generator`` and, for inference in bf16, keep the
+    matrices bf16 at rest and the vectors f32. Returns it in eval mode, or
+    with ``train`` in train mode with every parameter f32 (the master
+    weights; in bf16 the layers cast them at use)."""
     if generator is None:
         raise TypeError("pass a torch.Generator on the model's device: the "
                         "random weights are drawn from it")
@@ -111,24 +116,20 @@ def build_segmenter(cfg, device=torch.device("cuda"),
 
     ``train=True`` returns the model in ``train()`` with every parameter
     f32, and adds the auxiliary semantic head when
-    ``kmax.aux_semantic_weight > 0``, as the JAX builder does. Training
-    runs f32 only, and a ConvNeXt backbone only without drop path."""
+    ``kmax.aux_semantic_weight > 0``, as the JAX builder does. In bf16 the
+    forward computes in bf16 from those f32 master weights (each layer
+    casts its weights at use) with the JAX package's f32 islands
+    (softmaxes, norms' statistics, the criterion); a ConvNeXt backbone
+    takes its drop path and ``remat`` from the config."""
     w = cfg.model.maxtron.wc
     if not w.enable:
         raise NotImplementedError("only the within-clip model is ported")
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
     kmax = cfg.model.kmax
     aux_semantic = train and kmax.aux_semantic_weight > 0
-    if train:
-        if dtype is not None:
-            raise NotImplementedError("bf16 training is not ported yet")
-        if (cfg.model.backbone.name.startswith("convnext")
-                and cfg.model.backbone.convnext.drop_path_rate > 0):
-            raise NotImplementedError("ConvNeXt training with drop path is "
-                                      "not ported yet")
-        if aux_semantic and not kmax.use_aux_semantic_decoder:
-            raise NotImplementedError("the semantic head without its "
-                                      "decoder is not ported")
+    if aux_semantic and not kmax.use_aux_semantic_decoder:
+        raise NotImplementedError("the semantic head without its decoder is "
+                                  "not ported")
     t = num_frames or cfg.input.num_clip_frames
     meta = torch.device("meta")
     backbone, channels = build_backbone(cfg, device=meta,

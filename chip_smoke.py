@@ -34,6 +34,24 @@ Phases, in order; any failure exits non-zero before the last line:
                moved; K2's and K3's backward against autograd of their
                plain versions at the first step's inputs; ms per step and
                peak memory
+  8d. train convnext_large bf16 - 3 steps of ``train_step`` on the
+               ConvNeXt-L WC model of configs/vipseg/
+               maxtron_wc_convnext_large.yaml at full depth and width: bf16
+               compute on f32 master weights, drop path 0.4, remat, the
+               device auction, on the same batch: finite losses, K2 and K3
+               launched in bf16 per step, every parameter and gradient f32,
+               non-zero gradients where every step reaches, BatchNorm
+               statistics moved; K2's and K3's bf16 forward and backward
+               against their plain versions at the first step's inputs; ms
+               per step, peak memory, and one profiled step (the parts and
+               the auction's device time)
+  8e. trainer - the port's ``train_net_video`` entry (the function) on the
+               R50 WC yaml in bf16 at 321x321 over two synthetic 720x1280
+               videos registered by ``data/builtin.py``, 2 worker loader
+               processes: 2 steps with a checkpoint, a fresh Trainer's
+               restored state equal to the saved one, ``--resume`` to step
+               4 with the eval hook (``evaluate_vipseg`` once), the loaders
+               shut down within their timeout, and the launch counts
   9. VIPSeg eval - the same model built on the fused-block route (K4):
                ``evaluate_vipseg`` on two synthetic 720x1280 VIPSeg-format
                videos (6 and 18 frames), VPQ@{1,2,4,6} and STQ in [0, 1],
@@ -954,6 +972,9 @@ TRAIN_STEPS = 3
 #: scatters' atomic f32 adds: measured 2.2e-7 (K2's value gradient) and 0
 #: for every other input on an NVIDIA H100 80GB HBM3 at 700 W.
 TRAIN_GRAD_BOUND = 1e-4
+#: the same bound in bf16, where the plain VJP's scatters add bf16 values
+#: atomically: 8 bf16 ulps of the gradient's max
+TRAIN_GRAD_BOUND_BF16 = 8 * 2.0 ** -8
 #: the projections of the MSDA and trajectory layers whose weights must get
 #: non-zero gradients
 TRAIN_PROJECTIONS = ("self_attn.value_proj.weight",
@@ -968,18 +989,20 @@ def first_train_calls(box: dict):
     """While active, the arguments of the first K2 and the first K3 call
     of the WC module's layers are kept in ``box["K2"]`` and ``box["K3"]``
     (detached copies on the card, with each tensor's ``requires_grad``),
-    and every call's device is counted in ``box["devices"]``."""
+    and every call's device and (kernel, first input's dtype) are kept in
+    ``box["devices"]`` and ``box["dtypes"]``."""
     import torch
 
     from axial_vs_tpu_torch.layers import msda_attention, trajectory_attention
 
     sites = ((msda_attention, "ms_deform_attn", "K2"),
              (trajectory_attention, "trajectory_attention_core", "K3"))
-    box["devices"] = []
+    box["devices"], box["dtypes"] = [], []
 
     def wrap(real, key):
         def call(*args, **kwargs):
             box["devices"].append(args[0].device.type)
+            box["dtypes"].append((key, str(args[0].dtype)[6:]))
             if key not in box:
                 box[key] = tuple(
                     _Leaf((a.detach().clone(), a.requires_grad))
@@ -1017,30 +1040,44 @@ def _function_grads(torch, fn, args, seed):
 
 def _check_train_backward(torch, captured):
     """K2's and K3's autograd Functions against autograd of their plain
-    versions at the captured inputs: the forward (kernel against plain) and
-    each input's gradient, max |diff| / max |ref|."""
+    versions at the captured inputs: the forward (kernel against plain;
+    f32: ``F32_REL_BOUND`` of max|out|, bf16: 2 bf16 ulp for K2 and
+    ``TRAJ_ULPS`` for K3) and each input's gradient, max |diff| / max |ref|
+    (``TRAIN_GRAD_BOUND`` in f32, ``TRAIN_GRAD_BOUND_BF16`` in bf16)."""
     from axial_vs_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
-    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+    from axial_vs_tpu_torch.ops.traj import (TRAJ_ULPS,
+                                             trajectory_attention_core,
                                              trajectory_attention_core_plain)
 
     out = {}
-    for key, fn, plain in (
-            ("K2", ms_deform_attn, ms_deform_attn_plain),
-            ("K3", trajectory_attention_core, trajectory_attention_core_plain)):
+    for key, fn, plain, ulps in (
+            ("K2", ms_deform_attn, ms_deform_attn_plain, 2),
+            ("K3", trajectory_attention_core, trajectory_attention_core_plain,
+             TRAJ_ULPS)):
         got, g_got = _function_grads(torch, fn, captured[key], 7)
         want, g_want = _function_grads(torch, plain, captured[key], 7)
-        rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        bf16 = got.dtype == torch.bfloat16
+        fwd_bound = (ulps * bf16_ulp(want.float().abs().max().item()) if bf16
+                     else f32_bound(want))
+        grad_bound = TRAIN_GRAD_BOUND_BF16 if bf16 else TRAIN_GRAD_BOUND
+        rel = [((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
                for a, b in zip(g_got, g_want)]
-        out[key] = {"forward_max_abs_err": (got - want).abs().max().item(),
-                    "grad_max_rel_err": rel, "bound": TRAIN_GRAD_BOUND}
-        log(f"train backward {key}: forward |kernel - plain| "
-            f"{out[key]['forward_max_abs_err']:.3g} (bound "
-            f"{f32_bound(want):.3g}); gradients of its {len(rel)} inputs, "
-            f"max |Function - plain| / max |plain| "
-            + ", ".join(f"{r:.3g}" for r in rel)
-            + f"; bound {TRAIN_GRAD_BOUND}")
-        if not (out[key]["forward_max_abs_err"] <= f32_bound(want)
-                and all(r <= TRAIN_GRAD_BOUND for r in rel)):
+        out[key] = {"dtype": str(got.dtype)[6:],
+                    "forward_max_abs_err":
+                        (got.float() - want.float()).abs().max().item(),
+                    "forward_bound": fwd_bound, "grad_max_rel_err": rel,
+                    "bound": grad_bound,
+                    "grad_dtypes": [str(g.dtype)[6:] for g in g_got]}
+        log(f"train backward {key} {out[key]['dtype']}: forward |kernel - "
+            f"plain| {out[key]['forward_max_abs_err']:.3g} (bound "
+            f"{fwd_bound:.3g}); gradients of its {len(rel)} inputs "
+            f"({', '.join(out[key]['grad_dtypes'])}), max |Function - "
+            f"plain| / max |plain| " + ", ".join(f"{r:.3g}" for r in rel)
+            + f"; bound {grad_bound}")
+        if not (out[key]["forward_max_abs_err"] <= fwd_bound
+                and all(r <= grad_bound for r in rel)
+                and all(a.dtype == b.dtype for a, b in zip(g_got, g_want))):
             raise AssertionError(f"train backward {key}: {out[key]}")
     return out
 
@@ -1136,6 +1173,325 @@ def phase_train_r50_f32(torch, card: str):
     return totals, backward
 
 
+@contextlib.contextmanager
+def first_auction_call(box: dict):
+    """While active, the first ``auction_assign`` call's (cost, valid) are
+    kept in ``box["auction"]`` (copies on the card)."""
+    from axial_vs_tpu_torch.ops import hungarian
+
+    real = hungarian.auction_assign
+
+    def call(cost, valid, *args, **kwargs):
+        box.setdefault("auction", (cost.clone(), valid.clone()))
+        return real(cost, valid, *args, **kwargs)
+
+    hungarian.auction_assign = call
+    try:
+        yield
+    finally:
+        hungarian.auction_assign = real
+
+
+#: the auction's largest gap to the optimum of one sample, relative to
+#: max(|optimum|, 1): the JAX package's bound (``tests/test_hungarian.py``)
+AUCTION_GAP_BOUND = 8e-3
+
+
+def check_auction(torch, cost, valid) -> dict:
+    """The auction's assignment on the card against the same auction on a
+    CPU copy (bitwise), checked one-to-one (each valid GT column one query,
+    no query twice, invalid columns -1), and its gap to scipy's optimum
+    (``lsap_host``) per sample within ``AUCTION_GAP_BOUND``."""
+    from axial_vs_tpu_torch.ops.hungarian import auction_assign, lsap_host
+
+    got = auction_assign(cost, valid).cpu()
+    want = auction_assign(cost.cpu(), valid.cpu())
+    c, v, a = cost.cpu().numpy(), valid.cpu().numpy(), got.numpy()
+    best = lsap_host(c, v)
+    one_to_one, gaps = True, []
+    for i in range(c.shape[0]):
+        cols = np.flatnonzero(v[i])
+        rows = a[i, cols]
+        one_to_one &= bool((a[i, ~v[i]] == -1).all() and (rows >= 0).all()
+                           and len(set(rows.tolist())) == len(rows))
+        if not one_to_one:
+            break
+        opt = float(c[i][best[i, cols], cols].sum())
+        gaps.append((float(c[i][rows, cols].sum()) - opt) / max(abs(opt), 1.0))
+    out = {"equal_to_cpu": bool(torch.equal(got, want)),
+           "one_to_one": one_to_one, "gap": max(gaps, default=0.0),
+           "valid_columns": int(v.sum())}
+    if not (out["equal_to_cpu"] and one_to_one
+            and out["gap"] <= AUCTION_GAP_BOUND):
+        raise AssertionError(f"auction on the card: {out}")
+    return out
+
+
+def measure_auction(torch, cost, valid, calls: int = 3):
+    """The auction on one step's cost matrix: ``check_auction``, then ms a
+    call between CUDA events (median of ``calls``, host launch gaps
+    included), and one call under ``torch.profiler``: its kernels' count
+    and summed device time."""
+    from axial_vs_tpu_torch.ops.hungarian import auction_assign
+
+    check = check_auction(torch, cost, valid)
+    ms = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        auction_assign(cost, valid)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        auction_assign(cost, valid)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in kernels) / 1e3
+    return {"ms": statistics.median(ms), "kernels": len(kernels),
+            "kernel_ms": busy, "shape": list(cost.shape), **check}
+
+
+#: parameter names of the ConvNeXt-L backbone that every step reaches
+#: (block 0 of stage 0 has drop-path rate 0; the stem and the output norms)
+ALWAYS_REACHED = ("backbone.stem.", "backbone.stages.0.blocks.0.",
+                  "backbone.norm")
+
+
+def phase_train_convnext_large_bf16(torch, card: str):
+    """``TRAIN_STEPS`` steps of ``train_step`` on the ConvNeXt-L WC model of
+    ``configs/vipseg/maxtron_wc_convnext_large.yaml`` at full depth and
+    width: bf16 compute on f32 master weights, drop path 0.4, remat on, the
+    device auction, on ``tools/bench_train.py``'s batch (713x713, T = 2,
+    one clip, 24 GT segments). Checks each step's losses, launches (K2 and
+    K3 in bf16), gradients (every parameter f32 with an f32 gradient,
+    finite; non-zero for the MSDA and trajectory projections and for the
+    backbone tensors every step reaches), the BatchNorm statistics, and
+    K2's and K3's bf16 forward and backward at the first step's inputs.
+    One more step runs under the profiler for the parts and the auction's
+    device time. Returns the launch counts of the steps and the backward
+    check."""
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.tools import bench_train
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = bench_train.train_config(TRAIN_HW, "convnext_large")
+    c = cfg.model.backbone
+    if not (c.remat and c.convnext.drop_path_rate == 0.4
+            and cfg.model.dtype == "bfloat16"
+            and tuple(c.convnext.depths) == CONVNEXT_L_DEPTHS):
+        raise AssertionError(f"not the headline config: {c}, "
+                             f"{cfg.model.dtype}")
+    parts = bench_train.build(cfg, dev, "auction")
+    model = parts[0]
+    batch = bench_train.synthetic_batch(cfg.model.num_classes, TRAIN_HW, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dtypes = {p.dtype for p in model.parameters()}
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train convnext_large bf16: built the training model, {n_params} "
+        f"parameters in {dtypes}, {time.perf_counter() - t0:.2f} s")
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"master weights not f32: {dtypes}")
+    stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    torch.cuda.reset_peak_memory_stats()
+    totals = {k: 0 for k in counted_kernels()}
+    captured, ms = {}, []
+    for step in range(TRAIN_STEPS):
+        box = captured if step == 0 else {}
+        unreached = []
+
+        def mark(name):
+            if name == "backward":
+                unreached.extend(n for n, p in model.named_parameters()
+                                 if p.grad is None)
+
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with first_train_calls(box), first_auction_call(box):
+            start.record()
+            losses = train_step(*parts, batch, gen, mark=mark)
+            end.record()
+            end.synchronize()
+        ms.append(start.elapsed_time(end))
+        launches = read_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        want = expect(K2=2, K3=4 * K3_WC_CALLS)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        finite = bool(torch.stack([g.isfinite().all()
+                                   for g in grads.values()]).all())
+        grad_dtypes = {g.dtype for g in grads.values()}
+        zero = [n for n, g in grads.items()
+                if n not in unreached and not g.any()]
+        must = [n for n in grads if n.endswith(TRAIN_PROJECTIONS)
+                or n.startswith(ALWAYS_REACHED)]
+        kernel_dtypes = sorted(set(box["dtypes"]))
+        log(f"train convnext_large bf16 step {step}: total_loss "
+            f"{losses['total_loss']:.6g}, {len(losses) - 1} losses; launches "
+            f"{launches} (want {want}), dtypes {kernel_dtypes}; gradients "
+            f"finite {finite}, {grad_dtypes}; {len(unreached)} tensors not "
+            f"reached, {len(zero)} reached with an exactly zero gradient; "
+            f"{len(must)} always reached; {ms[-1]:.2f} ms")
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train step {step}: losses {losses}")
+        if (launches != want or not finite or grad_dtypes != {torch.float32}
+                or kernel_dtypes != [("K2", "bfloat16"), ("K3", "bfloat16")]):
+            raise AssertionError(f"train step {step}: launches {launches}, "
+                                 f"finite {finite}, {grad_dtypes}, "
+                                 f"{kernel_dtypes}")
+        dead = [n for n in must if n in unreached or n in zero]
+        if dead:
+            raise AssertionError(f"train step {step}: no gradient for {dead}")
+        if step == 0:
+            if set(captured["devices"]) != {"cuda"}:
+                raise AssertionError(f"K2/K3 called on {captured['devices']}")
+            moved = [n for n, b in model.named_buffers()
+                     if n in stats0 and not torch.equal(b, stats0[n])]
+            log(f"train convnext_large bf16 step 0: {len(moved)} of "
+                f"{len(stats0)} BatchNorm statistics moved")
+            if len(moved) != len(stats0):
+                raise AssertionError("train step 0: statistics did not move")
+            del stats0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = bench_train.profile_step(parts, batch, gen)
+    auction = measure_auction(torch, *captured.pop("auction"))
+    del parts, model, batch
+    torch.cuda.empty_cache()
+    backward = _check_train_backward(torch, captured)
+    del captured
+    torch.cuda.empty_cache()
+    med = statistics.median(ms)
+    log(f"train convnext_large bf16 ({card}): {TRAIN_STEPS} steps at "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, T={T}, 1 clip, 24 GT segments, remat, "
+        f"drop path 0.4, auction: ms per step "
+        f"{', '.join(f'{t:.2f}' for t in ms)} (median {med:.2f}, "
+        f"{1e3 / med:.4f} steps/s, CUDA events, eager, first step included); "
+        f"peak memory {peak:.3f} GiB; launches {totals}")
+    log(f"train convnext_large bf16, one profiled step ({card}): "
+        f"{json.dumps(profile)}")
+    log(f"train convnext_large bf16, the auction alone on step 0's cost "
+        f"{auction['shape']} ({card}): {auction['ms']:.4f} ms a call between "
+        f"CUDA events; {auction['kernels']} kernels, {auction['kernel_ms']:.4f}"
+        f" ms of device time (the rest of the call is launch gaps); "
+        f"equal to the CPU auction {auction['equal_to_cpu']}, one-to-one "
+        f"{auction['one_to_one']} over {auction['valid_columns']} columns, "
+        f"gap to scipy's optimum {auction['gap']:.3g} (bound "
+        f"{AUCTION_GAP_BOUND})")
+    return totals, backward
+
+
+#: the trainer phase: crop, worker processes, steps, checkpoint step, and
+#: frames of each of its two synthetic videos
+TRAINER_HW, TRAINER_WORKERS, TRAINER_STEPS, TRAINER_CKPT = (321, 321), 2, 4, 2
+TRAINER_FRAMES = (6, 4)
+
+
+def _trainer_args(root: str, max_iter: int, eval_period: int):
+    """``train_net_video``'s arguments: the R50 WC yaml in bf16 at
+    ``TRAINER_HW``, one clip a step, ``TRAINER_WORKERS`` workers."""
+    opts = {"model.dtype": "bfloat16",
+            "input.image_size": f"[{TRAINER_HW[0]},{TRAINER_HW[1]}]",
+            "solver.ims_per_batch": 1, "solver.max_iter": max_iter,
+            "solver.checkpoint_period": TRAINER_CKPT,
+            "dataloader.num_workers": TRAINER_WORKERS,
+            "test.eval_period": eval_period,
+            "output_dir": os.path.join(root, "out")}
+    return (["--config-file", "configs/vipseg/maxtron_wc_r50.yaml", "--opts"]
+            + [str(x) for kv in opts.items() for x in kv])
+
+
+def _states_equal(torch, a: dict, b: dict) -> bool:
+    def same(x, y):
+        if torch.is_tensor(x):
+            return torch.is_tensor(y) and torch.equal(x.cpu(), y.cpu())
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and x.keys() == y.keys()
+                    and all(same(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+    return same(a, b)
+
+
+def phase_trainer(torch, root: str):
+    """The port's ``train_net_video`` entry (the function) on the R50 WC
+    yaml in bf16 at ``TRAINER_HW``, over synthetic 720x1280 VIPSeg videos
+    registered by ``data/builtin.py``: ``TRAINER_CKPT`` steps with a
+    checkpoint, then a fresh ``Trainer`` restores it (the state must equal
+    the saved one exactly), then ``--resume`` runs to step
+    ``TRAINER_STEPS`` with the eval hook (``evaluate_vipseg`` once, one
+    video). Both runs load with ``TRAINER_WORKERS`` worker processes, which
+    must stop within the loader's timeout. Returns the launch counts."""
+    from axial_vs_tpu_torch.data import builtin
+    from axial_vs_tpu_torch.data.synthetic import write_vipseg_videos
+    from axial_vs_tpu_torch.engine import evaluator_loop
+    from axial_vs_tpu_torch.engine.trainer import LOADER_TIMEOUT_S, Trainer
+    from axial_vs_tpu_torch.tools import train_net_video
+
+    t0 = time.perf_counter()
+    write_vipseg_videos(os.path.join(root, "VIPSeg"), TRAINER_FRAMES, EVAL_HW,
+                        seed=1, splits=("train", "val"))
+    names = builtin.register_all(root)
+    if names != ["panoVSPW_vps_video_train", "panoVSPW_vps_video_val"]:
+        raise AssertionError(f"registered {names}")
+    calls = []
+    real = evaluator_loop.evaluate_vipseg
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    evaluator_loop.evaluate_vipseg = counted
+    reset_counts()
+    try:
+        first = train_net_video.main(_trainer_args(root, TRAINER_CKPT, 0))
+        saved = first.state_dict()
+        close_s = [first.loader_close_s]
+        del first
+        fresh = Trainer(train_net_video.setup(train_net_video.parse_args(
+            _trainer_args(root, TRAINER_STEPS, TRAINER_STEPS))))
+        fresh.resume_or_load(resume=True)
+        equal = _states_equal(torch, saved, fresh.state_dict())
+        log(f"trainer: the restored state of step {fresh.step} equals the "
+            f"saved one: {equal}")
+        if not equal or fresh.step != TRAINER_CKPT:
+            raise AssertionError("the restored state differs from the saved")
+        del fresh, saved
+        second = train_net_video.main(
+            ["--resume"] + _trainer_args(root, TRAINER_STEPS, TRAINER_STEPS),
+            eval_kwargs={"max_videos": 1})
+        close_s.append(second.loader_close_s)
+    finally:
+        evaluator_loop.evaluate_vipseg = real
+    launches = read_counts()
+    steps = second.ckpt.all_steps()
+    clips = TRAINER_FRAMES[0] // T  # the one evaluated video
+    want = expect(K2=K2_WC_CALLS * (TRAINER_STEPS + clips),
+                  K3=4 * K3_WC_CALLS * (TRAINER_STEPS + clips))
+    log(f"trainer: {TRAINER_STEPS} steps at {TRAINER_HW[0]}x{TRAINER_HW[1]} "
+        f"in bf16, resumed at step {TRAINER_CKPT}, checkpoints {steps}, "
+        f"evaluate_vipseg called {len(calls)} time(s); loaders closed in "
+        f"{', '.join(f'{c:.3f}' for c in close_s)} s (timeout "
+        f"{LOADER_TIMEOUT_S} s); launches {launches} (want {want}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (second.step != TRAINER_STEPS or steps != [TRAINER_CKPT, TRAINER_STEPS]
+            or len(calls) != 1 or launches != want
+            or not all(c is not None and c < LOADER_TIMEOUT_S
+                       for c in close_s)):
+        raise AssertionError("the trainer phase failed its checks")
+    del second
+    torch.cuda.empty_cache()
+    return launches
+
+
 EVAL_HW = (720, 1280)      # VIPSeg's common frame size
 EVAL_LENGTHS = (6, 18)     # frames per video; 18 > 16 takes the windowed path
 EVAL_CLIPS = 3 + 8 + 1     # clips of 2: 6 frames; windows of 16 and 2 frames
@@ -1145,50 +1501,15 @@ EVAL_THING, EVAL_STUFF = 3, 100  # the synthetic videos' categories
 
 def write_vipseg_videos(root: str, seed: int = 0):
     """Synthetic VIPSeg-format videos from a seed, as the repo's test
-    fixture draws them: a moving thing box (segment 1) and a static thing
-    (segment 4) over a stuff background (segment 2) on a noise image; jpg
-    frames, panoptic pngs (``id2rgb``) and a panoVIPSeg JSON with 124
-    categories (0-57 things, as many as VIPSeg has). Returns the roots and
-    the JSON path, and the categories."""
-    from PIL import Image
+    fixture draws them (``axial_vs_tpu_torch/data/synthetic.py``): one of
+    each of ``EVAL_LENGTHS`` frames at ``EVAL_HW``, and a panoVIPSeg JSON
+    with 124 categories (0-57 things, as many as VIPSeg has). Returns the
+    roots and the JSON path, and the categories."""
+    from axial_vs_tpu_torch.data.synthetic import write_vipseg_videos as write
 
-    from axial_vs_tpu_torch.data.panoptic_utils import id2rgb
-
-    rng = np.random.RandomState(seed)
-    h, w = EVAL_HW
-    img_root, pan_root = os.path.join(root, "imgs"), os.path.join(root, "panomasks")
-    videos = []
-    for v, n_frames in enumerate(EVAL_LENGTHS):
-        vid = f"video{v}"
-        os.makedirs(os.path.join(img_root, vid))
-        os.makedirs(os.path.join(pan_root, vid))
-        base = rng.randint(0, 160, (h, w, 3)).astype(np.uint8)
-        images, annotations = [], []
-        for f in range(n_frames):
-            img, pan = base.copy(), np.full((h, w), 2, np.int32)
-            x0, y0 = (40 + 25 * f + 60 * v) % (w - 220), (60 + 12 * f) % (h - 260)
-            img[y0:y0 + 240, x0:x0 + 200] = [200, 60 + (10 * f) % 19, 40]
-            pan[y0:y0 + 240, x0:x0 + 200] = 1
-            img[50:170, w - 260:w - 60] = [30, 200, 180]
-            pan[50:170, w - 260:w - 60] = 4
-            Image.fromarray(img).save(os.path.join(img_root, vid, f"{f:05d}.jpg"),
-                                      quality=90)
-            Image.fromarray(id2rgb(pan)).save(
-                os.path.join(pan_root, vid, f"{f:05d}.png"))
-            images.append(dict(id=f"{vid}_{f}", file_name=f"{f:05d}.jpg",
-                               height=h, width=w))
-            annotations.append(dict(
-                image_id=f"{vid}_{f}", file_name=f"{f:05d}.png", segments_info=[
-                    dict(id=1, category_id=EVAL_THING, iscrowd=0, isthing=True),
-                    dict(id=4, category_id=EVAL_THING, iscrowd=0, isthing=True),
-                    dict(id=2, category_id=EVAL_STUFF, iscrowd=0, isthing=False)]))
-        videos.append(dict(video_id=vid, images=images, annotations=annotations))
-    categories = [dict(id=i, name=f"class{i}", isthing=int(i < VIPSEG_THINGS))
-                  for i in range(VIPSEG_CLASSES)]
-    json_file = os.path.join(root, "panoVIPSeg_val.json")
-    with open(json_file, "w") as f:
-        json.dump(dict(videos=videos, categories=categories), f)
-    return (img_root, pan_root, json_file), categories
+    return write(root, EVAL_LENGTHS, EVAL_HW, seed, thing=EVAL_THING,
+                 stuff=EVAL_STUFF, num_classes=VIPSEG_CLASSES,
+                 num_things=VIPSEG_THINGS)
 
 
 #: share of the pixels on which the card's id map must equal the CPU's: a
@@ -2123,6 +2444,13 @@ def main() -> int:
     paths["r50_f32_1_clip"] = phase_r50_f32(torch)
     paths["train_r50_f32_3_steps"], train_backward = phase_train_r50_f32(
         torch, card)
+    paths["train_convnext_large_bf16_3_steps"], train_backward_bf16 = (
+        phase_train_convnext_large_bf16(torch, card))
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        paths["trainer_4_steps"] = phase_trainer(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         block_model, paths["vipseg_eval_2_videos"] = phase_eval(torch, root)
@@ -2182,7 +2510,9 @@ def main() -> int:
             "source": f"axial_vs_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **results[key], **({"train_backward": train_backward[key]}
+            **results[key], **({"train_backward": train_backward[key],
+                                "train_backward_bf16":
+                                    train_backward_bf16[key]}
                                if key in train_backward else {})})
     log("msda bench, ms per layer: " + ", ".join(
         f"{k} {v:.4f}" for k, v in variant_ms.items()))

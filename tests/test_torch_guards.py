@@ -107,7 +107,10 @@ def test_port_imports_without_jax():
                    "config", "config.node", "config.defaults",
                    "losses.matcher", "losses.criterion", "ops.hungarian",
                    "engine.lr_schedule", "engine.optim", "engine.train_step",
-                   "tools.bench", "tools.bench_train"):
+                   "tools.bench", "tools.bench_train", "data.transforms",
+                   "data.build", "data.builtin", "data.loader",
+                   "data.synthetic", "engine.trainer", "engine.checkpoint",
+                   "engine.logger", "models.build", "tools.train_net_video"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
