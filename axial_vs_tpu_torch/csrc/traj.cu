@@ -77,7 +77,12 @@ namespace hopper = axvs_hopper;
 typedef __nv_bfloat16 bf16;
 
 constexpr int HD = 32;     // head dim
-constexpr int MAX_F = 8;   // frames
+// frames: both stages loop over them (stage 1 one frame at a time, stage 2
+// with an online softmax), so the bound only keeps the host's checks finite;
+// the cross-clip module runs the clip axis here, 256 clips being 512 frames
+// of 2-frame clips. The workspace X (F, B' N, C) must also hold fewer than
+// 2^31 rows (checked at launch).
+constexpr int MAX_F = 256;
 constexpr int MAX_H = 8;   // heads
 
 // ---- bf16, stage 1 ----

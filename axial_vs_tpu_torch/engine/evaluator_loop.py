@@ -1,4 +1,4 @@
-"""Whole-dataset VIPSeg evaluation (counterpart of
+"""Whole-dataset VIPSeg evaluation of a WC or a CC model (counterpart of
 ``axial_vs_tpu/engine/evaluator_loop.py::evaluate_vipseg``; the YTVIS and
 COCO-panoptic loops are not ported yet)."""
 from __future__ import annotations
@@ -40,13 +40,14 @@ def _thing_mask(meta) -> np.ndarray:
     return mask
 
 
-def wc_pipeline(cfg, model, name: str) -> WCInferencePipeline:
+def wc_pipeline(cfg, model, name: str, pipeline_cls) -> WCInferencePipeline:
     """The video-wise pipeline ``evaluate_vipseg`` runs on the model's
-    device: the config's clip length, input size, normalisation and video
-    test thresholds, and the classes of the dataset ``name``."""
+    device (``pipeline_cls``: the WC pipeline or ``CCInferencePipeline``):
+    the config's clip length, input size, normalisation and video test
+    thresholds, and the classes of the dataset ``name``."""
     meta = MetadataCatalog.get(name)
     test = cfg.model.maxtron.test
-    return WCInferencePipeline(
+    return pipeline_cls(
         model,
         num_clip_frames=cfg.input.num_clip_frames,
         input_size=cfg.input.image_size,
@@ -65,11 +66,13 @@ def wc_pipeline(cfg, model, name: str) -> WCInferencePipeline:
 
 
 def evaluate_vipseg(cfg, model, max_videos: int | None = None,
-                    compute_stq: bool = False):
+                    compute_stq: bool = False, pipeline_cls=None):
     """Video-wise inference over ``cfg.datasets.test[0]`` of the port's
     catalog, on the model's device, and its VPQ (the mean over windows
     {1, 2, 4, 6}) against the GT panoptic PNGs; with ``compute_stq`` also
-    STQ. Returns the evaluator's dict ({'vpq', 'per_window'}, plus 'stq')."""
+    STQ. ``pipeline_cls`` picks the pipeline: ``WCInferencePipeline`` by
+    default, ``CCInferencePipeline`` for a ``MaXTronCCModel``. Returns the
+    evaluator's dict ({'vpq', 'per_window'}, plus 'stq')."""
     name = cfg.datasets.test[0]
     videos = DatasetCatalog.get(name)
     meta = MetadataCatalog.get(name)
@@ -78,7 +81,8 @@ def evaluate_vipseg(cfg, model, max_videos: int | None = None,
     divisor = meta.label_divisor
     test = cfg.model.maxtron.test
 
-    pipeline = wc_pipeline(cfg, model, name)
+    pipeline = wc_pipeline(cfg, model, name,
+                           pipeline_cls or WCInferencePipeline)
     evaluator = VIPSegEvaluator(
         categories={i: {"isthing": int(thing_mask[i])} for i in range(num_classes)},
         label_divisor=divisor, cost_limit=test.cost_limit,

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.act import gelu
-from ..ops.norm import BatchNorm
+from ..ops.norm import BatchNorm, LayerNorm
 
 
 class Linear(nn.Module):
@@ -43,7 +43,8 @@ class Conv(nn.Module):
     """Conv with torch-layout weights applied to channels-last input.
 
     ``ndim`` 2: (N, H, W, C) with weight (O, I/groups, k, k); ``ndim`` 1:
-    (N, L, C) with weight (O, I, 1) (only kernel size 1 is used)."""
+    (N, L, C) with weight (O, I, k), stride 1, one group and no padding
+    (the caller pads), its k taps ``dilation`` apart."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -51,11 +52,13 @@ class Conv(nn.Module):
                  weight_init=("he_normal", None), dilation: int = 1,
                  device=None):
         super().__init__()
-        if ndim == 1 and (kernel_size != 1 or stride != 1 or groups != 1):
-            raise NotImplementedError("1-D convs of kernel size 1 only")
+        if ndim == 1 and (stride != 1 or groups != 1 or padding != 0):
+            raise NotImplementedError("1-D convs of stride 1, one group and "
+                                      "no padding only")
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dilation = dilation
         self.pointwise = kernel_size == 1 and stride == 1 and groups == 1
+        self.ndim = ndim
         shape = (out_channels, in_channels // groups) + (kernel_size,) * ndim
         self.weight = nn.Parameter(torch.empty(shape, device=device))
         if weight_init[0] == "he_normal":
@@ -72,6 +75,9 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(x.dtype)
         if self.pointwise:
             return F.linear(x, w.reshape(w.shape[0], w.shape[1]), b)
+        if self.ndim == 1:  # (B, L, C) in and out, no padding
+            y = F.conv1d(x.transpose(1, 2), w, b, dilation=self.dilation)
+            return y.transpose(1, 2)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding,
                      self.dilation, self.groups)
         # NHWC and dense, as the kernels downstream require (a no-op when
@@ -84,9 +90,10 @@ class ConvBN(nn.Module):
 
     ``conv_init``: he_normal (trunc_normal with std sqrt(2 / in_channels))
     or xavier_uniform; ``conv_init_std`` overrides it with
-    trunc_normal(std). ``norm`` is "syncbn" (BatchNorm) or None;
-    ``norm_init`` sets its gamma (0.0 for residual-ending convs). ``act`` is
-    "gelu" or None."""
+    trunc_normal(std). ``norm`` is "syncbn" (BatchNorm), "ln" (LayerNorm
+    over the channels, eps 1e-6, as the JAX package's ``get_norm``) or None;
+    ``norm_init`` sets the BatchNorm's gamma (0.0 for residual-ending convs).
+    ``act`` is "gelu" or None."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -94,8 +101,10 @@ class ConvBN(nn.Module):
                  conv_init: str = "he_normal", conv_init_std=None,
                  norm_init: float = 1.0, dilation: int = 1, device=None):
         super().__init__()
-        if norm not in ("syncbn", None) or act not in ("gelu", None):
+        if norm not in ("syncbn", "ln", None) or act not in ("gelu", None):
             raise NotImplementedError(f"norm {norm!r}, act {act!r}")
+        if norm == "ln" and norm_init != 1.0:
+            raise NotImplementedError("norm_init is a BatchNorm option")
         winit = (("trunc_normal", conv_init_std) if conv_init_std is not None
                  else (conv_init, None))
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
@@ -103,7 +112,9 @@ class ConvBN(nn.Module):
                          ndim=2 if conv_type == "2d" else 1, weight_init=winit,
                          dilation=dilation, device=device)
         self.norm = (BatchNorm(out_channels, scale_init=norm_init,
-                               device=device) if norm else None)
+                               device=device) if norm == "syncbn"
+                     else LayerNorm(out_channels, eps=1e-6, device=device)
+                     if norm == "ln" else None)
         self.act = act
 
     def forward(self, x):

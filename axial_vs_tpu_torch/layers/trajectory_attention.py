@@ -7,8 +7,9 @@ the query's own-frame aggregation as the query. Everything between the
 q/k/v projections and the output projection is kernel K3
 (``ops/traj.py::trajectory_attention_core``), on every call. The axial layer
 applies it along the height axis on (B*W, T*H) sequences, then along the
-width axis on (B*H, T*W). Names follow the upstream within-clip module
-(``q``, ``k``, ``v``, ``proj_q``, ``proj_kv``, ``proj``).
+width axis on (B*H, T*W). Names follow the upstream modules: the
+within-clip variant's ``q``, ``k``, ``v`` and the cross-clip variant's one
+``qkv``, then ``proj_q``, ``proj_kv``, ``proj``.
 """
 from __future__ import annotations
 
@@ -21,24 +22,35 @@ from .convbn import Linear
 
 
 class TrajectoryAttention(nn.Module):
-    """Separate q/k/v projections (the within-clip variant) on (B, N, C),
-    N = num_frames * n tokens, frame-major."""
+    """Trajectory attention on (B, N, C), N = num_frames * n tokens,
+    frame-major. ``fused_qkv=False``: separate q/k/v projections of query,
+    key and value (the within-clip variant); ``fused_qkv=True``: one ``qkv``
+    projection of query, split in the order q, k, v (the cross-clip
+    variant, whose frames are clips)."""
 
-    def __init__(self, dim: int, num_heads: int = 8, device=None):
+    def __init__(self, dim: int, num_heads: int = 8, fused_qkv: bool = False,
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
-        self.q = Linear(dim, dim, device=device)
-        self.k = Linear(dim, dim, device=device)
-        self.v = Linear(dim, dim, device=device)
+        self.fused_qkv = fused_qkv
+        if fused_qkv:
+            self.qkv = Linear(dim, 3 * dim, device=device)
+        else:
+            self.q = Linear(dim, dim, device=device)
+            self.k = Linear(dim, dim, device=device)
+            self.v = Linear(dim, dim, device=device)
         self.proj_q = Linear(dim, dim, device=device)
         self.proj_kv = Linear(dim, 2 * dim, device=device)
         self.proj = Linear(dim, dim, device=device)
 
-    def forward(self, query, key, value, num_frames: int):
+    def forward(self, query, key=None, value=None, *, num_frames: int):
+        if self.fused_qkv:
+            q, k, v = (t.contiguous() for t in self.qkv(query).chunk(3, -1))
+        else:
+            q, k, v = self.q(query), self.k(key), self.v(value)
         out = trajectory_attention_core(
-            self.q(query), self.k(key), self.v(value), self.proj_q.weight,
-            self.proj_q.bias, self.proj_kv.weight, self.proj_kv.bias,
-            num_frames, self.num_heads)
+            q, k, v, self.proj_q.weight, self.proj_q.bias, self.proj_kv.weight,
+            self.proj_kv.bias, num_frames, self.num_heads)
         return self.proj(out)
 
 

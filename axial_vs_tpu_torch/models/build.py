@@ -2,15 +2,18 @@
 ``axial_vs_tpu/models/build.py``).
 
 The port builds ``MaXTronWCDeepLab`` and ``KMaXDeepLab`` with a within-clip
-(WC) model; every other architecture of the JAX registry (the CC stage,
-the Tube-Link models, ``ImageMask2Former``) raises ``NotImplementedError``
-naming itself.
+(WC) model, and ``MaXTronCCDeepLab``: the cross-clip (CC) model, a frozen
+WC segmenter of ``input.num_clip_frames`` frames under the CC module of
+``model.maxtron.cc``, its clips aligned by the device auction, with the
+criterion of the class and mask losses. Every other architecture of the JAX
+registry (the Tube-Link models, ``ImageMask2Former``) raises
+``NotImplementedError`` naming itself.
 """
 from __future__ import annotations
 
 import torch
 
-_PORTED = ("MaXTronWCDeepLab", "KMaXDeepLab")
+_PORTED = ("MaXTronWCDeepLab", "KMaXDeepLab", "MaXTronCCDeepLab")
 
 
 def criterion_from_config(cfg):
@@ -52,8 +55,36 @@ def build_model_and_criterion(cfg, train: bool = True,
     if not cfg.model.maxtron.wc.enable:
         raise NotImplementedError(f"{arch} without the within-clip module is "
                                   "not ported")
+    if arch == "MaXTronCCDeepLab":
+        return _build_maxtron_cc(cfg, train, device, generator)
     num_frames = (cfg.input.num_video_frames
                   if arch == "MaXTronWCDeepLab" else 1)
     model = build_segmenter(cfg, device, generator, num_frames=num_frames,
                             train=train)
     return model, criterion_from_config(cfg)
+
+
+def _build_maxtron_cc(cfg, train, device, generator):
+    """The CC model, as the JAX package builds it: the segmenter for
+    inference (its dtype the config's), then the CC module in f32, both
+    drawn from ``generator``; the alignment is the auction.
+    The CC module is in ``train()`` if ``train``, the segmenter always in
+    ``eval()``."""
+    from .cc_module import CrossClipTrackingModule
+    from .kmax import build_segmenter, materialize
+    from .maxtron_cc import MaXTronCCModel
+
+    clip = cfg.input.num_clip_frames
+    segmenter = build_segmenter(cfg, device, generator, num_frames=clip)
+    cc = cfg.model.maxtron.cc
+    cc_module = materialize(CrossClipTrackingModule(
+        num_classes=cfg.model.num_classes, num_layers=cc.num_layers,
+        num_clip_frames=clip, kernel_sizes=tuple(cc.kernel_sizes),
+        atrous_rates=tuple(cc.atrous_rates), attn_drop=cc.attn_drop,
+        aspp_drop=cc.aspp_drop, norm_fn=cc.norm_fn,
+        device=torch.device("meta")), device, generator, None, train)
+    model = MaXTronCCModel(segmenter, cc_module,
+                           num_clip_frames=clip).train(train)
+    criterion = criterion_from_config(cfg)
+    criterion.losses = ("labels", "masks")  # the CC supervises class + mask
+    return model, criterion

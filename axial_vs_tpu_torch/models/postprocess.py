@@ -50,7 +50,9 @@ def panoptic_inference(mask_cls, mask_pred, thing_class_mask,
     binary = mask_scores > pixel_confidence_threshold  # (..., H, W, N)
     spatial = tuple(range(binary.ndim - 1))
     pixel_count = binary.sum(spatial, dtype=torch.float32)
-    mask_conf = ((mask_scores * binary).sum(spatial)
+    # the scores under the threshold zeroed in place: the values of
+    # mask_scores * binary without another full-size tensor
+    mask_conf = (mask_scores.masked_fill_(~binary, 0.0).sum(spatial)
                  / pixel_count.clamp_min(1.0))
     del mask_scores
     reorder_score = (cls_scores ** reorder_class_weight

@@ -15,8 +15,10 @@
    resolution, then ``panoptic_inference`` and the remap to dataset ids.
 
 Only the embeddings, the per-slot results and the final id maps reach the
-host. ``extract_attention`` (needs ``return_attn``) and the cross-clip
-``CCInferencePipeline`` are not ported yet.
+host. ``CCInferencePipeline`` runs the cross-clip model instead: one
+forward of the whole video, whose alignment runs inside the model, then the
+same finalize. ``extract_attention`` (needs ``return_attn``) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -247,3 +249,39 @@ class WCInferencePipeline:
             clip_ids.append(ids.cpu().numpy())
             clip_embs.append(embs_by_cat)
         return clip_ids, clip_embs
+
+
+class CCInferencePipeline(WCInferencePipeline):
+    """Whole-video inference through ``models/maxtron_cc.py::
+    MaXTronCCModel``: the model runs the frozen segmenter clip by clip, the
+    alignment of the clips' slots and the CC module; this pipeline
+    preprocesses the frames, repeats the last frame up to a whole clip, runs
+    one forward of the whole video (never in windows: the CC module reasons
+    over all the clips at once, so ``videowise_max_frames`` does not apply)
+    and the WC finalize, and trims the ids to the video's frames. The
+    finalize holds the mask logits of every frame at the frame size, so
+    the card's memory bounds the video's length."""
+
+    @torch.inference_mode()
+    def _video_forward(self, images: np.ndarray):
+        """(T, Ht, Wt, 3) host frames, T a multiple of the clip length ->
+        (class logits (N, K+1), mask logits (T, h4, w4, N)) on the device."""
+        out = self.model(torch.from_numpy(images).to(self.device))
+        return out["pred_logits"][0], out["pred_masks"][0]
+
+    def run_video(self, frames: np.ndarray, orig_hw=None):
+        """frames: (V, H, W, 3) uint8 numpy, a whole video. Returns
+        (panoptic ids (V, H', W') int32 numpy, PanopticOutput of numpy
+        arrays, None): the padded tube goes through panoptic inference
+        whole, and the ids are trimmed afterwards."""
+        v, t = frames.shape[0], self.num_clip_frames
+        orig_hw = tuple(orig_hw or (frames.shape[1], frames.shape[2]))
+        images, scaled_h, scaled_w = preprocess_frames(
+            frames, self.pixel_mean, self.pixel_std, self.input_size)
+        pad = (-v) % t
+        if pad:
+            images = np.concatenate([images] + [images[-1:]] * pad, 0)
+        logits, masks = self._video_forward(images)
+        ids, result = self._finalize(logits, masks, (scaled_h, scaled_w),
+                                     orig_hw)
+        return ids.cpu().numpy()[:v], _to_host(result), None

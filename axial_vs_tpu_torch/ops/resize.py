@@ -36,7 +36,9 @@ def _interp_axis(x, axis: int, out_size: int, align_corners: bool):
     shape = [1] * x.ndim
     shape[axis] = out_size
     w = torch.from_numpy(w_hi).to(device=x.device, dtype=x.dtype).reshape(shape)
-    return x_lo * (1 - w) + x_hi * w
+    # x_lo * (1 - w) + x_hi * w, its products and sum rounded as written,
+    # in place: no more full-size temporaries than the two gathers
+    return x_lo.mul_(1 - w).add_(x_hi.mul_(w))
 
 
 def resize_bilinear(x, size, align_corners: bool = False):

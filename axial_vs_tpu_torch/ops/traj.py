@@ -44,9 +44,11 @@ import torch.nn.functional as F
 from . import native
 
 #: the kernels' limits: head dim, frames, heads, and the shared memory one
-#: block may use on sm_90
+#: block may use on sm_90. Frames: the within-clip and Tube-Link layers run
+#: 2-5, the cross-clip module one a clip of the video (``csrc/traj.cu``'s
+#: ``MAX_F``)
 KERNEL_HEAD_DIM = 32
-KERNEL_MAX_FRAMES = 8
+KERNEL_MAX_FRAMES = 256
 KERNEL_MAX_HEADS = 8
 MAX_SHARED_BYTES = 232448
 #: the dtypes the CUDA kernel takes: bf16 (tensor cores) or f32 (kernels of

@@ -7,7 +7,12 @@ segmenter (the upstream torch layout). It is the inverse of
 ``axial_vs_tpu/utils/torch_convert.py::convert_maxtron_wc``; ``resnet`` is
 the inverse of its ``convert_torchvision_resnet``. ``tube_link_vis`` maps
 ``axial_vs_tpu.models.tube_link.detector.TubeLinkVIS``'s variables, whose
-names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``). Layout
+names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``);
+``maxtron_cc`` maps ``axial_vs_tpu.models.maxtron_cc.MaXTronCCModel``'s
+(the segmenter and the CC module, whose names follow the upstream module:
+``trajectory_attn{i}`` -> ``transformer_trajectory_self_attention_layers.
+{i}.self_attn``, ``aspp{i}`` -> ``conv_short_aggregate_layers.{i}``), and
+``prepare_cc_weights`` is the WC -> CC surgery on a port state_dict. Layout
 changes:
 
 - conv kernels HWIO (kh, kw, I, O) -> OIHW; 1-D (k, I, O) -> (O, I, k);
@@ -59,9 +64,12 @@ def _bn(p, s) -> dict:
 
 
 def _convbn(p, s) -> dict:
+    """A ConvBN's conv and its norm: a BatchNorm where the batch stats hold
+    its statistics, else a LayerNorm."""
     out = _prefix("conv", _conv(p["conv"]))
     if "norm" in p:
-        out.update(_prefix("norm", _bn(p["norm"], s["norm"])))
+        out.update(_prefix("norm", _bn(p["norm"], s["norm"]) if "norm" in s
+                           else _norm(p["norm"])))
     return out
 
 
@@ -156,7 +164,9 @@ def msda_encoder_layer(p) -> dict:
 
 
 def trajectory_attention(p) -> dict:
-    return {k: v for name in ("q", "k", "v", "proj_q", "proj_kv", "proj")
+    """Either variant: separate ``q``, ``k``, ``v`` or one ``qkv``."""
+    qkv = ("qkv",) if "qkv" in p else ("q", "k", "v")
+    return {k: v for name in qkv + ("proj_q", "proj_kv", "proj")
             for k, v in _prefix(name, _linear(p[name])).items()}
 
 
@@ -351,6 +361,96 @@ def convert_variables(variables) -> dict:
     sd.update(_prefix("sem_seg_head.predictor", transformer_decoder(
         params["transformer_decoder"], stats.get("transformer_decoder", {}))))
     return sd
+
+
+# ---- cross-clip model -------------------------------------------------------
+
+def temporal_aspp(p) -> dict:
+    """``TemporalASPP1D`` (no batch stats: its projection's norm is a
+    LayerNorm)."""
+    return {k: v for name, cp in p.items() for k, v in (
+        _prefix("_proj_conv_bn_act", _convbn(cp, {})) if name == "proj_conv"
+        else _prefix(f"_{name}", _conv(cp))).items()}
+
+
+def cc_predictor(p, s) -> dict:
+    """``MaXTronCCPredictor``."""
+    sd = _prefix("_pixel_space_mask_batch_norm",
+                 _bn(p["pixel_space_mask_batch_norm"],
+                     s["pixel_space_mask_batch_norm"]))
+    for name in ("transformer_class_activation_head", "transformer_class_head",
+                 "transformer_mask_head"):
+        sd.update(_prefix(f"_{name}", _convbn(p[name], s.get(name, {}))))
+    return sd
+
+
+def cc_module(params, stats) -> dict:
+    """``params/batch_stats["cc_module"]`` of ``MaXTronCCModel``."""
+    sd = {}
+    for key, p in params.items():
+        m = re.fullmatch(r"(trajectory_attn|attn_norm|aspp|conv_norm)(\d+)", key)
+        if not m:
+            if key not in ("class_embedding_projection",
+                           "mask_embedding_projection", "predictor"):
+                raise KeyError(f"unexpected cc_module entry {key!r}")
+            continue
+        kind, i = m.groups()
+        layer = f"transformer_trajectory_self_attention_layers.{i}"
+        if kind == "trajectory_attn":
+            sd.update(_prefix(f"{layer}.self_attn", trajectory_attention(p)))
+        elif kind == "attn_norm":
+            sd.update(_prefix(f"{layer}.norm", _norm(p)))
+        elif kind == "conv_norm":
+            sd.update(_prefix(f"conv_norms.{i}", _norm(p)))
+        else:
+            sd.update(_prefix(f"conv_short_aggregate_layers.{i}",
+                              temporal_aspp(p)))
+    for name in ("class_embedding_projection", "mask_embedding_projection"):
+        sd.update(_prefix(f"_{name}", _convbn(params[name], stats[name])))
+    sd.update(_prefix("_predictor", cc_predictor(params["predictor"],
+                                                 stats["predictor"])))
+    return sd
+
+
+def maxtron_cc(variables) -> dict:
+    """``MaXTronCCModel`` variables {"params", "batch_stats"}, each with
+    "segmenter" and "cc_module" -> the port's ``MaXTronCCModel``
+    state_dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    seg = {"params": params["segmenter"],
+           "batch_stats": stats.get("segmenter", {})}
+    return {**_prefix("segmenter", convert_variables(seg)),
+            **_prefix("cc_module", cc_module(params["cc_module"],
+                                             stats.get("cc_module", {})))}
+
+
+#: the transformer decoder's modules that the WC -> CC surgery clones into
+#: the CC module, under the same names
+CC_CLONED = ("_class_embedding_projection", "_mask_embedding_projection",
+             "_predictor._transformer_mask_head",
+             "_predictor._transformer_class_head",
+             "_predictor._pixel_space_mask_batch_norm")
+
+
+def prepare_cc_weights(state_dict: dict) -> dict:
+    """WC -> CC init surgery on a port state_dict (counterpart of
+    ``axial_vs_tpu/utils/torch_convert.py::prepare_cc_weights``): a copy of
+    ``state_dict`` in which the final embedding projections and predictor
+    heads of the segmenter's transformer decoder (``CC_CLONED``; parameters
+    and running statistics) are also copied to ``cc_module.*``. The source
+    is ``segmenter.sem_seg_head.predictor`` (a CC model's state_dict) or
+    ``sem_seg_head.predictor`` (a WC segmenter's)."""
+    src = ("segmenter.sem_seg_head.predictor."
+           if any(k.startswith("segmenter.") for k in state_dict)
+           else "sem_seg_head.predictor.")
+    out = dict(state_dict)
+    for key, value in state_dict.items():
+        rest = key[len(src):]
+        if key.startswith(src) and any(rest.startswith(name + ".")
+                                       for name in CC_CLONED):
+            out["cc_module." + rest] = (value.clone() if hasattr(value, "clone")
+                                        else np.array(value, copy=True))
+    return out
 
 
 # ---- Tube-Link --------------------------------------------------------------

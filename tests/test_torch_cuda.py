@@ -354,7 +354,12 @@ def traj_inputs(gen, b, f, n, c=256, dtype=torch.bfloat16):
                                    # queries (stage 1), 128 tokens (stage 2),
                                    # 32-key chunks
                                    (1, 2, 32), (1, 3, 22), (2, 2, 32),
-                                   (1, 2, 65)])
+                                   (1, 2, 65),
+                                   # the cross-clip module: frames are
+                                   # clips, n = 128 queries; and a ragged
+                                   # f > 8
+                                   (1, 3, 128), (1, 9, 128), (1, 24, 128),
+                                   (1, 64, 128), (2, 13, 37)])
 def test_trajectory_attention_core_kernel(gen, full_f32, b, f, n, dtype):
     """K3 in bf16 (TRAJ_ULPS) and in f32 (F32_REL_BOUND) against its plain
     version; q, k, v of two dtypes raise."""
@@ -405,6 +410,35 @@ def test_trajectory_attention_core_kernel_f32_repeatable(gen, full_f32):
     outs = [trajectory_attention_core(*args, 2, 8) for _ in range(50)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+def test_cc_module_launches_k3_over_clips(gen, full_f32):
+    """The cross-clip module of 6 layers on a 9-clip video of 128 queries
+    (K3 in f32 at f = 9, one launch a layer) against the same module on
+    the CPU (K3's plain version), within 1e-3 of max|out| (the bound of
+    chip_smoke.py's f32 model references: a LayerNorm of the sum of six
+    layers of f32 sums in other orders)."""
+    import copy
+
+    from axial_vs_tpu_torch.models.cc_module import CrossClipTrackingModule
+    from axial_vs_tpu_torch.models.kmax import materialize
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    dev = torch.device("cuda")
+    model = materialize(CrossClipTrackingModule(124, device=torch.device("meta")),
+                        dev, gen, None)
+    clips = 9
+    query = torch.randn(1, 128, clips, 256, generator=gen, device=dev)
+    pixel = torch.randn(clips, 2 * 12, 20, 128, generator=gen, device=dev)
+    before = trajectory_attention_core.launches
+    with torch.inference_mode():
+        got = model(query, pixel)
+    assert trajectory_attention_core.launches == before + 6
+    with torch.inference_mode():
+        want = copy.deepcopy(model).cpu()(query.cpu(), pixel.cpu())
+    for k in ("pred_logits", "pred_masks"):
+        err = (got[k].cpu() - want[k]).abs().max().item()
+        assert err <= 1e-3 * want[k].abs().max().item(), k
 
 
 def test_kernels_refuse_grad(gen):
