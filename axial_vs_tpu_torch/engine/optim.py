@@ -5,10 +5,17 @@ rules (counterpart of ``axial_vs_tpu/engine/optim.py``; the reference's
 The JAX package matches its rules against flax paths; ``param_rules``
 matches the same rules against the port's ``state_dict`` names, which
 differ where a module owns a norm (``bn1``, ``downsample.1``,
-``_in_norms.0``, ``input_proj.0.1``, ``stem.1``) and in the ConvNeXt
-layout (``stem``, ``stages.{i}.downsample``, ``stages.{i}.blocks.{j}``).
-``tests/test_torch_train.py`` holds every parameter's (lr_mult, wd) equal
-to JAX's for the same parameter.
+``_in_norms.0``, ``input_proj.0.1``, ``stem.1``, the cross-clip module's
+``conv_norms.{i}``) and in the ConvNeXt layout (``stem``,
+``stages.{i}.downsample``, ``stages.{i}.blocks.{j}``).
+``tests/test_torch_train.py`` (the WC model) and
+``tests/test_torch_cc_train.py`` (the CC module) hold every parameter's
+(lr_mult, wd) equal to JAX's for the same parameter.
+
+Only parameters that require grad are optimized: a frozen module (the
+segmenter of the cross-clip model) is in no group, so neither its
+gradient nor weight decay moves it, as the JAX CC tool masks it out of
+AdamW (``tools/validate_overfit_cc.py:155-165``).
 
 The update is torch's AdamW, one parameter group per distinct (lr_mult,
 wd): p -= lr * lr_mult * (m_hat / (sqrt(v_hat) + eps) + wd * p), with lr
@@ -28,7 +35,8 @@ _HEAD_NAMES = ("class_embedding_projection", "mask_embedding_projection",
 #: port modules that are norms but whose name holds no "norm"
 _NORM_OWNER = re.compile(
     r"(^|\.)(bn\d|layer\d\.\d+\.downsample\.1|_in_norms\.\d+|"
-    r"(input|output)_proj\.\d+\.1|stem\.1|stages\.\d+\.downsample\.0)$")
+    r"(input|output)_proj\.\d+\.1|stem\.1|stages\.\d+\.downsample\.0|"
+    r"conv_norms\.\d+)$")
 
 
 def param_rules(cfg):
@@ -135,17 +143,19 @@ class AdamW(torch.optim.AdamW):
 
 
 def build_optimizer(cfg, model: torch.nn.Module, lr_schedule: Callable):
-    """(optimizer, scheduler) for ``model``'s parameters: an ``AdamW`` with
-    one group per distinct (lr_mult, wd) of ``param_rules`` (each group
-    keeps its ``lr_mult`` and parameter ``names``), and a ``LambdaLR`` that
-    sets each group's LR to lr_mult x ``lr_schedule(step)``; call its
-    ``step()`` after each optimizer step."""
+    """(optimizer, scheduler) for ``model``'s parameters that require grad:
+    an ``AdamW`` with one group per distinct (lr_mult, wd) of
+    ``param_rules`` (each group keeps its ``lr_mult`` and parameter
+    ``names``), and a ``LambdaLR`` that sets each group's LR to lr_mult x
+    ``lr_schedule(step)``; call its ``step()`` after each optimizer step."""
     if cfg.solver.optimizer.lower() != "adamw":
         raise NotImplementedError(f"optimizer {cfg.solver.optimizer!r} is "
                                   "not ported")
     rule = param_rules(cfg)
     groups = {}
     for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
         group = groups.setdefault(rule(name), {"params": [], "names": []})
         group["params"].append(p)
         group["names"].append(name)

@@ -16,9 +16,11 @@ def train_step(model, criterion, optimizer, scheduler, batch, generator,
     called after each part of the step ("forward", "criterion",
     "backward", "optimizer"), e.g. to record a CUDA event there.
 
-    A parameter that the loss does not reach gets a zero gradient, so that
-    the update decays it as the JAX step does (its gradient there is
-    zero)."""
+    A parameter of the optimizer that the loss does not reach gets a zero
+    gradient, so that the update decays it as the JAX step does (its
+    gradient there is zero). A frozen parameter (``requires_grad`` off:
+    the cross-clip model's segmenter) is in no optimizer group, so it gets
+    no gradient and no update."""
     mark = mark or (lambda name: None)
     model.train()
     optimizer.zero_grad(set_to_none=True)

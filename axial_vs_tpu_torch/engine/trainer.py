@@ -11,7 +11,16 @@ and Gumbel draws from one explicit generator on the device, seeded from
 (preemption: the loop saves and stops). The eval hook calls ``eval_fn``
 every ``test.eval_period`` steps, switching to the intervals of
 ``test.dynamic_eval_intervals`` past their milestones, and at the end;
-``Trainer.evaluate`` is the VIPSeg hook (``evaluate_vipseg``).
+``Trainer.evaluate`` is the VIPSeg hook (``evaluate_vipseg``, with
+``CCInferencePipeline`` for a cross-clip model).
+
+A cross-clip model (``MaXTronCCModel``, built from a ``MaXTronCCDeepLab``
+config) trains its CC module on the frozen segmenter, one video of
+``input.num_video_frames`` frames a step (``solver.ims_per_batch`` must be
+1, as in the JAX model and CC tool);
+``model.weights`` may be a trained WC segmenter's
+(``utils/convert.py::wc_to_cc``). Checkpoints carry the whole model, the
+frozen segmenter unchanged, and the optimizer state of the CC module.
 
 A resumed run restores the model (with its BatchNorm statistics), the
 optimizer, the schedule, the generator and the step. With a synchronous
@@ -33,6 +42,7 @@ from ..data.build import build_mapper
 from ..data.catalog import DatasetCatalog
 from ..data.loader import ClipDataLoader, device_prefetch, to_device
 from ..models.build import build_model_and_criterion
+from ..models.maxtron_cc import MaXTronCCModel
 from ..utils import convert
 from .checkpoint import CheckpointManager
 from .logger import MetricsLogger, setup_logger
@@ -52,6 +62,14 @@ class Trainer:
         self.model, self.criterion = build_model_and_criterion(
             cfg, train=True, device=self.device,
             generator=torch.Generator(device=self.device).manual_seed(cfg.seed))
+        #: a cross-clip model: its weights, batch and eval pipeline differ
+        self.cross_clip = isinstance(self.model, MaXTronCCModel)
+        if self.cross_clip and cfg.solver.ims_per_batch != 1:
+            raise ValueError(
+                f"solver.ims_per_batch {cfg.solver.ims_per_batch}: the "
+                "cross-clip model trains one video a step (its CC module "
+                "reasons over one video's clips, as the JAX model and CC "
+                "tool do); set solver.ims_per_batch 1")
 
         datasets = []
         for name in cfg.datasets.train:
@@ -101,15 +119,19 @@ class Trainer:
         ``state_dict``, or a checkpoint with one under "model"), or a
         pickle of a JAX parameter tree as numpy ({"params",
         "batch_stats"}, or the params alone: the JAX trainer's form),
-        mapped through ``utils/convert.py``. Every key must match."""
+        mapped through ``utils/convert.py``. A cross-clip model also takes
+        a WC segmenter's weights in any of these forms
+        (``convert.wc_to_cc``: the segmenter from the file, the CC module
+        as built). Every key must match."""
+        own = self.model.state_dict()
         if os.path.isdir(path):
             state = CheckpointManager(path).restore()
             if state is None:
                 raise FileNotFoundError(f"no checkpoint in {path}")
-            self.model.load_state_dict(state["model"])
+            sd = state["model"]
         elif zipfile.is_zipfile(path):
             state = torch.load(path, map_location="cpu", weights_only=True)
-            self.model.load_state_dict(state.get("model", state))
+            sd = state.get("model", state)
         else:
             with open(path, "rb") as f:
                 tree = pickle.load(f)
@@ -119,10 +141,12 @@ class Trainer:
             sd = convert.convert_variables({"params": tree["params"],
                                             "batch_stats": stats})
             if not stats:  # params only: keep the model's statistics
-                own = self.model.state_dict()
-                sd.update({k: own[k].cpu().numpy() for k in own
-                           if k not in sd})
-            convert.load_into(self.model, sd)
+                pre = "segmenter." if self.cross_clip else ""
+                sd.update({k[len(pre):]: own[k] for k in own
+                           if k.startswith(pre) and k[len(pre):] not in sd})
+        if self.cross_clip and not any(k.startswith("segmenter.") for k in sd):
+            sd = convert.wc_to_cc(sd, own)
+        convert.load_into(self.model, sd)
         self.logger.info(f"loaded weights from {path}")
 
     def resume_or_load(self, resume: bool):
@@ -138,9 +162,13 @@ class Trainer:
     # -- eval hook -------------------------------------------------------------
     def evaluate(self, **kwargs):
         """``evaluate_vipseg`` on ``cfg.datasets.test[0]`` with the model in
-        eval mode; the model returns to train mode."""
+        eval mode (a cross-clip model through ``CCInferencePipeline``); the
+        model returns to train mode."""
+        from ..models.video_inference import CCInferencePipeline
         from .evaluator_loop import evaluate_vipseg
 
+        if self.cross_clip:
+            kwargs.setdefault("pipeline_cls", CCInferencePipeline)
         self.model.eval()
         try:
             return evaluate_vipseg(self.cfg, self.model, **kwargs)

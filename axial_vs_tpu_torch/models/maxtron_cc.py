@@ -2,10 +2,16 @@
 cross-clip module (counterpart of ``axial_vs_tpu/models/maxtron_cc.py``).
 
 The segmenter runs the video clip by clip, in ``eval()`` and without
-gradients (the JAX package's ``stop_gradient``: it is frozen). Each clip's
-cluster centers are aligned to the previous clip's slots by a linear
-assignment on the cosine cost of their mask embeddings, and the CC module
-reasons over the aligned centers of the whole video.
+gradients (the JAX package's ``stop_gradient``). It is frozen, as the
+reference freezes it (``maxtron_cc_model.py:104-108``): its parameters do
+not require grad, so it takes no gradient, and ``engine/optim.py`` puts
+none of them in the optimizer, so no update or weight decay moves it; its
+BatchNorm statistics stay as loaded, since it never leaves ``eval()``.
+Each clip's cluster centers are aligned to the previous clip's slots by a
+linear assignment on the cosine cost of their mask embeddings (the device
+auction, as the JAX builder fixes it, in training and at inference), and
+the CC module, the one part that trains, reasons over the aligned centers
+of the whole video.
 """
 from __future__ import annotations
 
@@ -49,9 +55,9 @@ class MaXTronCCModel(nn.Module):
     of ``num_clip_frames`` -> the CC outputs of the video.
 
     ``segmenter`` is a within-clip ``KMaXSegmenter`` of ``num_clip_frames``
-    frames; it stays in ``eval()`` whatever mode the model is put in. The
-    clips are aligned by the auction, as the JAX package's builder fixes
-    it."""
+    frames; it is frozen (``requires_grad`` off) and stays in ``eval()``
+    whatever mode the model is put in. The clips are aligned by the
+    auction, as the JAX package's builder fixes it."""
 
     def __init__(self, segmenter, cc_module: CrossClipTrackingModule,
                  num_clip_frames: int = 2):
@@ -59,6 +65,7 @@ class MaXTronCCModel(nn.Module):
         self.segmenter = segmenter
         self.cc_module = cc_module
         self.num_clip_frames = num_clip_frames
+        self.segmenter.requires_grad_(False)
         self.segmenter.eval()
 
     def train(self, mode: bool = True):

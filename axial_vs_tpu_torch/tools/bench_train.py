@@ -81,9 +81,11 @@ def train_config(image_size=(713, 713), backbone: str = "resnet50",
     return load_config(yaml, opts)
 
 
-def synthetic_batch(num_classes: int, image_size, device):
-    """The JAX tool's batch: targets then frames from RandomState(0)."""
-    b, t, m = CLIPS, CLIP_FRAMES, GT_SEGMENTS
+def synthetic_batch(num_classes: int, image_size, device,
+                    frames: int = CLIP_FRAMES):
+    """The JAX tool's batch: targets then frames from RandomState(0); one
+    clip of ``frames`` frames (a cross-clip video: 8)."""
+    b, t, m = CLIPS, frames, GT_SEGMENTS
     h4, w4 = ((s + 3) // 4 for s in image_size)
     rs = np.random.RandomState(0)
     targets = {

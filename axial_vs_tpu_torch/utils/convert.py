@@ -12,7 +12,8 @@ names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``);
 (the segmenter and the CC module, whose names follow the upstream module:
 ``trajectory_attn{i}`` -> ``transformer_trajectory_self_attention_layers.
 {i}.self_attn``, ``aspp{i}`` -> ``conv_short_aggregate_layers.{i}``), and
-``prepare_cc_weights`` is the WC -> CC surgery on a port state_dict. Layout
+``prepare_cc_weights`` is the WC -> CC surgery on a port state_dict, and
+``wc_to_cc`` seeds a CC model with a trained WC segmenter. Layout
 changes:
 
 - conv kernels HWIO (kh, kw, I, O) -> OIHW; 1-D (k, I, O) -> (O, I, k);
@@ -453,6 +454,39 @@ def prepare_cc_weights(state_dict: dict) -> dict:
     return out
 
 
+#: the WC training model's auxiliary semantic head: the frozen segmenter of
+#: a CC model is built for inference and has none
+_AUX_SEMANTIC = "._auxiliary_semantic_predictor."
+
+
+def wc_to_cc(wc: dict, cc_state: dict) -> dict:
+    """The state_dict of a CC model whose segmenter holds the weights of a
+    trained WC segmenter, as the JAX CC tool seeds its run
+    (``params["segmenter"] = wc["params"]``, ``tools/
+    validate_overfit_cc.py:147-153``). ``wc``: a port WC segmenter's
+    state_dict, or a JAX WC tree {"params", "batch_stats"} as numpy (what
+    ``tools/validate_overfit.py --save-params`` writes). ``cc_state``: the
+    CC model's own state_dict, whose ``cc_module.*`` entries are kept (its
+    init); ``prepare_cc_weights`` of the result clones the segmenter's final
+    projections and heads into them.
+
+    Every key of ``wc`` must land in the segmenter, and every segmenter key
+    must come from ``wc``, except the WC training model's auxiliary
+    semantic head, which the frozen segmenter does not run (JAX's apply
+    ignores those parameters); ``KeyError`` otherwise."""
+    if "params" in wc:
+        wc = convert_variables(wc)
+    out = {f"segmenter.{k}": v for k, v in wc.items() if _AUX_SEMANTIC not in k}
+    want = {k for k in cc_state if k.startswith("segmenter.")}
+    missing, extra = sorted(want - set(out)), sorted(set(out) - want)
+    if missing or extra:
+        raise KeyError(f"not a WC segmenter of this CC model: missing "
+                       f"{missing[:5]} extra {extra[:5]}")
+    out.update({k: v for k, v in cc_state.items()
+                if k.startswith("cc_module.")})
+    return out
+
+
 # ---- Tube-Link --------------------------------------------------------------
 
 def tube_link_pixel_decoder(p) -> dict:
@@ -522,8 +556,8 @@ def tube_link_vis(variables) -> dict:
 
 
 def load_into(model, state_dict: dict):
-    """Copy a numpy state_dict into ``model`` (strict: every key must match,
-    and every shape)."""
+    """Copy a state_dict of numpy arrays or tensors into ``model`` (strict:
+    every key must match, and every shape)."""
     import torch
 
     own = model.state_dict()
@@ -536,5 +570,6 @@ def load_into(model, state_dict: dict):
             if tuple(own[k].shape) != tuple(np.shape(v)):
                 raise ValueError(f"{k}: {tuple(np.shape(v))} != "
                                  f"{tuple(own[k].shape)}")
-            own[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+            own[k].copy_(v if torch.is_tensor(v)
+                         else torch.from_numpy(np.ascontiguousarray(v)))
     return model

@@ -72,6 +72,19 @@ Phases, in order; any failure exits non-zero before the last line:
                inputs (bound 1e-3); the first clip pair's device auction
                on the card equal to the CPU's; frames/s, the parts' ms,
                the alignment's ms and kernels a pair, peak memory a video
+ 11c. train cc convnext_large - 3 steps of ``train_step`` on the CC model
+               of the same yaml at full width (``build_model_and_criterion(
+               train=True)``: the frozen bf16 ConvNeXt-L segmenter, the f32
+               CC module, the config's criterion and optimizer) on one
+               synthetic 8-frame video at 713x713 with 24 GT segments:
+               finite losses, K3 in f32 at f = 4 clips 6 times a step on
+               the card beside the segmenter's launches, finite f32
+               gradients of every CC parameter (the trajectory
+               projections' non-zero), the optimizer holding only the CC
+               module, the segmenter bitwise unchanged and the CC module
+               moved; K3's f32 backward at the first step's inputs against
+               autograd of its plain version; ms a step and its parts, the
+               alignment's kernels a pair (step 0's first, again), peak memory
  12. Tube-Link slice - the Tube-Link R50 VIS inference at 360x640, tubes of
                5 frames, bf16, random weights from a seed: a 15-frame video
                (3 tubes) through ``TubeLinkVISInference.run_video``, 30
@@ -1100,8 +1113,9 @@ def _function_grads(torch, fn, args, seed):
         return out.detach(), torch.autograd.grad(out, wanted, ct)
 
 
-def _check_train_backward(torch, captured):
-    """K2's and K3's autograd Functions against autograd of their plain
+def _check_train_backward(torch, captured, keys=("K2", "K3")):
+    """The autograd Functions of ``keys`` (K2, K3; each must be in
+    ``captured``, else ``KeyError``) against autograd of their plain
     versions at the captured inputs: the forward (kernel against plain;
     f32: ``F32_REL_BOUND`` of max|out|, bf16: 2 bf16 ulp for K2 and
     ``TRAJ_ULPS`` for K3) and each input's gradient, max |diff| / max |ref|
@@ -1111,11 +1125,13 @@ def _check_train_backward(torch, captured):
                                              trajectory_attention_core,
                                              trajectory_attention_core_plain)
 
+    functions = {
+        "K2": (ms_deform_attn, ms_deform_attn_plain, 2),
+        "K3": (trajectory_attention_core, trajectory_attention_core_plain,
+               TRAJ_ULPS)}
     out = {}
-    for key, fn, plain, ulps in (
-            ("K2", ms_deform_attn, ms_deform_attn_plain, 2),
-            ("K3", trajectory_attention_core, trajectory_attention_core_plain,
-             TRAJ_ULPS)):
+    for key in keys:
+        fn, plain, ulps = functions[key]
         got, g_got = _function_grads(torch, fn, captured[key], 7)
         want, g_want = _function_grads(torch, plain, captured[key], 7)
         bf16 = got.dtype == torch.bfloat16
@@ -1757,6 +1773,20 @@ def widen_cc_predictor(torch, model):
         pred._pixel_space_mask_batch_norm.weight.fill_(3.0)
 
 
+def cuda_spans(torch, spans: list, fn):
+    """``fn`` with CUDA events recorded around each call, appended to
+    ``spans`` as (start, end)."""
+    def wrapper(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+    return wrapper
+
+
 def phase_cc_eval(torch, root: str, card: str):
     """``evaluate_vipseg`` with ``CCInferencePipeline`` over the two
     synthetic videos with the full-size CC model (its predictor widened so
@@ -1808,15 +1838,7 @@ def phase_cc_eval(torch, root: str, card: str):
     peaks, ids, finals, cc_inputs, box = [], {}, {}, {}, {}
 
     def timed(key, fn):
-        def wrapper(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans[key].append((start, end))
-            return out
-        return wrapper
+        return cuda_spans(torch, spans[key], fn)
 
     real_cc = model.cc_module.forward
 
@@ -1974,6 +1996,300 @@ def phase_cc_eval(torch, root: str, card: str):
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+#: the CC training phase: frames of its one video a step (4 clips of 2), K3
+#: calls a step in f32 at f = clips (one a CC layer) and in bf16 in the
+#: segmenter (16 a clip), the alignment's clip pairs a step
+CC_TRAIN_FRAMES = 8
+CC_TRAIN_CLIPS = CC_TRAIN_FRAMES // T
+CC_TRAIN_PAIRS = CC_TRAIN_CLIPS - 1
+#: the CC module's trajectory projections, whose gradients must be non-zero
+CC_TRAJ_PROJECTIONS = ("self_attn.qkv.weight", "self_attn.proj_q.weight",
+                       "self_attn.proj_kv.weight", "self_attn.proj.weight")
+
+
+@contextlib.contextmanager
+def cc_traj_calls(box: dict):
+    """While active, every K3 call of the trajectory layers is kept in
+    ``box["calls"]`` as (device, dtype, frames), and the arguments of the
+    first f32 call (the CC module's) in ``box["K3"]`` (detached copies on
+    the card, with each tensor's ``requires_grad``)."""
+    import torch
+
+    from axial_vs_tpu_torch.layers import trajectory_attention
+
+    real = trajectory_attention.trajectory_attention_core
+    box.setdefault("calls", [])
+
+    def call(*args, **kwargs):
+        box["calls"].append((args[0].device.type, str(args[0].dtype)[6:],
+                             int(args[7])))
+        if args[0].dtype == torch.float32 and "K3" not in box:
+            box["K3"] = tuple(_Leaf((a.detach().clone(), a.requires_grad))
+                              if torch.is_tensor(a) else a for a in args)
+        return real(*args, **kwargs)
+
+    trajectory_attention.trajectory_attention_core = call
+    try:
+        yield
+    finally:
+        trajectory_attention.trajectory_attention_core = real
+
+
+#: the residual-ending BatchNorms of the segmenter's k-means layers, whose
+#: gamma the upstream init sets to 0
+KMAX_RESIDUAL_NORMS = ("_query_conv3_bn.norm.weight",
+                       "_query_ffn_conv2_bn.norm.weight",
+                       "_kmeans_query_conv3_bn.norm.weight")
+
+
+#: the gamma ``wake_cc_segmenter`` gives them. The k-means update sums the
+#: pixel features of each cluster, so the centers grow with the pixels: at
+#: 713x713 a gamma of 1 makes them so large that the CC module's first
+#: trajectory softmax is one-hot in f32 (its ``proj_q`` gradient 0 on the
+#: card), 0.1 reaches |976|, 0.01 |84.5| with every clip's centers apart
+#: (a CPU run of this model at 713x713)
+KMAX_RESIDUAL_GAMMA = 0.01
+
+
+def wake_cc_segmenter(torch, model):
+    """At its own inits the segmenter's k-means layers end each residual
+    branch with a BatchNorm of gamma 0, so every clip's cluster centers are
+    the learned queries, the same for every clip: the CC module would see
+    one clip repeated, its temporal softmax could not depend on the query
+    (``proj_q``'s gradient exactly 0) and the alignment would have nothing
+    to align. As a trained segmenter has, those gammas are set non-zero
+    (``KMAX_RESIDUAL_GAMMA``), so that the centers depend on the clip."""
+    with torch.no_grad():
+        for n, p in model.segmenter.named_parameters():
+            if n.endswith(KMAX_RESIDUAL_NORMS):
+                p.fill_(KMAX_RESIDUAL_GAMMA)
+
+
+def phase_train_cc_convnext_large(torch, card: str):
+    """``TRAIN_STEPS`` steps of ``train_step`` on the CC model of
+    ``configs/vipseg/maxtron_cc_convnext_large.yaml`` at full width, built
+    by ``build_model_and_criterion(train=True)``: the frozen bf16
+    ConvNeXt-L segmenter (3/3/27/3 blocks of 192-1536, ``eval()``, 2-frame
+    clips) under the 6-layer f32 CC module (256 channels, 128 queries, 124
+    classes), the device auction between clips, the config's criterion
+    (class and mask losses, exact matching) and ``build_optimizer`` (the
+    yaml's schedule without its warm-up), the segmenter's k-means gammas
+    woken (``wake_cc_segmenter``), on
+    ``tools/bench_train.py``'s batch over one video of 8 frames at 713x713
+    with 24 GT segments. Checks each step's losses and launches (K3 in f32
+    at f = 4 clips, 6 a step, only on card tensors, beside the segmenter's
+    K1, K2 and bf16 K3), every CC parameter's gradient (f32, finite;
+    non-zero for the trajectory projections), the segmenter bitwise
+    unchanged and the CC module moved after the steps, and K3's f32
+    backward at the first step's inputs against autograd of its plain
+    version. Prints ms a step and its parts (CUDA events), the
+    alignment's kernels a pair (``torch.profiler`` over step 0's first
+    pair, again; a step has three) and peak memory. Returns the launch counts of the
+    steps and the backward check."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.engine.lr_schedule import tf2_warmup_poly_lr
+    from axial_vs_tpu_torch.engine.optim import build_optimizer
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.models import maxtron_cc
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.tools import bench_train
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = load_config("vipseg/maxtron_cc_convnext_large.yaml",
+                      ["input.image_size", list(TRAIN_HW),
+                       "solver.ims_per_batch", 1])
+    c = cfg.model.backbone.convnext
+    if not (tuple(c.depths) == CONVNEXT_L_DEPTHS and c.dims[-1] == 1536
+            and cfg.model.dtype == "bfloat16"
+            and cfg.model.maxtron.cc.num_layers == CC_LAYERS
+            and cfg.input.num_video_frames == CC_TRAIN_FRAMES
+            and cfg.model.kmax.trans_dec.num_object_queries == 128):
+        raise AssertionError(f"not the CC ConvNeXt-L yaml: {cfg.model}")
+    model, criterion = build_model_and_criterion(
+        cfg, train=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    # the yaml's poly schedule without its warm-up: its first LRs (4e-8, a
+    # tenth of it in the heads) are under half an ulp of a gamma at 1, so
+    # three steps would leave some CC tensors in place
+    sol = cfg.solver
+    optimizer, scheduler = build_optimizer(cfg, model, tf2_warmup_poly_lr(
+        sol.base_lr, sol.max_iter, warmup_iters=0, power=sol.poly_power))
+    parts = (model, criterion, optimizer, scheduler)
+    batch = bench_train.synthetic_batch(cfg.model.num_classes, TRAIN_HW, dev,
+                                        frames=CC_TRAIN_FRAMES)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    held = {n for g in optimizer.param_groups for n in g["names"]}
+    cc_names = {f"cc_module.{n}" for n, _ in model.cc_module.named_parameters()}
+    log(f"train cc convnext_large: built the CC training model, "
+        f"{sum(p.numel() for p in model.segmenter.parameters()) / 1e6:.1f} M "
+        f"frozen segmenter parameters, "
+        f"{sum(p.numel() for p in model.cc_module.parameters()) / 1e6:.2f} M "
+        f"CC parameters (the optimizer holds {len(held)} tensors), losses "
+        f"{criterion.losses}, {time.perf_counter() - t0:.2f} s")
+    if held != cc_names or model.segmenter.training or not model.training:
+        raise AssertionError("the optimizer holds other than the CC module, "
+                             "or the segmenter is not frozen in eval()")
+    wake_cc_segmenter(torch, model)
+    seg0 = {n: v.clone() for n, v in model.segmenter.state_dict().items()}
+    cc0 = {n: v.clone() for n, v in model.cc_module.state_dict().items()}
+    with torch.inference_mode():  # warm-up of the segmenter, not counted
+        model.segmenter(torch.zeros(T, *TRAIN_HW, 3, device=dev))
+    torch.cuda.synchronize()
+
+    # CUDA events around the step's parts (informational)
+    spans = {k: [] for k in ("segmenter", "alignment", "cc_forward")}
+
+    def timed(key, fn):
+        return cuda_spans(torch, spans[key], fn)
+
+    align_in = {}
+
+    def align(embeddings, centers, *args, **kwargs):
+        align_in.setdefault("args", (embeddings.clone(), centers.clone()))
+        return real_align(embeddings, centers, *args, **kwargs)
+
+    real_align = maxtron_cc.align_clip_queries
+    maxtron_cc.align_clip_queries = timed("alignment", align)
+    model.clip_outputs = timed("segmenter", model.clip_outputs)
+    model.cc_module.forward = timed("cc_forward", model.cc_module.forward)
+    torch.cuda.reset_peak_memory_stats()
+    totals = {k: 0 for k in counted_kernels()}
+    captured, ms, steps = {}, [], []
+    want = expect(K1=CONVNEXT_L_BLOCKS * CC_TRAIN_CLIPS,
+                  K2=K2_WC_CALLS * CC_TRAIN_CLIPS,
+                  K3=4 * K3_WC_CALLS * CC_TRAIN_CLIPS + CC_LAYERS)
+    want_calls = sorted(
+        [(dev.type, "bfloat16", T)] * (4 * K3_WC_CALLS * CC_TRAIN_CLIPS)
+        + [(dev.type, "float32", CC_TRAIN_CLIPS)] * CC_LAYERS)
+    try:
+        for step in range(TRAIN_STEPS):
+            box = captured if step == 0 else {}
+            marks = {}
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks[name] = ev
+
+            for v in spans.values():
+                v.clear()
+            reset_counts()
+            with cc_traj_calls(box):
+                mark("start")
+                losses = train_step(*parts, batch, gen, mark=mark)
+                torch.cuda.synchronize()
+            launches = read_counts()
+            for k, v in launches.items():
+                totals[k] += v
+            ms.append(marks["start"].elapsed_time(marks["optimizer"]))
+            span = {k: sum(a.elapsed_time(b) for a, b in v)
+                    for k, v in spans.items()}
+            steps.append({
+                **span,
+                "criterion": marks["forward"].elapsed_time(marks["criterion"]),
+                "backward": marks["criterion"].elapsed_time(marks["backward"]),
+                "optimizer": marks["backward"].elapsed_time(
+                    marks["optimizer"])})
+            cc_grads = {n: p.grad for n, p in model.named_parameters()
+                        if n in cc_names}
+            finite = all(g is not None and g.dtype == torch.float32
+                         and bool(g.isfinite().all()) for g in cc_grads.values())
+            proj = {n: g.abs().max().item() for n, g in cc_grads.items()
+                    if g is not None and n.endswith(CC_TRAJ_PROJECTIONS)}
+            seg_grads = [p for p in model.segmenter.parameters()
+                         if p.grad is not None]
+            calls = sorted(box["calls"])
+            log(f"train cc convnext_large step {step}: total_loss "
+                f"{losses['total_loss']:.6g}, {len(losses) - 1} losses; "
+                f"launches {launches} (want {want}); K3 calls (device, dtype, "
+                f"frames) {sorted(set(calls))}, {calls.count(want_calls[-1])} "
+                f"of them f32 at f={CC_TRAIN_CLIPS}; CC gradients f32 and "
+                f"finite {finite}, {len(proj)} trajectory projections, min "
+                f"max|grad| {min(proj.values()):.3g}; {len(seg_grads)} "
+                f"segmenter gradients; {ms[-1]:.2f} ms")
+            if not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"train cc step {step}: losses {losses}")
+            if (launches != want or calls != want_calls or not finite
+                    or len(proj) != 4 * CC_LAYERS or seg_grads):
+                raise AssertionError(
+                    f"train cc step {step}: launches {launches}, K3 calls "
+                    f"{sorted(set(calls))}, finite {finite}, {len(proj)} "
+                    f"projections, {len(seg_grads)} segmenter gradients")
+            if not min(proj.values()) > 0:
+                raise AssertionError(f"train cc step {step}: zero projection "
+                                     f"grads {[n for n, v in proj.items() if v == 0]}")
+    finally:
+        maxtron_cc.align_clip_queries = real_align
+        del model.clip_outputs, model.cc_module.forward
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reached = {n for n, p in model.cc_module.named_parameters()
+               if p.grad is not None and p.grad.any()}
+    changed_seg = [n for n, v in model.segmenter.state_dict().items()
+                   if not torch.equal(v, seg0[n])]
+    moved = {n for n, v in model.cc_module.state_dict().items()
+             if not torch.equal(v, cc0[n])}
+    stats = {n for n in cc0 if "running" in n}
+    log(f"train cc convnext_large after {TRAIN_STEPS} steps: {len(changed_seg)}"
+        f" of {len(seg0)} segmenter tensors changed; {len(moved)} of "
+        f"{len(cc0)} CC module tensors moved (every one of the {len(reached)} "
+        f"with a non-zero gradient: {reached <= moved}; BatchNorm statistics "
+        f"{len(stats & moved)} of {len(stats)})")
+    if changed_seg or not reached <= moved or stats - moved:
+        raise AssertionError(f"train cc: segmenter changed {changed_seg[:5]}, "
+                             f"CC not moved {sorted(reached - moved)[:5]} "
+                             f"{sorted(stats - moved)}")
+    del seg0, cc0
+    # the profiler's bookkeeping takes about 16 s a pair of 75,800 kernels:
+    # step 0's first pair alone, again
+    lap = Laps("train cc convnext_large")
+    embeddings, centers = align_in.pop("args")
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        real_align(embeddings[:2], centers[:2], exact=False)
+        torch.cuda.synchronize()
+    pair_kernels = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    del prof
+    lap(f"step 0's first clip pair aligned again under the profiler "
+        f"({pair_kernels} kernels)")
+    del parts, model, batch, optimizer, scheduler
+    torch.cuda.empty_cache()
+    args = captured.pop("K3")
+    if args[7] != CC_TRAIN_CLIPS:
+        raise AssertionError(f"the captured K3 call has f = {args[7]}")
+    backward = _check_train_backward(torch, {"K3": args}, ("K3",))
+    # K3's autograd Function at these inputs, warm: the kernel forward alone
+    # and the forward with the plain-VJP backward
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+    plain_args = [a[0] if isinstance(a, _Leaf) else a for a in args]
+    with torch.no_grad():
+        fwd = cuda_ms(torch, lambda: trajectory_attention_core(*plain_args),
+                      launches=5, repeats=3)
+    both = cuda_ms(torch, lambda: _function_grads(
+        torch, trajectory_attention_core, args, 7), launches=5, repeats=3)
+    backward["K3"].update(forward_ms=fwd, forward_backward_ms=both)
+    log(f"train cc convnext_large, K3 f32 at f={CC_TRAIN_CLIPS}, n=128 "
+        f"({card}): the kernel forward {fwd:.4f} ms, forward and plain-VJP "
+        f"backward {both:.4f} ms a call (CUDA events, warm, the inputs' "
+        f"copies included)")
+    del captured, args, plain_args
+    med = statistics.median(ms)
+    part_ms = {k: statistics.median(s[k] for s in steps) for k in steps[0]}
+    log(f"train cc convnext_large ({card}): {TRAIN_STEPS} steps of one "
+        f"{CC_TRAIN_FRAMES}-frame video at {TRAIN_HW[0]}x{TRAIN_HW[1]} "
+        f"({CC_TRAIN_CLIPS} clips, {CC_TRAIN_PAIRS} aligned pairs), 24 GT "
+        f"segments: ms per step {', '.join(f'{t:.2f}' for t in ms)} (median "
+        f"{med:.2f}, CUDA events, eager, first step included); median parts "
+        + ", ".join(f"{k} {v:.2f} ms ({v / med:.3f})"
+                    for k, v in part_ms.items())
+        + f"; the alignment's first pair {pair_kernels} kernels (about "
+        f"{CC_TRAIN_PAIRS * pair_kernels} a step of {CC_TRAIN_PAIRS} pairs); "
+        f"peak memory "
+        f"{peak:.3f} GiB; launches {totals}")
+    return totals, backward
 
 
 def phase_mlp_route(torch):
@@ -2817,6 +3133,8 @@ def main() -> int:
     paths["cc_eval_2_videos"] = timed_phase(
         "cc eval", in_temp_dir, "chip_smoke_cc_",
         lambda root: phase_cc_eval(torch, root, card))
+    paths["train_cc_convnext_large_3_steps"], train_backward_cc = timed_phase(
+        "train cc convnext_large", phase_train_cc_convnext_large, torch, card)
     model, paths["tube_link_3_tubes"] = timed_phase(
         "tube-link", phase_tube_link, torch, captured)
     timed_phase("tube-link reference", phase_tube_link_reference, torch, model)
@@ -2876,7 +3194,9 @@ def main() -> int:
             **results[key], **({"train_backward": train_backward[key],
                                 "train_backward_bf16":
                                     train_backward_bf16[key]}
-                               if key in train_backward else {})})
+                               if key in train_backward else {}),
+            **({"train_backward_cc_f32": train_backward_cc[key]}
+               if key in train_backward_cc else {})})
     log("msda bench, ms per layer: " + ", ".join(
         f"{k} {v:.4f}" for k, v in variant_ms.items()))
     log(card)  # as nvidia-smi gives it: name, power limit

@@ -555,6 +555,73 @@ def test_trajectory_attention_core_autograd(gen, full_f32, dtype):
                     [*args, 2, 8], 2)
 
 
+@pytest.mark.parametrize("b,f,n", [(1, 4, 128), (1, 9, 128)])
+def test_trajectory_attention_core_autograd_cc(gen, full_f32, b, f, n):
+    """K3's autograd Function at the cross-clip (CC) module's f32 shapes:
+    one video's 128 queries over 4 clips (the CC training step's 8-frame
+    video) and over 9; the gradients of q, k, v and the stage-2 weights
+    against autograd of the plain version."""
+    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+                                             trajectory_attention_core_plain)
+
+    args = [t.requires_grad_() for t in traj_inputs(gen, b, f, n,
+                                                     dtype=torch.float32)]
+    _autograd_check(trajectory_attention_core, trajectory_attention_core_plain,
+                    [*args, f, 8], 3)
+
+
+def test_cc_train_step_on_card(gen, full_f32):
+    """One ``train_step`` of a narrow CC model (R18 segmenter in f32 with
+    its WC module at 256 channels and 8 heads, which K3 needs; 2 CC layers)
+    on one 8-frame video on the card: finite losses, the CC module's K3
+    launched once a layer at f = 4 beside the segmenter's launches, finite
+    CC gradients, the segmenter bitwise unchanged and the CC module
+    moved."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.engine.lr_schedule import tf2_warmup_poly_lr
+    from axial_vs_tpu_torch.engine.optim import build_optimizer
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    cfg = load_config("vipseg/maxtron_cc_r50.yaml", [
+        "model.backbone.name", "resnet18", "model.backbone.resnet.depth", 18,
+        "model.num_classes", 7, "input.image_size", [64, 64],
+        "model.maxtron.wc.dim_feedforward", 96,
+        "model.kmax.pixel_dec.dec_layers", [1, 1, 1, 1],
+        "model.kmax.pixel_dec.dec_channels", [32, 16, 16, 16],
+        "model.kmax.trans_dec.dec_layers", [1, 1, 1],
+        "model.kmax.trans_dec.num_object_queries", 16,
+        "model.maxtron.cc.num_layers", 2, "solver.ims_per_batch", 1])
+    dev = torch.device("cuda")
+    model, crit = build_model_and_criterion(cfg, train=True, device=dev,
+                                            generator=gen)
+    opt, sched = build_optimizer(cfg, model, tf2_warmup_poly_lr(1e-3, 10, 0))
+    frames = torch.randn(8, 64, 64, 3, generator=gen, device=dev)
+    before = trajectory_attention_core.launches
+    with torch.no_grad():
+        model.segmenter(frames[:2])
+    per_clip = trajectory_attention_core.launches - before
+    seg0 = {k: v.clone() for k, v in model.segmenter.state_dict().items()}
+    cc0 = {k: v.clone() for k, v in model.cc_module.state_dict().items()}
+    masks = torch.rand(1, 3, 8, 16, 16, generator=gen, device=dev) > 0.7
+    batch = {"images": frames, "targets": {
+        "labels": torch.tensor([[0, 3, 5]], device=dev),
+        "masks": masks.float(),
+        "valid": torch.ones(1, 3, dtype=torch.bool, device=dev)}}
+    before = trajectory_attention_core.launches
+    losses = train_step(model, crit, opt, sched, batch,
+                        torch.Generator(device=dev).manual_seed(1))
+    assert all(math.isfinite(v) for v in losses.values())
+    assert trajectory_attention_core.launches - before == 4 * per_clip + 2
+    for n, p in model.cc_module.named_parameters():
+        assert torch.isfinite(p.grad).all(), n
+    for k, v in model.segmenter.state_dict().items():
+        assert torch.equal(v, seg0[k]), k
+    assert any(not torch.equal(v, cc0[k])
+               for k, v in model.cc_module.state_dict().items())
+
+
 def test_train_step_on_card(gen, full_f32):
     """One ``train_step`` of a narrow WC training model (R18, 64x64 frames,
     T = 2, the WC module at its 256 channels and 8 heads, which K3 needs)

@@ -110,7 +110,8 @@ def test_port_imports_without_jax():
                    "tools.bench", "tools.bench_train", "data.transforms",
                    "data.build", "data.builtin", "data.loader",
                    "data.synthetic", "engine.trainer", "engine.checkpoint",
-                   "engine.logger", "models.build", "tools.train_net_video"):
+                   "engine.logger", "models.build", "tools.train_net_video",
+                   "tools.validate_overfit", "tools.validate_overfit_cc"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
