@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel axial_vs_tpu/ops/traj_pallas.py::
 // fused_trajectory_attention (Pallas body `_kernel`; math `_traj_math`). For
-// q, k, v (B', N, C), N = f * n tokens frame-major, C = h * 32, per head:
+// q, k, v (B', N, C), N = f * n tokens frame-major, C = h * d, per head:
 //   1. x[s, g] = softmax_n(scale * q_s . k_{g, :}) @ v_{g, :}   (frame g's keys)
 //   2. x_diag[s] = x[s, s / n]                                   (own frame)
 //   3. q2 = x_diag @ Wq^T + bq,  [k2 | v2][s, g] = x[s, g] @ Wkv^T + bkv
@@ -68,6 +68,20 @@
 // (One block of h warps per 16 tokens with a lane per output column, the
 // first design, streamed all 3 C^2 weights from L2 for every 16 tokens and
 // reloaded each frame's K and V for every 16 queries.)
+//
+// Head width. Every kernel is a template on the head width HD = d, 8, 16 or
+// 32 (the JAX kernel takes any d; 32 is the WC and Tube-Link layers', 8 the
+// overfit tools'), and C = h d must be a multiple of 16 (the TMA row pitch,
+// and whole 16-column steps of stage 2's k). Stage 1 works a head at a time,
+// so d sizes its tiles: the q . k product's k is d, zero-padded in registers
+// to the mma's 16 where d = 8; the PV product's n is d / 8 tiles of 8 (bf16),
+// or d / 8 columns a thread (f32). Stage 2 does not work a head at a time:
+// its unit is a group of 32 columns (GW), which holds 32 / d heads, so its
+// GEMM tiles, weights in shared memory and TMA boxes are those of d = 32 at
+// every d; only the epilogue splits a group's columns into heads, each with
+// its own logit (a sum over the head's columns across the 4 or 8 lanes that
+// share a row), softmax and sum. At d = 32 a group is one head and every
+// kernel computes what it did before the template, in the same order.
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and products, the SM count
 
@@ -76,7 +90,7 @@ namespace {
 namespace hopper = axvs_hopper;
 typedef __nv_bfloat16 bf16;
 
-constexpr int HD = 32;     // head dim
+constexpr int GW = 32;     // stage 2's columns of a group (32 / HD heads)
 // frames: both stages loop over them (stage 1 one frame at a time, stage 2
 // with an online softmax), so the bound only keeps the host's checks finite;
 // the cross-clip module runs the clip axis here, 256 clips being 512 frames
@@ -90,23 +104,31 @@ constexpr int MAX_H = 8;   // heads
 constexpr int S1_WARPS = 4;
 constexpr int S1_TQ = 16 * S1_WARPS;  // query tokens of a block
 constexpr int KCH = 64;               // keys whose scores a warp holds at once
-constexpr int K_LD = HD + 8;          // bf16 row of the staged keys: 20 words
 
-// Shared memory of stage 1: one frame's keys of one head (n_pad x K_LD) and
+// bf16 row of the staged keys: a word count 4 more than a multiple of 8 (20,
+// 12, 4 words at d = 32, 16, 8), so the 8 rows a B fragment reads fall on
+// distinct banks
+template <int HD>
+__host__ __device__ constexpr int k_ld() {
+  return HD == 8 ? 8 : HD + 8;
+}
+
+// Shared memory of stage 1: one frame's keys of one head (n_pad x k_ld) and
 // its values transposed (HD x vt_ld), zero past n. vt_ld / 2 words is 4
 // more than a multiple of 8, so the 8 rows a B fragment reads fall on
-// distinct banks; so does K_LD's 20.
+// distinct banks.
 struct Stage1Layout {
   int n_pad, vt_ld;
   size_t k, vt, total;
 };
 
+template <int HD>
 __host__ __device__ inline Stage1Layout stage1_layout(int n) {
   Stage1Layout L;
   L.n_pad = (n + 15) / 16 * 16;
   L.vt_ld = L.n_pad + 8;
   L.k = 0;
-  L.vt = (size_t)L.n_pad * K_LD * 2;
+  L.vt = (size_t)L.n_pad * k_ld<HD>() * 2;
   L.total = L.vt + (size_t)HD * L.vt_ld * 2;
   return L;
 }
@@ -143,13 +165,18 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // grid (ceil(N / 64), h, B'); 128 threads. X: (F, B' N, C), XD: (B' N, C).
+// The q . k product takes d in k-steps of 16; at d = 8 the A fragment's
+// columns 8-15 and the B fragment's rows 8-15 are zeros in registers.
+template <int HD>
 __global__ void __launch_bounds__(S1_WARPS * 32)
 traj_stage1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ X,
                    bf16* __restrict__ XD, int B, int N, int F, int C, float scale) {
+  constexpr int K_LD = k_ld<HD>();
+  constexpr int KSTEPS = (HD + 15) / 16;
   extern __shared__ __align__(16) unsigned char smem1[];
   const int n = N / F;
-  const Stage1Layout L = stage1_layout(n);
+  const Stage1Layout L = stage1_layout<HD>(n);
   bf16* Ks = (bf16*)(smem1 + L.k);
   bf16* Vt = (bf16*)(smem1 + L.vt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -159,14 +186,14 @@ traj_stage1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)b * N * C;
   const int sq = blockIdx.x * S1_TQ + warp * 16 + gq;  // rows sq and sq + 8
 
-  uint32_t qa[2][4];  // this warp's 16 queries as A fragments, zero past N
+  uint32_t qa[KSTEPS][4];  // this warp's 16 queries as A fragments, zero past N and d
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
+  for (int kk = 0; kk < KSTEPS; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int s = sq + 8 * (i & 1);
-      const int col = hc + 16 * kk + 2 * tq + 8 * (i >> 1);
-      qa[kk][i] = s < N ? ld32(q + base + (size_t)s * C + col) : 0u;
+      const int dim = 16 * kk + 2 * tq + 8 * (i >> 1);
+      qa[kk][i] = s < N && dim < HD ? ld32(q + base + (size_t)s * C + hc + dim) : 0u;
     }
   }
 
@@ -174,7 +201,7 @@ traj_stage1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int g = 0; g < F; ++g) {
     __syncthreads();  // the previous frame's K and V are no longer read
     for (int i = threadIdx.x; i < L.n_pad * (HD / 8); i += blockDim.x) {
-      const int j = i >> 2, ch = i & 3;  // key, 8-dim piece
+      const int j = i / (HD / 8), ch = i % (HD / 8);  // key, 8-dim piece
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (j < n) {
         const size_t off = base + (size_t)(g * n + j) * C + hc + ch * 8;
@@ -196,7 +223,10 @@ traj_stage1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float acc[4] = {0.f, 0.f, 0.f, 0.f};
           const bf16* kr = Ks + (c0 + nt * 8 + gq) * K_LD + 2 * tq;
 #pragma unroll
-          for (int kk = 0; kk < 2; ++kk) mma16816(acc, qa[kk], ld32(kr + 16 * kk), ld32(kr + 16 * kk + 8));
+          for (int kk = 0; kk < KSTEPS; ++kk) {
+            const uint32_t b1 = 16 * kk + 8 < HD ? ld32(kr + 16 * kk + 8) : 0u;
+            mma16816(acc, qa[kk], ld32(kr + 16 * kk), b1);
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int key = c0 + nt * 8 + 2 * tq + (i & 1);
@@ -300,7 +330,7 @@ constexpr int S2_THREADS = 288;  // warpgroups 0-1 compute (a head each), warp 8
 constexpr int SLICE = S2_BM * hopper::BK;  // elements of a 64 x 64 slice (8 KB)
 
 // Shared memory of stage 2, from a 1024-byte boundary, for ks = ceil(C / 64)
-// slices of 64 columns: Wq rows of the head pair (64 x C), Wkv rows (k0, v0,
+// slices of 64 columns: Wq rows of the group pair (64 x C), Wkv rows (k0, v0,
 // k1, v1: 32 x C each), S2_STAGES A tiles (64 x C), then the mbarriers.
 __host__ __device__ inline size_t stage2_smem(int ks) {
   return 1024 + (size_t)ks * SLICE * 2 * (3 + S2_STAGES) + (2 * S2_STAGES + 2) * 8;
@@ -313,8 +343,10 @@ __device__ __forceinline__ float add_bf16(float acc, bf16 bias) {
 }
 
 // Persistent: block i takes units [i U / grid, (i + 1) U / grid) of the U =
-// (B' N / 64 tiles) x (head pairs) units, pair-major, so it reloads its
-// weight rows only when the pair changes.
+// (B' N / 64 tiles) x (group pairs) units, pair-major, so it reloads its
+// weight rows only when the pair changes. Warpgroup w takes group 2 pair + w
+// of 32 columns: 32 / HD heads, JH = HD / 8 of a thread's 4 column pairs each.
+template <int HD>
 __global__ void __launch_bounds__(S2_THREADS, 1)
 traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxes 64 x 64
                    const __grid_constant__ CUtensorMap t_x,   // (F B' N, C), boxes 64 x 64
@@ -322,6 +354,7 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
                    const __grid_constant__ CUtensorMap t_wkv, // (2C, C), boxes 32 x 64
                    const bf16* __restrict__ bq, const bf16* __restrict__ bkv,
                    bf16* __restrict__ out, int BN, int F, int H, float scale) {
+  constexpr int SUB = GW / HD, JH = HD / 8;  // heads of a group; column pairs of a head
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   const int C = H * HD;
@@ -334,7 +367,7 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
   uint64_t* bfull = empty + S2_STAGES;
   uint64_t* bempty = bfull + 1;
   const int tiles = (BN + S2_BM - 1) / S2_BM;
-  const int units = tiles * ((H + 1) / 2);
+  const int units = tiles * ((C + 2 * GW - 1) / (2 * GW));
   const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
   const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
   if (threadIdx.x == 0) {
@@ -359,9 +392,10 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
         for (int s = 0; s < KS; ++s) {
           hopper::tma_load_2d(Bq + s * SLICE, &t_wq, bfull, s * hopper::BK, hp * 64);
           for (int w = 0; w < 2; ++w) {
-            bf16* dst = Bkv + (2 * s + w) * SLICE;  // k rows, then v rows, of head 2 hp + w
-            hopper::tma_load_2d(dst, &t_wkv, bfull, s * hopper::BK, (2 * hp + w) * HD);
-            hopper::tma_load_2d(dst + SLICE / 2, &t_wkv, bfull, s * hopper::BK, C + (2 * hp + w) * HD);
+            bf16* dst = Bkv + (2 * s + w) * SLICE;  // k rows, then v rows, of group 2 hp + w
+            hopper::tma_load_2d(dst, &t_wkv, bfull, s * hopper::BK, (2 * hp + w) * GW);
+            hopper::tma_load_2d(dst + SLICE / 2, &t_wkv, bfull, s * hopper::BK,
+                                C + (2 * hp + w) * GW);
           }
         }
         ++nb;
@@ -384,12 +418,12 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
     return;
   }
 
-  const int w = threadIdx.x >> 7;  // this warpgroup's head of the pair
+  const int w = threadIdx.x >> 7;  // this warpgroup's group of the pair
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int tq = lane & 3;
   const bool leader = (threadIdx.x & 127) == 0;
-  int it = 0, nb = 0, cur = -1, head = 0;
-  __nv_bfloat162 b_q[4], b_k[4], b_v[4];  // this thread's 8 columns of the head
+  int it = 0, nb = 0, cur = -1, col0 = 0;
+  __nv_bfloat162 b_q[4], b_k[4], b_v[4];  // this thread's 8 columns of the group
   for (int u = u0; u < u1; ++u) {
     const int hp = u / tiles, t0 = (u % tiles) * S2_BM;
     if (hp != cur) {
@@ -397,20 +431,20 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
       hopper::mbar_wait(bfull, nb & 1);
       ++nb;
       cur = hp;
-      head = 2 * hp + w;
+      col0 = (2 * hp + w) * GW;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = head * HD + 8 * j + 2 * tq;
+        const int col = col0 + 8 * j + 2 * tq;
         const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
-        b_q[j] = head < H ? *(const __nv_bfloat162*)(bq + col) : z;
-        b_k[j] = head < H ? *(const __nv_bfloat162*)(bkv + col) : z;
-        b_v[j] = head < H ? *(const __nv_bfloat162*)(bkv + C + col) : z;
+        b_q[j] = col < C ? *(const __nv_bfloat162*)(bq + col) : z;
+        b_k[j] = col < C ? *(const __nv_bfloat162*)(bkv + col) : z;
+        b_v[j] = col < C ? *(const __nv_bfloat162*)(bkv + C + col) : z;
       }
     }
     const bf16* bq_rows = Bq + w * 32 * hopper::BK;
     const bf16* bkv_rows = Bkv + w * SLICE;
 
-    // q2 of this head: rows r0, r0 + 8; columns 8 j + 2 tq (+1)
+    // q2 of this group: rows r0, r0 + 8; columns 8 j + 2 tq (+1)
     float q2s[4][2][2];
     {
       const int s = it % S2_STAGES;
@@ -445,8 +479,14 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
       }
     }
 
-    // per frame: k2 and v2 of this head, the logit, an online softmax and sum
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[4][2][2];
+    // per frame: k2 and v2 of this group, each head's logit, an online
+    // softmax and sum; head e holds column pairs j of e JH <= j < (e + 1) JH
+    float m[SUB][2], l[SUB][2], o[4][2][2];
+#pragma unroll
+    for (int e = 0; e < SUB; ++e) {
+      m[e][0] = m[e][1] = -INFINITY;
+      l[e][0] = l[e][1] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[j][0][0] = o[j][0][1] = o[j][1][0] = o[j][1][1] = 0.f;
     for (int g = 0; g < F; ++g, ++it) {
@@ -471,37 +511,42 @@ traj_stage2_kernel(const __grid_constant__ CUtensorMap t_xd,  // (B' N, C), boxe
       if (leader) hopper::mbar_arrive(&empty[s]);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float logit = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          logit = fmaf(q2s[j][r][0], add_bf16(acc[4 * j + 2 * r], __low2bfloat16(b_k[j])), logit);
-          logit = fmaf(q2s[j][r][1], add_bf16(acc[4 * j + 2 * r + 1], __high2bfloat16(b_k[j])),
-                       logit);
-        }
-        logit = quad_sum(logit);
-        const float mn = fmaxf(m[r], logit);
-        const float corr = expf(m[r] - mn), p = expf(logit - mn);
-        l[r] = l[r] * corr + p;
-        m[r] = mn;
+        for (int e = 0; e < SUB; ++e) {
+          float logit = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float v0 = add_bf16(acc[16 + 4 * j + 2 * r], __low2bfloat16(b_v[j]));
-          const float v1 = add_bf16(acc[16 + 4 * j + 2 * r + 1], __high2bfloat16(b_v[j]));
-          o[j][r][0] = o[j][r][0] * corr + p * v0;
-          o[j][r][1] = o[j][r][1] * corr + p * v1;
+          for (int j = e * JH; j < (e + 1) * JH; ++j) {
+            logit = fmaf(q2s[j][r][0], add_bf16(acc[4 * j + 2 * r], __low2bfloat16(b_k[j])), logit);
+            logit = fmaf(q2s[j][r][1], add_bf16(acc[4 * j + 2 * r + 1], __high2bfloat16(b_k[j])),
+                         logit);
+          }
+          logit = quad_sum(logit);
+          const float mn = fmaxf(m[e][r], logit);
+          const float corr = expf(m[e][r] - mn), p = expf(logit - mn);
+          l[e][r] = l[e][r] * corr + p;
+          m[e][r] = mn;
+#pragma unroll
+          for (int j = e * JH; j < (e + 1) * JH; ++j) {
+            const float v0 = add_bf16(acc[16 + 4 * j + 2 * r], __low2bfloat16(b_v[j]));
+            const float v1 = add_bf16(acc[16 + 4 * j + 2 * r + 1], __high2bfloat16(b_v[j]));
+            o[j][r][0] = o[j][r][0] * corr + p * v0;
+            o[j][r][1] = o[j][r][1] * corr + p * v1;
+          }
         }
       }
     }
 
-    if (head < H) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = t0 + warp * 16 + (lane >> 2) + 8 * r;
-        if (row >= BN) continue;
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row >= BN) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          *(__nv_bfloat162*)(out + (size_t)row * C + head * HD + 8 * j + 2 * tq) =
-              __floats2bfloat162_rn(o[j][r][0] / l[r], o[j][r][1] / l[r]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + 8 * j + 2 * tq;
+        const float rl = l[j / JH][r];
+        if (col < C) {
+          *(__nv_bfloat162*)(out + (size_t)row * C + col) =
+              __floats2bfloat162_rn(o[j][r][0] / rl, o[j][r][1] / rl);
         }
       }
     }
@@ -545,45 +590,75 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage 1 (traj_stage1_f32_kernel): a block of 128 threads owns 64 query
-// tokens of one (row, head) and stages each frame's K and V (n x 32) in
+// tokens of one (row, head) and stages each frame's K and V (n x d) in
 // shared memory once for them. Thread (qg, sub) = (tid / 8, tid % 8) holds a
 // microtile of queries qg + 16 i (i < 4): against keys sub + 8 j of each
-// 32-key chunk for the scores, then dims 4 sub .. 4 sub + 3 for the PV
-// product; each float4 it reads from shared memory feeds 4 FMAs to 16
-// products (8 FMAs a load), on conflict-free banks (rows padded by 4 floats,
-// the score rows by 8). The softmax is exact: the scores go to shared memory
-// with the row maximum kept in registers, the 8 lanes of a query quad reduce
-// it by shuffles, each thread turns its own scores into exp(s - max), the 8
-// lanes sum them, and each thread divides its own by the sum before the PV
-// product: each p = exp(s - max) / sum is rounded, as in the plain softmax.
+// 32-key chunk for the scores, then dims DPT sub .. DPT sub + DPT - 1 (DPT =
+// d / 8) for the PV product; at d = 32 each float4 it reads from shared
+// memory feeds 4 FMAs to 16 products (8 FMAs a load), on conflict-free banks
+// (rows padded by 4 floats, the score rows by 8). The softmax is exact: the
+// scores go to shared memory with the row maximum kept in registers, the 8
+// lanes of a query quad reduce it by shuffles, each thread turns its own
+// scores into exp(s - max), the 8 lanes sum them, and each thread divides
+// its own by the sum before the PV product: each p = exp(s - max) / sum is
+// rounded, as in the plain softmax.
 constexpr int F1_TQ = 64;
 constexpr int F1_THREADS = 128;
-constexpr int F1_LD = HD + 4;  // a staged row of Q or K
 
 struct Stage1LayoutF32 {
   int n32, s_ld;
   size_t k, v, s, total;  // Q at 0
 };
 
+// rows of Q and K padded by 4 floats (HD + 4: a start bank 4 more than a
+// multiple of 8 at d = 8, 16, 32)
+template <int HD>
 __host__ __device__ inline Stage1LayoutF32 stage1_layout_f32(int n) {
   Stage1LayoutF32 L;
   L.n32 = (n + 31) / 32 * 32;
   L.s_ld = L.n32 + 8;
-  L.k = (size_t)F1_TQ * F1_LD * 4;
-  L.v = L.k + (size_t)L.n32 * F1_LD * 4;
+  L.k = (size_t)F1_TQ * (HD + 4) * 4;
+  L.v = L.k + (size_t)L.n32 * (HD + 4) * 4;
   L.s = L.v + (size_t)L.n32 * HD * 4;
   L.total = L.s + (size_t)F1_TQ * L.s_ld * 4;
   return L;
 }
 
+// DPT floats as one load or store (float4, float2 or float)
+template <int DPT>
+__device__ __forceinline__ void ld_dims(float (&d)[DPT], const float* p) {
+  if constexpr (DPT == 4) {
+    const float4 t = *(const float4*)p;
+    d[0] = t.x, d[1] = t.y, d[2] = t.z, d[3] = t.w;
+  } else if constexpr (DPT == 2) {
+    const float2 t = *(const float2*)p;
+    d[0] = t.x, d[1] = t.y;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <int DPT>
+__device__ __forceinline__ void st_dims(float* p, const float (&d)[DPT]) {
+  if constexpr (DPT == 4) {
+    *(float4*)p = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (DPT == 2) {
+    *(float2*)p = make_float2(d[0], d[1]);
+  } else {
+    *p = d[0];
+  }
+}
+
 // grid (ceil(N / 64), h, B'); 128 threads. X: (F, B' N, C), XD: (B' N, C).
+template <int HD>
 __global__ void __launch_bounds__(F1_THREADS)
 traj_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ X,
                        float* __restrict__ XD, int B, int N, int F, int C, float scale) {
+  constexpr int F1_LD = HD + 4, DPT = HD / 8, C4 = HD / 4;  // C4: float4s of a head row
   extern __shared__ __align__(16) unsigned char smf1[];
   const int n = N / F;
-  const Stage1LayoutF32 L = stage1_layout_f32(n);
+  const Stage1LayoutF32 L = stage1_layout_f32<HD>(n);
   float* Qs = (float*)smf1;
   float* Ks = (float*)(smf1 + L.k);
   float* Vs = (float*)(smf1 + L.v);
@@ -595,8 +670,8 @@ traj_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int s0 = blockIdx.x * F1_TQ;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int i = tid; i < F1_TQ * (HD / 4); i += F1_THREADS) {
-    const int r = i >> 3, c4 = i & 7;
+  for (int i = tid; i < F1_TQ * C4; i += F1_THREADS) {
+    const int r = i / C4, c4 = i % C4;
     float4 val = zero;
     if (s0 + r < N) val = *(const float4*)(q + base + (size_t)(s0 + r) * C + hc + 4 * c4);
     *(float4*)(Qs + r * F1_LD + 4 * c4) = val;
@@ -606,8 +681,8 @@ traj_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n4 = (n + 3) & ~3;
   for (int g = 0; g < F; ++g) {
     __syncthreads();  // Q is staged; the previous frame's K, V and S are no longer read
-    for (int i = tid; i < L.n32 * (HD / 4); i += F1_THREADS) {
-      const int j = i >> 3, c4 = i & 7;
+    for (int i = tid; i < L.n32 * C4; i += F1_THREADS) {
+      const int j = i / C4, c4 = i % C4;
       float4 kv = zero, vv = zero;
       if (j < n) {
         const size_t off = base + (size_t)(g * n + j) * C + hc + 4 * c4;
@@ -679,24 +754,26 @@ traj_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // S complete
 
-    float o[4][4];
+    float o[4][DPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) o[i][e] = 0.f;
+    }
     for (int j = 0; j < n4; j += 4) {
-      float4 sv[4], vv[4];
+      float4 sv[4];
+      float vv[4][DPT];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = *(const float4*)(Ss + (qg + 16 * i) * L.s_ld + j);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) vv[jj] = *(const float4*)(Vs + (j + jj) * HD + 4 * sub);
+      for (int jj = 0; jj < 4; ++jj) ld_dims<DPT>(vv[jj], Vs + (j + jj) * HD + DPT * sub);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
-          o[i][0] = fmaf(p[jj], vv[jj].x, o[i][0]);
-          o[i][1] = fmaf(p[jj], vv[jj].y, o[i][1]);
-          o[i][2] = fmaf(p[jj], vv[jj].z, o[i][2]);
-          o[i][3] = fmaf(p[jj], vv[jj].w, o[i][3]);
+#pragma unroll
+          for (int e = 0; e < DPT; ++e) o[i][e] = fmaf(p[jj], vv[jj][e], o[i][e]);
         }
       }
     }
@@ -706,27 +783,27 @@ traj_stage1_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int s = s0 + qg + 16 * i;
       if (s >= N) continue;
-      const float4 val = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
       const size_t tok = (size_t)b * N + s;
-      *(float4*)(X + (frame + tok) * C + hc + 4 * sub) = val;
-      if (s / n == g) *(float4*)(XD + tok * C + hc + 4 * sub) = val;
+      st_dims<DPT>(X + (frame + tok) * C + hc + DPT * sub, o[i]);
+      if (s / n == g) st_dims<DPT>(XD + tok * C + hc + DPT * sub, o[i]);
     }
   }
 }
 
 // Stage 2 (traj_stage2_f32_kernel): a register-blocked SGEMM over the B' N
-// tokens flattened across rows, in units of (head, 128-token tile), head
-// major. A persistent block of 256 threads keeps one head's rows of Wq, Wk
-// and Wv (3 x 32 x C f32, 96 KB at C = 256) resident in shared memory, so a
-// block with a run of units loads them about once, and streams each unit's
-// XD tile, then its F frames of X, through a 3-slot cp.async ring of 128 x
-// 64 slices. Thread (rg, cg) = (tid / 8, tid % 8) owns tokens rg + 32 i and
-// the head's columns cg + 8 j (i, j < 4) of q2, k2 and v2: per 4 columns of
-// depth it reads 4 float4 of X and 4 (q2) or 8 (k2, v2) float4 of weights
-// for 64 or 128 FMAs. The epilogue of each frame takes the temporal softmax
-// on the registers: the biases, the head's logit over its 32 columns (8
-// lanes by shuffles), an online softmax and sum over the frames, and one
-// division at the end. Measured against this: slices of 32 columns (twice
+// tokens flattened across rows, in units of (group of 32 columns, 128-token
+// tile), group major. A persistent block of 256 threads keeps one group's
+// rows of Wq, Wk and Wv (3 x 32 x C f32, 96 KB at C = 256) resident in
+// shared memory, so a block with a run of units loads them about once, and
+// streams each unit's XD tile, then its F frames of X, through a 3-slot
+// cp.async ring of 128 x 64 slices. Thread (rg, cg) = (tid / 8, tid % 8)
+// owns tokens rg + 32 i and the group's columns cg + 8 j (i, j < 4) of q2,
+// k2 and v2: per 4 columns of depth it reads 4 float4 of X and 4 (q2) or 8
+// (k2, v2) float4 of weights for 64 or 128 FMAs. The epilogue of each frame
+// takes the temporal softmax on the registers: the biases, each head's
+// logit over its d columns (its d / 8 columns of each of the 8 lanes, by
+// shuffles), an online softmax and sum over the frames, and one division at
+// the end. Measured against this: slices of 32 columns (twice
 // the barriers) were slower; so were 2 tokens a thread (more units at the
 // small shapes), also as 512 threads; 8 tokens a thread (255 registers)
 // were no faster a token.
@@ -739,26 +816,28 @@ constexpr int TM = 4;  // tokens a thread
 constexpr int F2_BM = 32 * TM;
 
 __host__ __device__ inline size_t stage2_smem_f32(int C) {
-  return ((size_t)3 * HD * (C + 4) + (size_t)F2_STAGES * F2_BM * F2_LDA) * 4;
+  return ((size_t)3 * GW * (C + 4) + (size_t)F2_STAGES * F2_BM * F2_LDA) * 4;
 }
 
+template <int HD>
 __global__ void __launch_bounds__(F2_THREADS, 1)
 traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD,
                        const float* __restrict__ wq, const float* __restrict__ bq,
                        const float* __restrict__ wkv, const float* __restrict__ bkv,
                        float* __restrict__ out, int BN, int F, int H, float scale) {
+  constexpr int SUB = GW / HD, JH = HD / 8;  // heads of a group; columns of a head a lane
   extern __shared__ __align__(16) float smf2[];
   const int C = H * HD, ldw = C + 4;
   float* Wq_s = smf2;
-  float* Wk_s = Wq_s + HD * ldw;
-  float* Wv_s = Wk_s + HD * ldw;
-  float* As = Wv_s + HD * ldw;
+  float* Wk_s = Wq_s + GW * ldw;
+  float* Wv_s = Wk_s + GW * ldw;
+  float* As = Wv_s + GW * ldw;
   const int tid = threadIdx.x, cg = tid & 7, rg = tid >> 3;
   const int tiles = (BN + F2_BM - 1) / F2_BM;
-  const int units = tiles * H;
+  const int units = tiles * ((C + GW - 1) / GW);
   const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
   const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
-  const int KS = (C + F2_BK - 1) / F2_BK;  // the last slice may be half (C = 32 h)
+  const int KS = (C + F2_BK - 1) / F2_BK;  // the last slice may be part (C = 16 m)
   const int per_unit = (F + 1) * KS;  // slices: XD, then frames 0 .. F - 1
   const int total = (u1 - u0) * per_unit;
 
@@ -785,28 +864,29 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
 
   int cur = -1;
   float bqr[4], bkr[4], bvr[4];
-  float q2[TM][4], ak[TM][4], av[TM][4], o[TM][4], mx[TM], l[TM];
+  float q2[TM][4], ak[TM][4], av[TM][4], o[TM][4], mx[TM][SUB], l[TM][SUB];
   for (int idx = 0; idx < total; ++idx) {
     const int u = u0 + idx / per_unit, rem = idx % per_unit;
     const int a = rem / KS, ks = rem % KS;
-    const int head = u / tiles, t0 = (u % tiles) * F2_BM;
-    if (head != cur) {  // the same for the whole block
-      __syncthreads();  // every thread is done with the last head's rows
-      for (int i = tid; i < 3 * HD * (C / 4); i += F2_THREADS) {
+    const int group = u / tiles, t0 = (u % tiles) * F2_BM;
+    const int col0 = group * GW;
+    if (group != cur) {  // the same for the whole block
+      __syncthreads();  // every thread is done with the last group's rows
+      for (int i = tid; i < 3 * GW * (C / 4); i += F2_THREADS) {
         const int r = i / (C / 4), c4 = i % (C / 4);  // r: Wq rows, then Wk, then Wv
-        const int m = r / HD, rr = r % HD;
-        const float* src = m == 0 ? wq + (size_t)(head * HD + rr) * C
-                                  : wkv + (size_t)((m - 1) * C + head * HD + rr) * C;
-        *(float4*)(Wq_s + r * ldw + 4 * c4) = *(const float4*)(src + 4 * c4);
+        const int m = r / GW, row = col0 + r % GW;  // zeros past C
+        const float* src = m == 0 ? wq + (size_t)row * C : wkv + (size_t)((m - 1) * C + row) * C;
+        *(float4*)(Wq_s + r * ldw + 4 * c4) =
+            row < C ? *(const float4*)(src + 4 * c4) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = head * HD + cg + 8 * j;
-        bqr[j] = bq[col];
-        bkr[j] = bkv[col];
-        bvr[j] = bkv[C + col];
+        const int col = col0 + cg + 8 * j;
+        bqr[j] = col < C ? bq[col] : 0.f;
+        bkr[j] = col < C ? bkv[col] : 0.f;
+        bvr[j] = col < C ? bkv[C + col] : 0.f;
       }
-      cur = head;
+      cur = group;
     }
     cp_async_wait<F2_STAGES - 2>();
     __syncthreads();  // slice idx (and the weights) visible; slot (idx - 1) % STAGES free
@@ -821,10 +901,10 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
     }
     const float* A = As + (idx % F2_STAGES) * F2_BM * F2_LDA;
     const int kc = ks * F2_BK;
-    if (a == 0) {  // q2 of the head, into ak
+    if (a == 0) {  // q2 of the group, into ak
 #pragma unroll
       for (int kk = 0; kk < F2_BK; kk += 4) {
-        if (kk % 32 == 0 && kc + kk >= C) break;  // a half slice past C
+        if (kk % 16 == 0 && kc + kk >= C) break;  // a part slice past C
         float4 x4[TM], w4[4];
 #pragma unroll
         for (int i = 0; i < TM; ++i) x4[i] = *(const float4*)(A + (rg + 32 * i) * F2_LDA + kk);
@@ -836,10 +916,10 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
           for (int j = 0; j < 4; ++j) ak[i][j] = dot4(x4[i], w4[j], ak[i][j]);
         }
       }
-    } else {  // k2 and v2 of the head for frame a - 1
+    } else {  // k2 and v2 of the group for frame a - 1
 #pragma unroll
       for (int kk = 0; kk < F2_BK; kk += 4) {
-        if (kk % 32 == 0 && kc + kk >= C) break;
+        if (kk % 16 == 0 && kc + kk >= C) break;
         float4 x4[TM], k4[4], v4[4];
 #pragma unroll
         for (int i = 0; i < TM; ++i) x4[i] = *(const float4*)(A + (rg + 32 * i) * F2_LDA + kk);
@@ -868,23 +948,33 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
           q2[i][j] = (ak[i][j] + bqr[j]) * scale;
           o[i][j] = 0.f;
         }
-        mx[i] = -INFINITY;
-        l[i] = 0.f;
+#pragma unroll
+        for (int e = 0; e < SUB; ++e) {
+          mx[i][e] = -INFINITY;
+          l[i][e] = 0.f;
+        }
       }
       continue;
     }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      float logit = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) logit = fmaf(q2[i][j], ak[i][j] + bkr[j], logit);
-      logit = xor8_sum(logit);  // the head's 32 columns
-      const float mn = fmaxf(mx[i], logit);
-      const float corr = expf(mx[i] - mn), p = expf(logit - mn);
-      l[i] = l[i] * corr + p;
-      mx[i] = mn;
+      for (int e = 0; e < SUB; ++e) {  // head e: columns j of e JH <= j < (e + 1) JH
+        float logit = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] = o[i][j] * corr + p * (av[i][j] + bvr[j]);
+        for (int j = e * JH; j < (e + 1) * JH; ++j) {
+          logit = fmaf(q2[i][j], ak[i][j] + bkr[j], logit);
+        }
+        logit = xor8_sum(logit);  // the head's d columns
+        const float mn = fmaxf(mx[i][e], logit);
+        const float corr = expf(mx[i][e] - mn), p = expf(logit - mn);
+        l[i][e] = l[i][e] * corr + p;
+        mx[i][e] = mn;
+#pragma unroll
+        for (int j = e * JH; j < (e + 1) * JH; ++j) {
+          o[i][j] = o[i][j] * corr + p * (av[i][j] + bvr[j]);
+        }
+      }
     }
     if (a == F) {
 #pragma unroll
@@ -892,7 +982,10 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
         const int row = t0 + rg + 32 * i;
         if (row >= BN) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) out[(size_t)row * C + head * HD + cg + 8 * j] = o[i][j] / l[i];
+        for (int j = 0; j < 4; ++j) {
+          const int col = col0 + cg + 8 * j;
+          if (col < C) out[(size_t)row * C + col] = o[i][j] / l[i][j / JH];
+        }
       }
     }
   }
@@ -901,9 +994,16 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
 
 constexpr int MAX_DEVICES = 64;
 
-// The dynamic shared memory each kernel has been allowed so far on a device.
+// The index of a head width among the instantiated ones (8, 16, 32), or -1.
+constexpr int width_index(int d) {
+  return d == 8 ? 0 : d == 16 ? 1 : d == 32 ? 2 : -1;
+}
+
+// The dynamic shared memory each kernel has been allowed so far on a device,
+// per head width.
 struct SmemAllowed {
-  size_t smem1 = 0, smem2 = 0, smem1_f32 = 0, smem2_f32 = 0;
+  size_t smem1[3] = {0, 0, 0}, smem2[3] = {0, 0, 0};
+  size_t smem1_f32[3] = {0, 0, 0}, smem2_f32[3] = {0, 0, 0};
 };
 
 SmemAllowed& smem_allowed(int dev) {
@@ -922,9 +1022,11 @@ cudaError_t raise_smem(Kernel kernel, size_t& allowed, size_t bytes) {
   return err;
 }
 
+template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* wq, const void* bq,
                 const void* wkv, const void* bkv, void* out, void* x_ws, void* xd_ws, int B,
                 int N, int F, int H, float scale, cudaStream_t stream) {
+  constexpr int wi = width_index(HD);
   const int n = N / F, C = H * HD;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -932,11 +1034,11 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* wq, con
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   SmemAllowed& dc = smem_allowed(dev);
-  const size_t smem1 = stage1_layout(n).total;
-  err = raise_smem(traj_stage1_kernel, dc.smem1, smem1);
+  const size_t smem1 = stage1_layout<HD>(n).total;
+  err = raise_smem(traj_stage1_kernel<HD>, dc.smem1[wi], smem1);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid1((N + S1_TQ - 1) / S1_TQ, H, B);
-  traj_stage1_kernel<<<grid1, S1_WARPS * 32, smem1, stream>>>(
+  traj_stage1_kernel<HD><<<grid1, S1_WARPS * 32, smem1, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)x_ws, (bf16*)xd_ws, B, N, F, C,
       scale);
   err = cudaGetLastError();
@@ -948,22 +1050,24 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* wq, con
   CUtensorMap t_xd, t_x, t_wq, t_wkv;
   int status = hopper::make_map(&t_xd, xd_ws, BN, C, S2_BM);
   if (!status) status = hopper::make_map(&t_x, x_ws, F * BN, C, S2_BM);
-  if (!status) status = hopper::make_map(&t_wq, wq, C, C, 64);
-  if (!status) status = hopper::make_map(&t_wkv, wkv, 2 * C, C, HD);
+  if (!status) status = hopper::make_map(&t_wq, wq, C, C, 2 * GW);
+  if (!status) status = hopper::make_map(&t_wkv, wkv, 2 * C, C, GW);
   if (status) return status;
   const size_t smem2 = stage2_smem((C + hopper::BK - 1) / hopper::BK);
-  err = raise_smem(traj_stage2_kernel, dc.smem2, smem2);
+  err = raise_smem(traj_stage2_kernel<HD>, dc.smem2[wi], smem2);
   if (err != cudaSuccess) return (int)err;
-  const long long units = (long long)((BN + S2_BM - 1) / S2_BM) * ((H + 1) / 2);
+  const long long units = (long long)((BN + S2_BM - 1) / S2_BM) * ((C + 2 * GW - 1) / (2 * GW));
   const int grid2 = (int)(units < sms ? units : sms);
-  traj_stage2_kernel<<<grid2, S2_THREADS, smem2, stream>>>(
+  traj_stage2_kernel<HD><<<grid2, S2_THREADS, smem2, stream>>>(
       t_xd, t_x, t_wq, t_wkv, (const bf16*)bq, (const bf16*)bkv, (bf16*)out, BN, F, H, scale);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
 int launch_f32(const float* q, const float* k, const float* v, const float* wq, const float* bq,
                const float* wkv, const float* bkv, float* out, float* x_ws, float* xd_ws, int B,
                int N, int F, int H, float scale, cudaStream_t stream) {
+  constexpr int wi = width_index(HD);
   const int n = N / F, C = H * HD;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -971,12 +1075,12 @@ int launch_f32(const float* q, const float* k, const float* v, const float* wq, 
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   SmemAllowed& dc = smem_allowed(dev);
-  const size_t smem1 = stage1_layout_f32(n).total;
-  err = raise_smem(traj_stage1_f32_kernel, dc.smem1_f32, smem1);
+  const size_t smem1 = stage1_layout_f32<HD>(n).total;
+  err = raise_smem(traj_stage1_f32_kernel<HD>, dc.smem1_f32[wi], smem1);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid1((N + F1_TQ - 1) / F1_TQ, H, B);
-  traj_stage1_f32_kernel<<<grid1, F1_THREADS, smem1, stream>>>(q, k, v, x_ws, xd_ws, B, N, F, C,
-                                                                scale);
+  traj_stage1_f32_kernel<HD><<<grid1, F1_THREADS, smem1, stream>>>(q, k, v, x_ws, xd_ws, B, N,
+                                                                    F, C, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -984,50 +1088,68 @@ int launch_f32(const float* q, const float* k, const float* v, const float* wq, 
   if (bn * F > 2147483647LL) return (int)cudaErrorInvalidValue;
   const int BN = (int)bn;
   const size_t smem2 = stage2_smem_f32(C);
-  err = raise_smem(traj_stage2_f32_kernel, dc.smem2_f32, smem2);
+  err = raise_smem(traj_stage2_f32_kernel<HD>, dc.smem2_f32[wi], smem2);
   if (err != cudaSuccess) return (int)err;
-  const long long units = (long long)((BN + F2_BM - 1) / F2_BM) * H;
+  const long long units = (long long)((BN + F2_BM - 1) / F2_BM) * ((C + GW - 1) / GW);
   const int grid2 = (int)(units < sms ? units : sms);
-  traj_stage2_f32_kernel<<<grid2, F2_THREADS, smem2, stream>>>(x_ws, xd_ws, wq, bq, wkv, bkv, out,
-                                                               BN, F, H, scale);
+  traj_stage2_f32_kernel<HD><<<grid2, F2_THREADS, smem2, stream>>>(x_ws, xd_ws, wq, bq, wkv, bkv,
+                                                                   out, BN, F, H, scale);
   return (int)cudaGetLastError();
+}
+
+// Whether the kernels take n tokens a frame, f frames and h heads of d: d an
+// instantiated width, C = h d a multiple of 16.
+bool takes(int n, int f, int h, int d) {
+  return n > 0 && f > 0 && f <= MAX_F && h > 0 && h <= MAX_H && width_index(d) >= 0 &&
+         (h * d) % 16 == 0;
+}
+
+size_t smem_bytes(int n, int d) {  // stage 1's shared memory, bf16
+  return d == 8 ? stage1_layout<8>(n).total
+                : d == 16 ? stage1_layout<16>(n).total : stage1_layout<32>(n).total;
+}
+
+size_t smem_bytes_f32(int n, int d) {  // stage 1's shared memory, f32
+  return d == 8 ? stage1_layout_f32<8>(n).total
+                : d == 16 ? stage1_layout_f32<16>(n).total : stage1_layout_f32<32>(n).total;
 }
 
 }  // namespace
 
 // Shared memory the bf16 path needs for n tokens per frame, f frames, h heads
-// of 32: the larger of its two launches (-1 for a shape it does not take).
-extern "C" int axvs_traj_smem_bytes(int n, int f, int h) {
-  if (n <= 0 || f <= 0 || f > MAX_F || h <= 0 || h > MAX_H) return -1;
-  const size_t s1 = stage1_layout(n).total;
-  const size_t s2 = stage2_smem((h * HD + hopper::BK - 1) / hopper::BK);
+// of d: the larger of its two launches (-1 for a shape it does not take).
+extern "C" int axvs_traj_smem_bytes(int n, int f, int h, int d) {
+  if (!takes(n, f, h, d)) return -1;
+  const size_t s1 = smem_bytes(n, d);
+  const size_t s2 = stage2_smem((h * d + hopper::BK - 1) / hopper::BK);
   const size_t bytes = s1 > s2 ? s1 : s2;
   return bytes > 2147483647u ? -1 : (int)bytes;
 }
 
 // q, k, v, out (B, N, C); wq (C, C); bq (C,); wkv (2C, C); bkv (2C,): bf16,
-// contiguous, 32-byte aligned; C = 32 H; N = F n, tokens frame-major. x_ws
-// (F, B N, C) and xd_ws (B N, C): bf16 workspaces, 16-byte aligned, for the
-// trajectory and its frame diagonal. Launches stage 1, then stage 2, on
-// `stream` and returns 0 or the first CUDA error.
+// contiguous, 32-byte aligned; C = H D, D = 8, 16 or 32, C a multiple of 16;
+// N = F n, tokens frame-major. x_ws (F, B N, C) and xd_ws (B N, C): bf16
+// workspaces, 16-byte aligned, for the trajectory and its frame diagonal.
+// Launches stage 1, then stage 2, on `stream` and returns 0 or the first CUDA
+// error.
 extern "C" int axvs_traj_fwd(const void* q, const void* k, const void* v,
                              const void* wq, const void* bq, const void* wkv,
                              const void* bkv, void* out, void* x_ws, void* xd_ws, int B,
-                             int N, int F, int H, float scale, void* stream) {
-  if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || F > MAX_F || N % F != 0 ||
-      H <= 0 || H > MAX_H) {
+                             int N, int F, int H, int D, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || N % F != 0 || !takes(N / F, F, H, D)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_bf16(q, k, v, wq, bq, wkv, bkv, out, x_ws, xd_ws, B, N, F, H, scale,
-                     (cudaStream_t)stream);
+  const auto launch = D == 8 ? launch_bf16<8> : D == 16 ? launch_bf16<16> : launch_bf16<32>;
+  return launch(q, k, v, wq, bq, wkv, bkv, out, x_ws, xd_ws, B, N, F, H, scale,
+                (cudaStream_t)stream);
 }
 
 // Shared memory the f32 path needs (-1 for a shape it does not take): the
 // larger of its two launches.
-extern "C" int axvs_traj_smem_bytes_f32(int n, int f, int h) {
-  if (n <= 0 || f <= 0 || f > MAX_F || h <= 0 || h > MAX_H) return -1;
-  const size_t s1 = stage1_layout_f32(n).total;
-  const size_t s2 = stage2_smem_f32(h * HD);
+extern "C" int axvs_traj_smem_bytes_f32(int n, int f, int h, int d) {
+  if (!takes(n, f, h, d)) return -1;
+  const size_t s1 = smem_bytes_f32(n, d);
+  const size_t s2 = stage2_smem_f32(h * d);
   const size_t bytes = s1 > s2 ? s1 : s2;
   return bytes > 2147483647u ? -1 : (int)bytes;
 }
@@ -1037,12 +1159,12 @@ extern "C" int axvs_traj_smem_bytes_f32(int n, int f, int h) {
 extern "C" int axvs_traj_fwd_f32(const void* q, const void* k, const void* v,
                                  const void* wq, const void* bq, const void* wkv,
                                  const void* bkv, void* out, void* x_ws, void* xd_ws, int B,
-                                 int N, int F, int H, float scale, void* stream) {
-  if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || F > MAX_F || N % F != 0 ||
-      H <= 0 || H > MAX_H) {
+                                 int N, int F, int H, int D, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || F <= 0 || N % F != 0 || !takes(N / F, F, H, D)) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_f32((const float*)q, (const float*)k, (const float*)v, (const float*)wq,
-                    (const float*)bq, (const float*)wkv, (const float*)bkv, (float*)out,
-                    (float*)x_ws, (float*)xd_ws, B, N, F, H, scale, (cudaStream_t)stream);
+  const auto launch = D == 8 ? launch_f32<8> : D == 16 ? launch_f32<16> : launch_f32<32>;
+  return launch((const float*)q, (const float*)k, (const float*)v, (const float*)wq,
+                (const float*)bq, (const float*)wkv, (const float*)bkv, (float*)out,
+                (float*)x_ws, (float*)xd_ws, B, N, F, H, scale, (cudaStream_t)stream);
 }

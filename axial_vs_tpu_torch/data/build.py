@@ -3,7 +3,7 @@
 
 ``dataset_mapper_name: auto`` (the default) resolves from the
 meta-architecture and the first training dataset's name, as the JAX
-package does. The port has the VIPSeg clip mapper; the COCO, YTVIS and
+package does. The port has the VIPSeg and YTVIS clip mappers; the COCO and
 DVPS mappers are not ported and raise ``NotImplementedError`` naming
 themselves.
 """
@@ -17,7 +17,6 @@ _NOT_PORTED = {
     "coco_panoptic": "the COCO panoptic mapper",
     "coco_instance_kmaxdeeplab": "the COCO instance mapper",
     "coco_instance": "the COCO instance mapper",
-    "ytvis": "the YTVIS clip mapper", "ytvis_clip": "the YTVIS clip mapper",
     "dvps": "the DVPS clip mapper", "vipseg_dvps": "the DVPS clip mapper",
     "kitti_step": "the DVPS clip mapper", "vspw": "the DVPS clip mapper",
 }
@@ -48,12 +47,26 @@ def build_mapper(cfg, seed: int = 0):
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{_NOT_PORTED[name]} ({name!r}) is not "
                                   "ported")
+    meta = (MetadataCatalog.get(cfg.datasets.train[0])
+            if cfg.datasets.train else {})
+    if name in ("ytvis", "ytvis_clip"):
+        from .ytvis import YTVISClipMapper
+
+        c2d = meta.get("contiguous_to_dataset_id")
+        return YTVISClipMapper(
+            image_size=cfg.input.image_size,
+            num_frames=cfg.input.num_video_frames,
+            max_instances=cfg.model.tube_link.num_queries,
+            dataset_id_to_contiguous_id=(
+                {d: c for c, d in enumerate(c2d)} if c2d else None),
+            pixel_mean=cfg.input.pixel_mean,
+            pixel_std=cfg.input.pixel_std,
+            seed=seed,
+        )
     if name not in ("vipseg_panoptic_mapper", "vipseg"):
         raise ValueError(f"unknown dataset mapper {name!r}")
     from .vipseg import VIPSegClipMapper
 
-    meta = (MetadataCatalog.get(cfg.datasets.train[0])
-            if cfg.datasets.train else {})
     cat_map = dict(meta.get("thing_dataset_id_to_contiguous_id", {}))
     cat_map.update(meta.get("stuff_dataset_id_to_contiguous_id", {}))
     return VIPSegClipMapper(

@@ -9,6 +9,12 @@ over a stuff background (segment 2) on a noise image; jpg frames under
 and one ``panoVIPSeg_<split>.json`` per split naming the same videos, with
 ``num_classes`` categories, the first ``num_things`` of them things (VIPSeg
 has 124 and 58).
+
+``write_ytvis_videos`` writes the repo's YouTube-VIS test fixture
+(``tests/fixtures_ytvis.py::synthesize_ytvis_videos``) byte for byte: png
+frames under ``frames/v<i>/`` and a ``train.json`` with per-frame RLE tubes
+of two things, a moving box (category 1) and a static box (category 2), on
+4-aligned positions so that the OS4 mask grid holds them exactly.
 """
 from __future__ import annotations
 
@@ -70,3 +76,60 @@ def write_vipseg_videos(root: str, lengths=(6, 18), hw=(720, 1280),
         with open(path, "w") as f:
             json.dump(dict(videos=videos, categories=categories), f)
     return (img_root, pan_root, json_files[0]), categories
+
+
+def write_ytvis_videos(root: str, n_videos: int = 2, n_frames=8,
+                       hw=(96, 160), seed: int = 0):
+    """Write (where absent) the frames and ``train.json`` of ``n_videos``
+    YTVIS-format videos of ``n_frames`` frames each (or one length a video,
+    a sequence) at ``hw`` under ``<root>/ytvis_<h>x<w>``. Returns (image
+    root, JSON path)."""
+    from PIL import Image
+
+    from .mask_rle import encode
+
+    h, w = hw
+    lengths = ([n_frames] * n_videos if isinstance(n_frames, int)
+               else list(n_frames))
+    root = os.path.join(root, f"ytvis_{h}x{w}")
+    img_root = os.path.join(root, "frames")
+    json_path = os.path.join(root, "train.json")
+    rng = np.random.RandomState(seed)
+
+    videos, annotations = [], []
+    ann_id = 1
+    for v, length in enumerate(lengths):
+        os.makedirs(os.path.join(img_root, f"v{v}"), exist_ok=True)
+        base = rng.randint(20, 90, (h, w, 3)).astype(np.uint8)
+        files, masks1, masks2 = [], [], []
+        for f in range(length):
+            rel = f"v{v}/{f:03d}.png"
+            files.append(rel)
+            img = base.copy()
+            m1 = np.zeros((h, w), np.uint8)
+            m2 = np.zeros((h, w), np.uint8)
+            x0, y0 = 8 + 4 * f + 8 * v, 12 + 4 * v  # moves 4 px a frame
+            img[y0:y0 + 32, x0:x0 + 40] = [210, 60, 50]
+            m1[y0:y0 + 32, x0:x0 + 40] = 1
+            img[56:84, 112:148] = [50, 200, 90]  # static, off the mover's track
+            m2[56:84, 112:148] = 1
+            path = os.path.join(img_root, rel)
+            if not os.path.exists(path):
+                Image.fromarray(img).save(path)
+            masks1.append(m1)
+            masks2.append(m2)
+        videos.append(dict(id=v + 1, file_names=files, height=h, width=w,
+                           length=length))
+        for cat, masks in ((1, masks1), (2, masks2)):
+            annotations.append(dict(
+                id=ann_id, video_id=v + 1, category_id=cat,
+                segmentations=[encode(m) for m in masks],
+                areas=[int(m.sum()) for m in masks], iscrowd=0))
+            ann_id += 1
+
+    if not os.path.exists(json_path):
+        with open(json_path, "w") as fh:
+            json.dump(dict(videos=videos, annotations=annotations,
+                           categories=[dict(id=1, name="mover"),
+                                       dict(id=2, name="sitter")]), fh)
+    return img_root, json_path

@@ -1,9 +1,14 @@
-"""Whole-dataset VIPSeg evaluation of a WC or a CC model (counterpart of
-``axial_vs_tpu/engine/evaluator_loop.py::evaluate_vipseg``; the YTVIS and
-COCO-panoptic loops are not ported yet)."""
+"""Whole-dataset evaluation loops (counterpart of
+``axial_vs_tpu/engine/evaluator_loop.py``): ``evaluate_vipseg`` (VPQ and
+STQ of a WC or a CC model) and ``evaluate_ytvis`` (YTVIS AP/AR of a
+Tube-Link VIS model, and its submission JSON). The COCO-panoptic loop is not
+ported yet."""
 from __future__ import annotations
 
+import json
+
 import numpy as np
+import torch
 from PIL import Image
 
 from ..data.catalog import DatasetCatalog, MetadataCatalog
@@ -131,3 +136,81 @@ def evaluate_vipseg(cfg, model, max_videos: int | None = None,
     if stq is not None:
         results["stq"] = stq.result()
     return results
+
+
+def upsample_instances(logits: np.ndarray, scaled_hw, out_hw) -> np.ndarray:
+    """(k, V, h, w) OS4 mask logits of a padded input -> (k, V, H, W) f32
+    probabilities at the video's size ``out_hw``: the region of the scaled
+    frame cropped, a sigmoid, then PIL's bilinear resize of each (instance,
+    frame) on the host, as the JAX loop does (the reference interpolates
+    before its fusion). The output is k V H W f32: 3.98 GB for 30 instances
+    over 36 frames of 720x1280."""
+    k, v = logits.shape[:2]
+    oh, ow = out_hw
+    h4, w4 = (scaled_hw[0] + 3) // 4, (scaled_hw[1] + 3) // 4
+    probs = 1.0 / (1.0 + np.exp(-logits))
+    up = np.zeros((k, v, oh, ow), np.float32)
+    for ki in range(k):
+        for fi in range(v):
+            up[ki, fi] = np.asarray(Image.fromarray(
+                probs[ki, fi][:h4, :w4]).resize((ow, oh), Image.BILINEAR))
+    return up
+
+
+def evaluate_ytvis(cfg, model, max_videos: int | None = None,
+                   format_only_path: str | None = None):
+    """Whole-video VIS evaluation of a ``TubeLinkVIS`` ``model`` over
+    ``cfg.datasets.test[0]`` of the port's catalog (registered by
+    ``data/ytvis.py::register_ytvis``), on the model's device: per video
+    the frames decoded and preprocessed, ``TubeLinkVISInference.run_video``
+    (tubes of ``model.tube_link.clip_len``, top ``test_topk``), the
+    instances upsampled to the video's size (``upsample_instances``), their
+    labels mapped to dataset ids and written by ``results_to_ytvis_json``
+    (video by video, so that one video's probabilities are held at a time:
+    the JAX loop holds every video's). With ``format_only_path`` the
+    submission JSON goes there. Where the split has annotations, the YTVIS
+    devkit's AP/AR (``YTVISEvaluator``). Returns {"num_videos",
+    "num_predictions"[, "results_json"], AP/AR fields}."""
+    from ..data.ytvis import results_to_ytvis_json
+    from ..evaluation.ytvis_eval import YTVISEvaluator
+    from ..models.tube_link.detector import TubeLinkVISInference
+    from ..models.video_inference import preprocess_frames
+
+    name = cfg.datasets.test[0]
+    videos = DatasetCatalog.get(name)[:max_videos]
+    cont_to_ds = list(MetadataCatalog.get(name).get(
+        "contiguous_to_dataset_id", []))
+    tl = cfg.model.tube_link
+    pipeline = TubeLinkVISInference(model, clip_len=tl.clip_len,
+                                    overlap=tl.overlap, topk=tl.test_topk)
+    device = next(model.parameters()).device
+
+    preds, gt_records = [], []
+    for video in videos:
+        frames = np.stack([np.asarray(Image.open(p).convert("RGB"))
+                           for p in video["file_names"]])
+        images, scaled_h, scaled_w = preprocess_frames(
+            frames, cfg.input.pixel_mean, cfg.input.pixel_std,
+            cfg.input.image_size)
+        result = pipeline.run_video(torch.from_numpy(images).to(device))
+        up = upsample_instances(result["masks"], (scaled_h, scaled_w),
+                                (video["height"], video["width"]))
+        labels = (np.asarray([cont_to_ds[int(c)] for c in result["labels"]])
+                  if cont_to_ds else result["labels"])
+        preds += results_to_ytvis_json([(video["video_id"], dict(
+            masks=up, labels=labels, scores=result["scores"]))])
+        del up
+        for ann in video.get("annotations", []):
+            gt_records.append(dict(
+                video_id=video["video_id"], category_id=ann["category_id"],
+                segmentations=ann.get("segmentations"),
+                areas=ann.get("areas"), iscrowd=ann.get("iscrowd", 0)))
+
+    out = {"num_videos": len(videos), "num_predictions": len(preds)}
+    if format_only_path:
+        with open(format_only_path, "w") as f:
+            json.dump(preds, f)
+        out["results_json"] = format_only_path
+    if gt_records:
+        out.update(YTVISEvaluator().evaluate(gt_records, preds))
+    return out

@@ -21,6 +21,10 @@ def train_step(model, criterion, optimizer, scheduler, batch, generator,
     gradient there is zero). A frozen parameter (``requires_grad`` off:
     the cross-clip model's segmenter) is in no optimizer group, so it gets
     no gradient and no update."""
+    if criterion is None:
+        raise NotImplementedError("no criterion: the Tube-Link VIS loss "
+                                  "(models/tube_link/criterion.py) is not "
+                                  "ported")
     mark = mark or (lambda name: None)
     model.train()
     optimizer.zero_grad(set_to_none=True)

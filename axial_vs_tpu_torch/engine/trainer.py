@@ -11,8 +11,13 @@ and Gumbel draws from one explicit generator on the device, seeded from
 (preemption: the loop saves and stops). The eval hook calls ``eval_fn``
 every ``test.eval_period`` steps, switching to the intervals of
 ``test.dynamic_eval_intervals`` past their milestones, and at the end;
-``Trainer.evaluate`` is the VIPSeg hook (``evaluate_vipseg``, with
+``Trainer.evaluate`` is the hook of the test set: ``evaluate_ytvis`` for a
+YouTube-VIS or OVIS set (a Tube-Link model), else ``evaluate_vipseg`` (with
 ``CCInferencePipeline`` for a cross-clip model).
+
+A Tube-Link VIS model (``TubeLinkVIS``) is built for evaluation only: its
+criterion (``models/tube_link/criterion.py``) is not ported, so ``train``
+raises ``NotImplementedError`` rather than step without a loss.
 
 A cross-clip model (``MaXTronCCModel``, built from a ``MaXTronCCDeepLab``
 config) trains its CC module on the frozen segmenter, one video of
@@ -52,6 +57,8 @@ from .train_step import train_step
 
 #: seconds a loader worker may take to deliver a batch before the loop raises
 LOADER_TIMEOUT_S = 120.0
+#: test-set prefixes that ``evaluate`` sends to ``evaluate_ytvis``
+YTVIS_TEST_SETS = ("ytvis", "ovis")
 
 
 class Trainer:
@@ -161,17 +168,24 @@ class Trainer:
 
     # -- eval hook -------------------------------------------------------------
     def evaluate(self, **kwargs):
-        """``evaluate_vipseg`` on ``cfg.datasets.test[0]`` with the model in
-        eval mode (a cross-clip model through ``CCInferencePipeline``); the
-        model returns to train mode."""
+        """Evaluate on ``cfg.datasets.test[0]`` with the model in eval mode:
+        ``evaluate_ytvis`` for a YouTube-VIS or OVIS set or where
+        ``format_only_path`` is given, else ``evaluate_vipseg`` (a
+        cross-clip model through ``CCInferencePipeline``); the model
+        returns to train mode."""
         from ..models.video_inference import CCInferencePipeline
-        from .evaluator_loop import evaluate_vipseg
+        from .evaluator_loop import evaluate_vipseg, evaluate_ytvis
 
-        if self.cross_clip:
-            kwargs.setdefault("pipeline_cls", CCInferencePipeline)
+        if (self.cfg.datasets.test[0].startswith(YTVIS_TEST_SETS)
+                or "format_only_path" in kwargs):
+            evaluate = evaluate_ytvis
+        else:
+            evaluate = evaluate_vipseg
+            if self.cross_clip:
+                kwargs.setdefault("pipeline_cls", CCInferencePipeline)
         self.model.eval()
         try:
-            return evaluate_vipseg(self.cfg, self.model, **kwargs)
+            return evaluate(self.cfg, self.model, **kwargs)
         finally:
             self.model.train()
 
@@ -193,6 +207,11 @@ class Trainer:
         hook's steps (module docstring); ``dynamic_eval_intervals``
         [(milestone, interval), ...] defaults to the config's. Returns the
         last step's losses."""
+        if self.criterion is None:
+            raise NotImplementedError(
+                f"{self.cfg.model.meta_architecture} has no criterion in the "
+                "port (models/tube_link/criterion.py is not ported): it "
+                "evaluates only")
         self.resume_or_load(resume)
         cfg = self.cfg
         max_iter = max_iter or cfg.solver.max_iter

@@ -2,18 +2,23 @@
 ``axial_vs_tpu/models/build.py``).
 
 The port builds ``MaXTronWCDeepLab`` and ``KMaXDeepLab`` with a within-clip
-(WC) model, and ``MaXTronCCDeepLab``: the cross-clip (CC) model, a frozen
-WC segmenter of ``input.num_clip_frames`` frames under the CC module of
+(WC) model; ``MaXTronCCDeepLab``: the cross-clip (CC) model, a frozen WC
+segmenter of ``input.num_clip_frames`` frames under the CC module of
 ``model.maxtron.cc``, its clips aligned by the device auction, with the
-criterion of the class and mask losses. Every other architecture of the JAX
-registry (the Tube-Link models, ``ImageMask2Former``) raises
-``NotImplementedError`` naming itself.
+criterion of the class and mask losses; and ``TubeLinkVIS`` through
+``models/tube_link/detector.py::build_tube_link_vis``, with or without
+MaXTron's temporal attention (``model.tube_link.use_temporal_attn``), for
+inference: its criterion is not ported, so it comes with criterion None,
+and the trainer refuses to train it. Every other architecture of the JAX
+registry (``TubeLinkVideoVIS``, ``TubeLinkVPS``, ``ImageMask2Former``)
+raises ``NotImplementedError`` naming itself.
 """
 from __future__ import annotations
 
 import torch
 
-_PORTED = ("MaXTronWCDeepLab", "KMaXDeepLab", "MaXTronCCDeepLab")
+_PORTED = ("MaXTronWCDeepLab", "KMaXDeepLab", "MaXTronCCDeepLab",
+           "TubeLinkVIS")
 
 
 def criterion_from_config(cfg):
@@ -46,12 +51,18 @@ def build_model_and_criterion(cfg, train: bool = True,
                               device=torch.device("cuda"),
                               generator: torch.Generator | None = None):
     """(model, criterion) of ``cfg.model.meta_architecture`` on ``device``,
-    its weights drawn from ``generator`` (required, on ``device``)."""
+    its weights drawn from ``generator`` (required, on ``device``); the
+    criterion is None for ``TubeLinkVIS`` (inference only)."""
     from .kmax import build_segmenter
 
     arch = cfg.model.meta_architecture
     if arch not in _PORTED:
         raise NotImplementedError(f"meta-architecture {arch!r} is not ported")
+    if arch == "TubeLinkVIS":
+        from .tube_link.detector import build_tube_link_vis
+
+        model = build_tube_link_vis(cfg, device, generator)
+        return model.train(train), None
     if not cfg.model.maxtron.wc.enable:
         raise NotImplementedError(f"{arch} without the within-clip module is "
                                   "not ported")

@@ -59,15 +59,16 @@ class TubeLinkVIS(nn.Module):
                  num_things_classes: int = 40, num_queries: int = 100,
                  num_frames: int = 2, feat_channels: int = 256,
                  out_channels: int = 256, num_decoder_layers: int = 9,
-                 num_heads: int = 8, ffn_dim: int = 2048, dtype=None,
-                 device=None):
+                 num_heads: int = 8, ffn_dim: int = 2048,
+                 use_temporal_attn: bool = True, dtype=None, device=None):
         super().__init__()
         self.backbone = backbone
         self.head = Mask2FormerVideoHeadTube(
             in_channels, num_things_classes, num_queries=num_queries,
             feat_channels=feat_channels, out_channels=out_channels,
             num_decoder_layers=num_decoder_layers, num_heads=num_heads,
-            ffn_dim=ffn_dim, num_frames=num_frames, device=device)
+            ffn_dim=ffn_dim, num_frames=num_frames,
+            use_temporal_attn=use_temporal_attn, device=device)
         self.dtype = dtype
 
     def forward(self, images, return_query: bool = False):
@@ -132,16 +133,13 @@ class TubeLinkVISInference:
 def build_tube_link_vis(cfg, device=torch.device("cuda"),
                         generator: torch.Generator | None = None):
     """Build ``TubeLinkVIS`` from a config tree (the fields of
-    ``axial_vs_tpu.config.get_default_config()``: ``model.backbone``,
-    ``model.num_classes``, ``model.tube_link``, ``model.dtype``,
-    ``input.num_clip_frames``) on ``device`` (the card unless the caller
-    asks for another), every parameter drawn from ``generator`` (required,
-    on ``device``). In bf16 the matrices are kept bf16 at rest and the
-    vectors f32."""
+    ``config.get_default_config()``: ``model.backbone``,
+    ``model.num_classes``, ``model.tube_link`` with ``use_temporal_attn``,
+    ``model.dtype``, ``input.num_clip_frames``) on ``device`` (the card
+    unless the caller asks for another), every parameter drawn from
+    ``generator`` (required, on ``device``). In bf16 the matrices are kept
+    bf16 at rest and the vectors f32."""
     tl = cfg.model.tube_link
-    if not tl.use_temporal_attn:
-        raise NotImplementedError("Tube-Link without the temporal encoder "
-                                  "is not ported")
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
     meta = torch.device("meta")
     backbone, channels = build_backbone(cfg, device=meta)
@@ -150,5 +148,6 @@ def build_tube_link_vis(cfg, device=torch.device("cuda"),
         num_queries=tl.num_queries,
         num_frames=cfg.input.num_clip_frames,
         feat_channels=tl.feat_channels, out_channels=tl.out_channels,
-        num_decoder_layers=tl.num_decoder_layers, dtype=dtype, device=meta)
+        num_decoder_layers=tl.num_decoder_layers,
+        use_temporal_attn=tl.use_temporal_attn, dtype=dtype, device=meta)
     return materialize(model, device, generator, dtype)

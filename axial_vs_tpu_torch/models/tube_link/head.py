@@ -81,12 +81,13 @@ class Mask2FormerVideoHeadTube(nn.Module):
                  num_queries: int = 100, feat_channels: int = 256,
                  out_channels: int = 256, num_decoder_layers: int = 9,
                  num_heads: int = 8, ffn_dim: int = 2048, num_frames: int = 2,
-                 device=None):
+                 use_temporal_attn: bool = True, device=None):
         super().__init__()
         c = feat_channels
         self.num_frames = num_frames
         self.pixel_decoder = TubeLinkPixelDecoder(
-            in_channels, c, out_channels, num_frames=num_frames, device=device)
+            in_channels, c, out_channels, num_frames=num_frames,
+            use_temporal=use_temporal_attn, device=device)
         self.level_embed = nn.Parameter(
             torch.empty(len(LEVELS), c, device=device))
         self.query_feat = nn.Parameter(torch.empty(num_queries, c, device=device))

@@ -45,11 +45,11 @@ _SIGNATURES = {
     "axvs_msda_fwd_f32": [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _P],
     "axvs_traj_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, ctypes.c_float, _P],
-    "axvs_traj_smem_bytes": [_I, _I, _I],
+                      _I, _I, ctypes.c_float, _P],
+    "axvs_traj_smem_bytes": [_I, _I, _I, _I],
     "axvs_traj_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _I, ctypes.c_float, _P],
-    "axvs_traj_smem_bytes_f32": [_I, _I, _I],
+                          _I, _I, _I, ctypes.c_float, _P],
+    "axvs_traj_smem_bytes_f32": [_I, _I, _I, _I],
     "axvs_convnext_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P],
     "axvs_convnext_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

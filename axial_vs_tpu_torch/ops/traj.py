@@ -24,9 +24,12 @@ in q's dtype that the wrapper allocates: the trajectory x (f, B N, C) and its
 frame diagonal (B N, C). In bf16 stage 1 runs on ``mma.sync`` and stage 2 is
 a TMA-fed ``wgmma`` GEMM with the temporal softmax in its epilogue; in f32
 both are register-tiled on the CUDA cores (every product an f32 FMA, no
-TF32), stage 2 a persistent SGEMM with one head's weights resident. The
-wrapper takes the plain version for a tensor on the CPU only; a CUDA tensor
-launches the kernel or raises.
+TF32), stage 2 a persistent SGEMM with one 32-column group's weights
+resident. The kernels take heads of d = 8, 16 or 32 channels (a template on
+d; stage 2 works in groups of 32 columns, 32 / d heads each, with a softmax
+a head in its epilogue) and C = h d a multiple of 16, which the wrapper
+checks on every device. The wrapper takes the plain version for a tensor on
+the CPU only; a CUDA tensor launches the kernel or raises.
 
 Under autograd the card's path is ``_TrajectoryAttentionCore``, a
 ``torch.autograd.Function`` (the port of the JAX package's custom VJP of
@@ -43,11 +46,15 @@ import torch.nn.functional as F
 
 from . import native
 
-#: the kernels' limits: head dim, frames, heads, and the shared memory one
-#: block may use on sm_90. Frames: the within-clip and Tube-Link layers run
-#: 2-5, the cross-clip module one a clip of the video (``csrc/traj.cu``'s
-#: ``MAX_F``)
-KERNEL_HEAD_DIM = 32
+#: the kernels' limits: head dims, frames, heads, and the shared memory one
+#: block may use on sm_90. Head dims: the WC and Tube-Link layers run 32, the
+#: overfit tools' modules 8 and 16 (``csrc/traj.cu`` instantiates each);
+#: C = h d must be a multiple of ``CHANNEL_MULTIPLE`` on every device (the
+#: kernels' TMA row pitch and 16-column steps). Frames: the within-clip and
+#: Tube-Link layers run 2-5, the cross-clip module one a clip of the video
+#: (``csrc/traj.cu``'s ``MAX_F``)
+KERNEL_HEAD_DIMS = (8, 16, 32)
+CHANNEL_MULTIPLE = 16
 KERNEL_MAX_FRAMES = 256
 KERNEL_MAX_HEADS = 8
 MAX_SHARED_BYTES = 232448
@@ -118,6 +125,8 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
     if (wq.shape != (c, c) or bq.shape != (c,) or wkv.shape != (2 * c, c)
             or bkv.shape != (2 * c,)):
         raise ValueError("stage-2 weights do not match C")
+    if c % CHANNEL_MULTIPLE:
+        raise ValueError(f"C={c}: K3 takes C a multiple of {CHANNEL_MULTIPLE}")
     if native.on_cpu([q, k, v]):
         return trajectory_attention_core_plain(q, k, v, wq, bq, wkv, bkv, f, h)
     dt = q.dtype
@@ -127,13 +136,15 @@ def trajectory_attention_core(q, k, v, wq, bq, wkv, bkv, num_frames: int,
                             f"f32, got {q.dtype} / {k.dtype} / {v.dtype}")
         if not t.is_contiguous():
             raise ValueError("q, k, v must be contiguous")
-    if c // h != KERNEL_HEAD_DIM or h > KERNEL_MAX_HEADS or f > KERNEL_MAX_FRAMES:
-        raise ValueError(f"the CUDA kernel takes head dim {KERNEL_HEAD_DIM}, "
+    if (c // h not in KERNEL_HEAD_DIMS or h > KERNEL_MAX_HEADS
+            or f > KERNEL_MAX_FRAMES):
+        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, "
                          f"at most {KERNEL_MAX_HEADS} heads and "
                          f"{KERNEL_MAX_FRAMES} frames; got d={c // h}, h={h}, "
                          f"f={f}")
     suffix = "" if dt == torch.bfloat16 else "_f32"
-    smem = getattr(native.library(), "axvs_traj_smem_bytes" + suffix)(nt // f, f, h)
+    smem = getattr(native.library(), "axvs_traj_smem_bytes" + suffix)(
+        nt // f, f, h, c // h)
     if not 0 < smem <= MAX_SHARED_BYTES:
         raise ValueError(f"n={nt // f} tokens per frame at f={f} need {smem} B "
                          f"of shared memory, more than {MAX_SHARED_BYTES}")
@@ -161,7 +172,7 @@ def _launch(q, k, v, wq, bq, wkv, bkv, f: int, h: int):
     xd_ws = torch.empty(b * nt, c, dtype=dt, device=q.device)
     native.launch("axvs_traj_fwd" + suffix, *(t.data_ptr() for t in tensors),
                   out.data_ptr(), x_ws.data_ptr(), xd_ws.data_ptr(), b, nt, f, h,
-                  scale, device=q.device)
+                  c // h, scale, device=q.device)
     trajectory_attention_core.launches += 1
     return out
 

@@ -3,19 +3,23 @@
 
     python3 -m axial_vs_tpu_torch.tools.train_net_video \\
         --config-file configs/vipseg/maxtron_wc_r50.yaml \\
-        [--resume] [--eval-only] [--device cuda] [--opts KEY VALUE ...]
+        [--resume] [--eval-only] [--format-only PATH] [--device cuda] \
+        [--opts KEY VALUE ...]
 
 The config is the port's (``config.load_config``: defaults, the yaml with
 its ``_BASE_`` chain, then the ``--opts`` overrides). Datasets are the
-port's builtin VIPSeg registrations (``data/builtin.py``, under
-``$AXIALVS_DATASETS``, default ``./datasets``). Training runs
-``engine/trainer.py::Trainer``, its eval hook ``evaluate_vipseg`` on
+port's builtin VIPSeg and YTVIS-format registrations (``data/builtin.py``,
+under ``$AXIALVS_DATASETS``, default ``./datasets``). Training runs
+``engine/trainer.py::Trainer``, its eval hook ``Trainer.evaluate`` on
 ``datasets.test[0]`` every ``test.eval_period`` steps (0 turns it off);
 ``--resume`` continues from the latest checkpoint of
-``<output_dir>/checkpoints``. ``--eval-only`` evaluates VIPSeg only (the
-YTVIS and COCO evaluators are not ported and raise), after restoring the
-checkpoint with ``--resume`` or ``model.weights``. ``--distributed`` raises:
-the port trains on one card.
+``<output_dir>/checkpoints``. ``--eval-only`` evaluates after restoring the
+checkpoint with ``--resume`` or ``model.weights``: a ``ytvis*`` or
+``ovis*`` test set (or ``--format-only``) through ``evaluate_ytvis``, which
+writes the YTVIS submission JSON to the ``--format-only`` path; any other
+through ``evaluate_vipseg``; the COCO-panoptic evaluator is not ported and
+raises. A Tube-Link VIS config evaluates only (its criterion is not
+ported). ``--distributed`` raises: the port trains on one card.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import os
 import torch
 
 #: test-dataset prefixes of evaluators the port does not have
-_NOT_PORTED_EVAL = ("ytvis", "ovis", "coco", "ade20k", "cityscapes_fine")
+_NOT_PORTED_EVAL = ("coco", "ade20k", "cityscapes_fine")
 
 
 def parse_args(argv=None):
@@ -33,6 +37,9 @@ def parse_args(argv=None):
     ap.add_argument("--config-file", required=True)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--eval-only", action="store_true")
+    ap.add_argument("--format-only", default=None, metavar="PATH",
+                    help="with --eval-only: write the YTVIS submission JSON "
+                         "to PATH (through evaluate_ytvis)")
     ap.add_argument("--distributed", action="store_true",
                     help="not supported: the port trains on one card")
     ap.add_argument("--device", default="cuda")
@@ -52,8 +59,8 @@ def setup(args):
 
 def main(argv=None, eval_kwargs=None):
     """Run the CLI; returns the evaluation results (``--eval-only``) or the
-    ``Trainer`` after training. ``eval_kwargs`` are passed to
-    ``evaluate_vipseg`` (e.g. ``max_videos``)."""
+    ``Trainer`` after training. ``eval_kwargs`` are passed to the
+    evaluation loop (e.g. ``max_videos``)."""
     args = parse_args(argv)
     if args.distributed:
         raise NotImplementedError("--distributed: the port trains on one "
@@ -69,9 +76,11 @@ def main(argv=None, eval_kwargs=None):
                          "test.eval_period 0)")
     if wants_eval and test_name.startswith(_NOT_PORTED_EVAL):
         raise NotImplementedError(f"the evaluator of {test_name!r} is not "
-                                  "ported (VIPSeg only)")
+                                  "ported (VIPSeg and YTVIS only)")
     trainer = Trainer(cfg, device=torch.device(args.device))
     kwargs = dict(eval_kwargs or {})
+    if args.format_only:
+        kwargs["format_only_path"] = args.format_only
     if args.eval_only:
         trainer.resume_or_load(resume=args.resume)
         results = trainer.evaluate(**kwargs)

@@ -12,9 +12,8 @@ re-ID, VPQ). The fixture: 2 videos of 8 frames at 96x160, a thing (class
 0) and a stuff (class 1), written by ``data/synthetic.py``. The model: R18
 at 97x161, 2-frame clips, a WC module of 2 spatial and 2 temporal layers
 of 64 channels in 8 heads of 8, 16 queries, one k-means layer a stage:
-the JAX tool's. On the card the WC module runs 2 heads of 32 channels
-instead: K3, the trajectory attention kernel, takes heads of 32 channels
-alone, and the port never falls back to the plain version there.
+the JAX tool's, on every device (K3, the trajectory attention kernel, takes
+heads of 8 on the card).
 
 Pass rule: VPQ >= ``--target`` at the final eval; the run stops early only
 after two evals in a row at the target. Each eval prints one JSON line, the
@@ -74,13 +73,10 @@ def fixture(out: str) -> str:
     return name
 
 
-def overfit_config(name: str, out: str, device: torch.device,
-                   video_frames: int = CLIP_FRAMES):
+def overfit_config(name: str, out: str, video_frames: int = CLIP_FRAMES):
     """The JAX tool's small WC configuration over the port's defaults, its
-    eval on the fixture ``name``; on a CUDA ``device`` the WC module's heads
-    are 32 channels wide, the width K3 takes."""
+    eval on the fixture ``name``."""
     from ..config import get_default_config
-    from ..ops.traj import KERNEL_HEAD_DIM
 
     cfg = get_default_config()
     cfg.model.backbone.name = "resnet18"
@@ -91,8 +87,7 @@ def overfit_config(name: str, out: str, device: torch.device,
     cfg.input.num_video_frames = video_frames
     wc = cfg.model.maxtron.wc
     wc.enable, wc.conv_dims, wc.dim_feedforward = True, 64, 128
-    wc.nheads = (wc.conv_dims // KERNEL_HEAD_DIM if device.type == "cuda"
-                 else WC_HEADS)
+    wc.nheads = WC_HEADS
     wc.spatial_layers = wc.temporal_layers = 2
     cfg.model.kmax.trans_dec.num_object_queries = QUERIES
     cfg.model.kmax.pixel_dec.dec_channels = [64, 48, 32, 16]
@@ -210,7 +205,7 @@ def main(argv=None) -> int:
     out = args.out or tempfile.mkdtemp(prefix="validate_overfit_")
     device = torch.device(args.device)
     name = fixture(out)
-    cfg = overfit_config(name, out, device)
+    cfg = overfit_config(name, out)
     cfg.solver.base_lr = args.lr
     cfg.solver.prediction_head_multiplier = args.head_mult
     # poly decay to 0 within the run: as the lr anneals the weights settle,

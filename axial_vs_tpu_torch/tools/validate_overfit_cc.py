@@ -82,7 +82,7 @@ def main(argv=None) -> int:
             return rc
     device = torch.device(args.device)
     name = wc_tool.fixture(out)
-    cfg = wc_tool.overfit_config(name, out, device, VIDEO_FRAMES)
+    cfg = wc_tool.overfit_config(name, out, VIDEO_FRAMES)
     cfg.model.meta_architecture = "MaXTronCCDeepLab"
     model, _ = build_model_and_criterion(
         cfg, train=True, device=device,

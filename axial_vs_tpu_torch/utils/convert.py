@@ -490,7 +490,10 @@ def wc_to_cc(wc: dict, cc_state: dict) -> dict:
 # ---- Tube-Link --------------------------------------------------------------
 
 def tube_link_pixel_decoder(p) -> dict:
-    """``params["head"]["pixel_decoder"]`` (no batch stats)."""
+    """``params["head"]["pixel_decoder"]`` (no batch stats). A decoder
+    without MaXTron's attention (``use_temporal`` false) has no
+    ``level_3d_encoding`` and its layers no ``gamma`` or
+    ``temporal_encoder``: its state_dict has none of those keys."""
     sd = {}
     for key, v in p.items():
         m = re.fullmatch(r"(input|lateral|output)_(conv|norm)(\d)", key)
@@ -505,10 +508,11 @@ def tube_link_pixel_decoder(p) -> dict:
         elif key == "mask_feature":
             sd.update(_prefix(key, _conv(v)))
         elif li and li.group(2) == "attn":
-            sd.update(_prefix(f"layers.{li.group(1)}.attn", {
-                **msdeform_attn(v), "gamma": np.asarray(v["gamma"]),
-                **_prefix("temporal_encoder",
-                          temporal_encoder(v["temporal_encoder"]))}))
+            attn = msdeform_attn(v)
+            if "temporal_encoder" in v:
+                attn.update({"gamma": np.asarray(v["gamma"]), **_prefix(
+                    "temporal_encoder", temporal_encoder(v["temporal_encoder"]))})
+            sd.update(_prefix(f"layers.{li.group(1)}.attn", attn))
         elif li:
             i, name = li.groups()
             sd.update(_prefix(f"layers.{i}.{name}",

@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero before the last line:
                and f32, at the WC, Tube-Link and CC shapes (f = 3, 9, 24,
                64 clips of 128 queries, and a ragged f = 13), timed eager
                and in a CUDA graph, each CC shape beside its bound; its two
-               stages' device time at the widest rows (torch.profiler)
+               stages' device time at the widest rows (torch.profiler); and
+               at head widths 8 and 16 (64 channels at a Tube-Link row),
+               each beside its bound
   6. K5, K4  - the fused ConvNeXt MLP tail and the fused ConvNeXt block
                against their plain versions at the four ConvNeXt-L stage
                shapes, beside the default route's eager chain, per stage
@@ -91,7 +93,20 @@ Phases, in order; any failure exits non-zero before the last line:
                instances, and the launch counts of that run
  13. Tube-Link reference - the pixel decoder on a small tube, the card's
                bf16 run against an f32 run of the plain versions on the CPU
- 13b. K2 model inputs - K2 on the arguments of the first K2 call of the WC
+ 13a. ytvis eval - ``evaluate_ytvis`` on two synthetic 720x1280 YTVIS
+               videos (15 and 36 frames, with ground truth) for both
+               Tube-Link R50 configurations at full width (bf16, 360x640
+               tubes of 5, random weights from seed 0), each built by the
+               registry: with MaXTron's temporal attention (K2 and K3) and
+               the baseline without it (K2 only, no K3 launch); finite
+               AP/AR, 30 predictions a video, the launch counts; frames/s,
+               the forward's, host upsample's and RLE's shares, the JSON's
+               size, peak device and host memory
+ 13b. overfit heads of 8 - the port's WC overfit tool
+               (``tools/validate_overfit.py``, 64 channels in 8 heads of 8,
+               the JAX tool's) for one step and one eval: K3 at head width
+               8, under autograd in the step
+ 13c. K2 model inputs - K2 on the arguments of the first K2 call of the WC
                slice's and the Tube-Link path's warm-up (bf16 as captured,
                and in f32), against its plain version, timed eager and in a
                CUDA graph per clip and per tube
@@ -160,6 +175,10 @@ K3_TL = {"res5 H": (20, 5, 12), "res5 W": (12, 5, 20),  # res5 12x20
 K3_CC = {"f=3": (1, 3, 128), "f=9": (1, 9, 128), "f=24": (1, 24, 128),
          "f=64": (1, 64, 128)}
 K3_CC_RAGGED = (2, 13, 37)
+#: K3 at the narrow head widths, (B', f, n, C, heads): the Tube-Link res4 W
+#: rows at 64 channels in 8 heads of 8 (the WC overfit tool's module) and 4
+#: heads of 16 (the Tube-Link overfit tool's)
+K3_NARROW = {"d=8": (23, 5, 40, 64, 8), "d=16": (23, 5, 40, 64, 4)}
 CC_LAYERS = 6  # K3 calls per video in the CC module, at f = clips
 K2_WC_CALLS = 2  # per clip: 2 stages x 1 deformable encoder layer
 K2_TL_CALLS = 6  # per tube: 6 pixel-decoder encoder layers
@@ -698,6 +717,7 @@ def phase_k3(torch, gen):
     log(f"K3 f32 per 9-clip video in the CC module ({CC_LAYERS} calls): "
         f"kernel {ms:.4f} ms ({g_ms:.4f} in CUDA graphs), plain {plain:.4f} "
         f"ms, bound {bound:.4f} ms ({by})")
+    narrow = phase_k3_narrow(torch, gen)
     ms, plain, bound, by, g_ms = totals[(torch.bfloat16, "tube-link")]
     return {"max_abs_err": worst[torch.bfloat16], "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -707,9 +727,61 @@ def phase_k3(torch, gen):
                                    for (d, k), v in stages.items()},
             "wc_clip": dict(zip(keys, totals[(torch.bfloat16, "wc")])),
             "cc_shapes": cc_shapes, "cc_video_9_clips_f32": cc_video,
+            "narrow_heads": narrow,
             "f32": {"max_abs_err": worst[torch.float32],
                     "tube": dict(zip(keys, totals[(torch.float32, "tube-link")])),
                     "wc_clip": dict(zip(keys, totals[(torch.float32, "wc")]))}}
+
+
+def phase_k3_narrow(torch, gen):
+    """K3 at head widths 8 and 16 (``K3_NARROW``), bf16 and f32, against
+    its plain version within phase 5's bounds; eager and in a CUDA graph,
+    beside the bound worked out as for the 32-wide rows. Returns each
+    case's entry."""
+    from axial_vs_tpu_torch.ops.traj import (
+        TRAJ_ULPS, trajectory_attention_core, trajectory_attention_core_plain)
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
+    out = {}
+    for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        tag = str(dtype)[6:]
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        for name, (b, f, n, c, h) in K3_NARROW.items():
+            args = _traj_inputs(torch, gen, b, f, n, c=c, dtype=dtype)
+
+            def kernel():
+                return trajectory_attention_core(*args, f, h)
+
+            got = kernel()
+            want = trajectory_attention_core_plain(*args, f, h)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            if dtype == torch.bfloat16:
+                bound, stated = TRAJ_ULPS * bf16_ulp(scale), f"{TRAJ_ULPS} bf16 ulp"
+            else:
+                bound, stated = f32_bound(want), "F32_REL_BOUND"
+            if not (err <= bound and torch.isfinite(got.float()).all()
+                    and got.dtype == dtype):
+                raise AssertionError(f"K3 {tag} {name} disagrees: {err}")
+            ms = cuda_ms(torch, kernel)
+            g_ms = graph_ms(kernel, "cuda", 10)
+            plain_ms = cuda_ms(torch, lambda: trajectory_attention_core_plain(
+                *args, f, h), 3, 5)
+            flops, nbytes = _traj_work(b, f, n, c=c, size=size)
+            b_ms, by = bound_ms(flops, nbytes, peak)
+            out[f"{tag} {name}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "graph_ms": g_ms,
+                "shape": [b, f, n, c, h]}
+            log(f"K3 {tag} {name} (B'={b}, f={f}, n={n}, C={c}, {h} heads): "
+                f"max_abs_err {err:.6g} (bound {stated} of max|out| "
+                f"{scale:.4g} = {bound:.6g}); kernel {ms:.4f} ms ({g_ms:.4f} "
+                f"in a CUDA graph), plain {plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB), {b_ms / g_ms:.3f} of the bound in "
+                f"a graph")
+    return out
 
 
 def _mlp_params(torch, gen, c):
@@ -2496,6 +2568,198 @@ def phase_tube_link_reference(torch, model):
                                  f"{TL_REFERENCE_BOUND}")
 
 
+#: the YTVIS eval phase's videos: frames of each, at the YTVIS size
+YTVIS_VIDEOS, YTVIS_HW = (15, 36), (720, 1280)
+
+
+class HostPeak:
+    """While active, the process's peak resident memory (GiB), sampled from
+    ``/proc/self/statm`` every 20 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0.0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def sample():
+            while True:
+                with open("/proc/self/statm") as f:
+                    rss = int(f.read().split()[1]) * page / 2**30
+                self.peak = max(self.peak, rss)
+                if self._stop.wait(0.02):
+                    return
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def phase_ytvis_eval(torch, root: str):
+    """``evaluate_ytvis`` on two synthetic 720x1280 YTVIS videos (15 and
+    36 frames, ground truth from ``data/synthetic.py::write_ytvis_videos``)
+    for both Tube-Link R50 configurations at full width, bf16, 360x640
+    tubes of 5, random weights from seed 0: with MaXTron's temporal
+    attention (K2 and K3) and without it (the baseline: K2 only), each
+    built by the registry (``build_model_and_criterion``). Checks finite
+    AP/AR, the predictions and the launch counts; logs frames/s, the
+    forward's share (CUDA events), the host upsample's and RLE's shares,
+    the JSON's size and peak device and host memory. Returns the launch
+    counts of each run."""
+    import axial_vs_tpu_torch.data.ytvis as ytvis
+    from axial_vs_tpu_torch.data.synthetic import write_ytvis_videos
+    from axial_vs_tpu_torch.engine import evaluator_loop
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.tube_link.detector import (
+        TubeLinkVISInference, video_split)
+
+    laps = Laps("ytvis eval")
+    dev = torch.device("cuda")
+    name = "ytvis_chip_smoke_val"
+    meta = ytvis.register_ytvis(name, *write_ytvis_videos(
+        root, len(YTVIS_VIDEOS), YTVIS_VIDEOS, hw=YTVIS_HW))
+    # the model's 40 classes are YTVIS-2019's category ids 1-40; the
+    # synthetic ground truth is in categories 1 and 2
+    meta.contiguous_to_dataset_id = list(
+        range(1, tube_link_r50_config().model.num_classes + 1))
+    laps(f"wrote {len(YTVIS_VIDEOS)} videos of {YTVIS_VIDEOS} frames at "
+         f"{YTVIS_HW[0]}x{YTVIS_HW[1]}")
+    tubes = sum(len(video_split(v, TL_T)) for v in YTVIS_VIDEOS)
+    frames = sum(YTVIS_VIDEOS)
+    spans, host = [], {"upsample": 0.0, "rle": 0.0}
+
+    def host_timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host[key] += time.perf_counter() - t0
+        return wrapper
+
+    real = (TubeLinkVISInference.tube_forward,
+            evaluator_loop.upsample_instances, ytvis.results_to_ytvis_json)
+    out = {}
+    try:
+        TubeLinkVISInference.tube_forward = cuda_spans(torch, spans, real[0])
+        evaluator_loop.upsample_instances = host_timed("upsample", real[1])
+        ytvis.results_to_ytvis_json = host_timed("rle", real[2])
+        for label, temporal in (("temporal", True), ("baseline", False)):
+            cfg = tube_link_r50_config()
+            cfg.merge_from_list([
+                "model.tube_link.use_temporal_attn", temporal,
+                "input.image_size", [TL_H, TL_W], "datasets.test", [name]])
+            model, criterion = build_model_and_criterion(
+                cfg, train=False, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+            assert criterion is None and not model.training
+            with torch.inference_mode():  # warm-up tube (kernel selection)
+                model(torch.zeros(TL_T, TL_H, TL_W, 3, device=dev))
+            torch.cuda.synchronize()
+            spans.clear()
+            host.update(upsample=0.0, rle=0.0)
+            path = os.path.join(root, f"results_{label}.json")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with HostPeak() as peak:
+                res = evaluator_loop.evaluate_ytvis(cfg, model,
+                                                    format_only_path=path)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            fwd = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+            dev_peak = torch.cuda.max_memory_allocated() / 2**30
+            want = expect(K2=K2_TL_CALLS * tubes,
+                          K3=4 * K3_TL_CALLS * tubes if temporal else 0)
+            fields = {k: v for k, v in res.items()
+                      if k not in ("results_json", "per_category_AP")}
+            k = cfg.model.tube_link.test_topk
+            biggest = k * max(YTVIS_VIDEOS) * YTVIS_HW[0] * YTVIS_HW[1] * 4
+            log(f"ytvis eval {label} (use_temporal_attn {temporal}): "
+                f"{frames} frames in {tubes} tubes, {wall:.2f} s, "
+                f"{frames / wall:.3f} frames/s; forward {fwd:.2f} s "
+                f"({fwd / wall:.3f}, CUDA events, {len(spans)} tubes), host "
+                f"upsample {host['upsample']:.2f} s "
+                f"({host['upsample'] / wall:.3f}), RLE {host['rle']:.2f} s "
+                f"({host['rle'] / wall:.3f}); results JSON "
+                f"{os.path.getsize(path) / 2**20:.2f} MiB, "
+                f"{res['num_predictions']} predictions; peak device "
+                f"{dev_peak:.3f} GiB, peak host RSS {peak.peak:.3f} GiB "
+                f"(the largest video's probabilities {biggest / 2**30:.3f} "
+                f"GiB); AP/AR " + json.dumps(fields))
+            log(f"ytvis eval {label}: launches {launches} (want {want})")
+            if launches != want:
+                raise AssertionError(f"ytvis eval {label}: launches {launches}")
+            if (res["num_videos"] != len(YTVIS_VIDEOS)
+                    or res["num_predictions"] != k * len(YTVIS_VIDEOS)
+                    or not all(math.isfinite(v) for v in fields.values()
+                               if isinstance(v, float))
+                    or not all(math.isfinite(v) for v in
+                               res["per_category_AP"].values())):
+                raise AssertionError(f"ytvis eval {label}: {res}")
+            out[label] = launches
+            del model
+            torch.cuda.empty_cache()
+            laps(label)
+    finally:
+        (TubeLinkVISInference.tube_forward, evaluator_loop.upsample_instances,
+         ytvis.results_to_ytvis_json) = real
+    return out
+
+
+@contextlib.contextmanager
+def traj_head_widths(box: list):
+    """While active, each K3 call of the trajectory layers appends (head
+    width, whether it runs under autograd: grad mode on and an input that
+    requires grad) to ``box``."""
+    import torch
+
+    from axial_vs_tpu_torch.layers import trajectory_attention
+
+    real = trajectory_attention.trajectory_attention_core
+
+    def call(*args, **kwargs):
+        box.append((args[0].shape[-1] // int(args[8]),
+                    torch.is_grad_enabled() and any(
+                        getattr(a, "requires_grad", False) for a in args)))
+        return real(*args, **kwargs)
+
+    trajectory_attention.trajectory_attention_core = call
+    try:
+        yield
+    finally:
+        trajectory_attention.trajectory_attention_core = real
+
+
+def phase_overfit_heads(torch, root: str):
+    """The port's WC overfit tool for one step and one eval on the card
+    (``tools/validate_overfit.py``, the JAX tool's module: 64 channels in
+    8 heads of 8): K3 runs at head width 8, under autograd in the step.
+    Returns the launch counts."""
+    from axial_vs_tpu_torch.tools import validate_overfit
+
+    calls = []
+    reset_counts()
+    with traj_head_widths(calls):
+        rc = validate_overfit.main(["--steps", "1", "--eval-every", "1",
+                                    "--target", "0", "--out", root,
+                                    "--device", "cuda"])
+    launches = read_counts()
+    widths = sorted({d for d, _ in calls})
+    log(f"overfit tool, one step and one eval: rc {rc}, {len(calls)} K3 "
+        f"calls at head widths {widths}, {sum(g for _, g in calls)} under "
+        f"autograd; launches {launches}")
+    if rc != 0 or widths != [8] or not any(g for _, g in calls) or \
+            launches["K3"] != len(calls) or launches["K2"] == 0:
+        raise AssertionError(f"overfit tool: rc {rc}, calls {calls}, "
+                             f"launches {launches}")
+    return launches
+
+
 #: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
 #: of max|prod|. K2 rounds nothing before its f32 sum; the table variants
 #: round each slot weight (bilinear times attention weight) to bf16, and
@@ -3140,6 +3404,13 @@ def main() -> int:
     timed_phase("tube-link reference", phase_tube_link_reference, torch, model)
     del model
     torch.cuda.empty_cache()
+    ytvis = timed_phase("ytvis eval", in_temp_dir, "chip_smoke_ytvis_",
+                        lambda root: phase_ytvis_eval(torch, root))
+    paths["ytvis_eval_temporal_2_videos"] = ytvis["temporal"]
+    paths["ytvis_eval_baseline_2_videos"] = ytvis["baseline"]
+    paths["overfit_wc_8_heads_1_step"] = timed_phase(
+        "overfit heads of 8", in_temp_dir, "chip_smoke_overfit_",
+        lambda root: phase_overfit_heads(torch, root))
     results["K2"] = timed_phase("K2 model inputs", phase_k2_model, torch,
                                 captured, k2_drawn)
     del captured

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 #: each problem: (B, N, M) of its batch, as the criterion calls the matcher
 SHAPE = (4, 32, 8)

@@ -22,6 +22,7 @@ import torch
 
 from axial_vs_tpu_torch.utils import convert
 from test_torch_parity import jax_apply, jax_init, port, randomize, t
+from test_torch_parity import numpy_lsap, torch_threads  # noqa: F401 (autouse)
 
 #: bound on |port - JAX|_2 / |JAX|_2 of every module output
 REL_L2 = 1e-5

@@ -25,6 +25,7 @@ from flax import traverse_util
 
 from axial_vs_tpu_torch.utils import convert
 from test_torch_parity import jax_init, randomize, t
+from test_torch_parity import numpy_lsap, torch_threads  # noqa: F401 (autouse)
 
 #: bound on |port - JAX|_2 / |JAX|_2 of the CC module's outputs and of its
 #: BatchNorm statistics after the forward

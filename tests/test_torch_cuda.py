@@ -401,6 +401,47 @@ def test_trajectory_attention_core_kernel_heads(gen, full_f32, h, dtype):
                    else _bound(want))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,n,c,h", [
+    (23, 5, 40, 64, 8), (23, 5, 40, 64, 4),  # d = 8 and 16, Tube-Link rows
+    (1, 9, 128, 64, 8), (2, 13, 37, 64, 4),  # many frames, ragged
+    (3, 3, 7, 16, 2), (3, 3, 7, 16, 1),      # C = 16: one part group
+    (2, 4, 65, 48, 3), (2, 2, 32, 80, 5),    # C not a multiple of 32
+    (2, 3, 130, 128, 8)])                    # n > 128, 8 heads of 16
+def test_trajectory_attention_core_kernel_narrow_heads(gen, full_f32, b, f,
+                                                       n, c, h, dtype):
+    """K3 at head widths 8 and 16 (heads of a 32-column group of stage 2
+    each with their own temporal softmax; C a multiple of 16, the last
+    group part empty where C is not a multiple of 32) against its plain
+    version, within the bounds of the 32-wide heads."""
+    from axial_vs_tpu_torch.ops.traj import (
+        TRAJ_ULPS, trajectory_attention_core, trajectory_attention_core_plain)
+
+    args = traj_inputs(gen, b, f, n, c=c, dtype=dtype)
+    before = trajectory_attention_core.launches
+    got = trajectory_attention_core(*args, f, h)
+    assert trajectory_attention_core.launches == before + 1
+    want = trajectory_attention_core_plain(*args, f, h)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert err <= (TRAJ_ULPS * _ulp(want) if dtype == torch.bfloat16
+                   else _bound(want))
+
+
+@pytest.mark.parametrize("c,h", [(64, 16), (128, 2), (24, 3), (40, 5)])
+def test_trajectory_attention_core_refuses_other_widths(gen, c, h):
+    """Head widths other than 8, 16 and 32 (4 and 64 here), more than 8
+    heads, and C not a multiple of 16 raise on the card: no launch."""
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    args = traj_inputs(gen, 2, 2, 10, c=c)
+    before = trajectory_attention_core.launches
+    with pytest.raises(ValueError):
+        trajectory_attention_core(*args, 2, h)
+    assert trajectory_attention_core.launches == before
+
+
 def test_trajectory_attention_core_kernel_f32_repeatable(gen, full_f32):
     """50 f32 calls at the widest WC row give the bits of the first (each
     sum has one thread and a fixed order)."""
@@ -553,6 +594,23 @@ def test_trajectory_attention_core_autograd(gen, full_f32, dtype):
     assert args[4].dtype == args[6].dtype == torch.float32
     _autograd_check(trajectory_attention_core, trajectory_attention_core_plain,
                     [*args, 2, 8], 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [8, 4])
+def test_trajectory_attention_core_autograd_narrow_heads(gen, full_f32, h,
+                                                         dtype):
+    """K3's autograd Function at 64 channels in 8 heads of 8 (the WC
+    overfit tool's module) and 4 of 16, at a Tube-Link row: the gradients
+    of q, k, v and the stage-2 weights against autograd of the plain
+    version."""
+    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+                                             trajectory_attention_core_plain)
+
+    args = [t.requires_grad_() for t in traj_inputs(gen, 23, 5, 40, c=64,
+                                                     dtype=dtype)]
+    _autograd_check(trajectory_attention_core, trajectory_attention_core_plain,
+                    [*args, 5, h], 4)
 
 
 @pytest.mark.parametrize("b,f,n", [(1, 4, 128), (1, 9, 128)])

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fixtures_vipseg import synthesize_vipseg_videos
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 #: frames of the fixture videos, and the training crop (not a multiple of
 #: 4 on one side, and smaller than the frame on the other)
@@ -127,8 +128,8 @@ def test_build_mapper_and_registration(tmp_path, videos):
         _equal_trees(got(v, dataset=videos), want(v, dataset=videos))
 
 
-@pytest.mark.parametrize("name", ["coco_panoptic", "coco_instance", "ytvis",
-                                  "dvps"])
+@pytest.mark.parametrize("name", ["coco_panoptic", "coco_instance",
+                                  "kitti_step", "dvps"])
 def test_unported_mappers_raise(name):
     from axial_vs_tpu_torch.data.build import build_mapper
 

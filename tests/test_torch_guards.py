@@ -33,6 +33,7 @@ from axial_vs_tpu_torch.tools import bench_pallas_bw as probe_bw
 from axial_vs_tpu_torch.tools import exp_dwconv_variants as probe_dw
 from axial_vs_tpu_torch.tools import exp_vmem_gather as probe_gather
 from axial_vs_tpu_torch.utils.convert import convert_variables
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 DEPTHS, DIMS = (1, 2, 1, 1), (32, 64, 96, 128)
@@ -111,7 +112,8 @@ def test_port_imports_without_jax():
                    "data.build", "data.builtin", "data.loader",
                    "data.synthetic", "engine.trainer", "engine.checkpoint",
                    "engine.logger", "models.build", "tools.train_net_video",
-                   "tools.validate_overfit", "tools.validate_overfit_cc"):
+                   "tools.validate_overfit", "tools.validate_overfit_cc",
+                   "data.mask_rle", "data.ytvis", "evaluation.ytvis_eval"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
@@ -635,3 +637,53 @@ def test_bf16_tube_link_runs_on_cpu(rng):
     assert np.isfinite(res["masks"]).all()
     assert ((res["labels"] >= 0) & (res["labels"] < 5)).all()
     assert np.all(res["scores"][:-1] >= res["scores"][1:])
+
+
+@pytest.mark.parametrize("arch", ["TubeLinkVideoVIS", "TubeLinkVPS",
+                                  "ImageMask2Former"])
+def test_unported_architectures_raise(arch):
+    """The registry builds ``TubeLinkVIS`` now; the other Tube-Link models
+    and the image Mask2Former still raise, naming themselves."""
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    cfg = _tube_link_config("float32")
+    cfg.model.meta_architecture = arch
+    with pytest.raises(NotImplementedError, match=arch):
+        build_model_and_criterion(cfg, device=torch.device("cpu"),
+                                  generator=torch.Generator())
+
+
+def test_tube_link_trainer_refuses_to_train(tmp_path):
+    """A Tube-Link VIS config builds (criterion None: its loss is not
+    ported) and evaluates, but ``Trainer.train`` and ``train_step`` raise
+    naming the missing criterion rather than step without a loss."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.engine.trainer import Trainer
+    from axial_vs_tpu_torch.models.tube_link.detector import TubeLinkVIS
+
+    cfg = load_config("ytvis19/tube_link_r50.yaml", [
+        "model.backbone.name", "resnet18", "model.backbone.resnet.depth", 18,
+        "model.tube_link.num_queries", 8, "model.tube_link.feat_channels",
+        32, "model.tube_link.out_channels", 32,
+        "model.tube_link.num_decoder_layers", 1, "datasets.train", [],
+        "output_dir", str(tmp_path)])
+    trainer = Trainer(cfg, device=torch.device("cpu"))
+    assert isinstance(trainer.model, TubeLinkVIS) and trainer.criterion is None
+    with pytest.raises(NotImplementedError, match="tube_link/criterion.py"):
+        trainer.train()
+    with pytest.raises(NotImplementedError, match="tube_link/criterion.py"):
+        train_step(trainer.model, None, trainer.optimizer, trainer.scheduler,
+                   {}, trainer.generator)
+
+
+def test_cli_refuses_coco_evaluation():
+    """``train_net_video --eval-only`` evaluates VIPSeg and YTVIS/OVIS test
+    sets; the COCO-panoptic evaluator is not ported and raises before any
+    model is built."""
+    from axial_vs_tpu_torch.tools import train_net_video
+
+    with pytest.raises(NotImplementedError, match="coco"):
+        train_net_video.main([
+            "--config-file", "coco/kmax_r50.yaml", "--eval-only",
+            "--device", "cpu"])

@@ -38,6 +38,7 @@ from axial_vs_tpu.ops.msda_pallas import (pack_corner_table,
                                           weighted_corner_reduce_v5)
 from axial_vs_tpu_torch.ops import msda_reduce as port
 from axial_vs_tpu_torch.tools import bench_msda as port_bench
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 R, N, D, BLOCK = 37, 6, 8, 16

@@ -22,6 +22,42 @@ from axial_vs_tpu_torch.utils import convert
 
 TOL_MODULE = 1e-5
 TOL_SLICE = 2e-3
+#: torch's intra-op threads while a port test file runs (the autouse
+#: fixture ``torch_threads``, which a file takes by importing it). The
+#: suite runs in 6 processes on 8 cores, where torch's default of a thread
+#: a core in each process oversubscribes the CPU: the port's files took
+#: 936.79 s of wall time so and 251.58-289.23 s with this fixture (8 cores,
+#: -n 6 --dist loadfile, a cold JAX cache). ``test_torch_eval.py`` keeps
+#: the default: its panoptic ids' agreement with JAX's (0.999 of the
+#: pixels) was measured there, and falls to 0.99884 at 2 threads.
+TORCH_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """The module's tests run with ``TORCH_THREADS`` intra-op threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def numpy_lsap():
+    """JAX's exact matcher (``axial_vs_tpu/ops/hungarian.py``) runs scipy in
+    a ``jax.pure_callback``, whose arguments arrive as ``jax.Array``s: its
+    indexing then dispatches JAX ops from the callback's thread, which can
+    deadlock with the main thread's dispatch (a hung
+    ``test_torch_train.py::test_criterion_terms_match_jax``, both threads
+    in JAX's indexing). The module's tests run the same callback on numpy
+    copies of its arguments, as a file takes it by importing it."""
+    import axial_vs_tpu.ops.hungarian as jax_hungarian
+
+    real = jax_hungarian._lsap_host
+    jax_hungarian._lsap_host = lambda cost, valid: real(np.asarray(cost),
+                                                        np.asarray(valid))
+    yield
+    jax_hungarian._lsap_host = real
 
 
 def randomize(shapes, seed, scale=0.1):

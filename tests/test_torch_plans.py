@@ -9,6 +9,7 @@ from axial_vs_tpu_torch.models.backbones.convnext import ConvNeXt, ConvNeXtBlock
 from axial_vs_tpu_torch.models.kmax import materialize
 from axial_vs_tpu_torch.ops import convnext_cuda
 from axial_vs_tpu_torch.utils import convert
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

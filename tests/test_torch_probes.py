@@ -42,6 +42,7 @@ from axial_vs_tpu_torch.tools import bench_overlap as port_overlap
 from axial_vs_tpu_torch.tools import bench_pallas_bw as port_bw
 from axial_vs_tpu_torch.tools import exp_dwconv_variants as port_dw
 from axial_vs_tpu_torch.tools import exp_vmem_gather as port_gather
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 CACHE_KEYS = ("jax_compilation_cache_dir",

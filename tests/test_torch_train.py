@@ -21,6 +21,7 @@ from flax import traverse_util
 
 from axial_vs_tpu_torch.utils import convert
 from test_torch_parity import jax_init, small_config
+from test_torch_parity import numpy_lsap, torch_threads  # noqa: F401 (autouse)
 
 #: bound of the plain VJPs against jax.vjp, relative to each gradient's max
 TOL_VJP = 1e-5

@@ -43,6 +43,7 @@ import torch
 
 from test_torch_train import (LOSS_WEIGHTS, M, T, _NoDropout, _outputs,
                               _targets, _to_jax, _to_torch, train_config)
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 #: the input scalings whose effect on JAX's own step bounds the port's
 JITTER = (2 ** -22, 2 ** -21, 2 ** -20)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from axial_vs_tpu_torch.utils import convert
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-5
 SHAPE = (2, 9, 13, 32)

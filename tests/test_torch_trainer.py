@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fixtures_vipseg import synthesize_vipseg_videos
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 TRAIN, TEST = "vipseg_trainer_test_train", "vipseg_trainer_test_val"
 #: the port's f32 forward after ``load_weights`` against JAX's, relative
@@ -151,9 +152,10 @@ def test_cli_trains_evaluates_and_resumes(registered, tmp_path):
         evaluator_loop.evaluate_vipseg = real
     with pytest.raises(NotImplementedError):
         train_net_video.main(["--distributed"] + base + _flat(_opts(tmp_path)))
-    with pytest.raises(NotImplementedError, match="ytvis"):
+    with pytest.raises(NotImplementedError, match="coco"):
         train_net_video.main(base + _flat(_opts(
-            tmp_path, datasets__test=["ytvis_2019_val"], test__eval_period=5)))
+            tmp_path, datasets__test=["coco_2017_val_panoptic"],
+            test__eval_period=5)))
 
 
 def _flat(opts):

@@ -22,6 +22,7 @@ from axial_vs_tpu.utils.torch_convert import convert_torchvision_resnet
 from axial_vs_tpu_torch.utils import convert
 from test_torch_parity import (TOL_MODULE, TOL_SLICE, close, jax_apply,
                                jax_init, port, t)
+from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 CHANS_R18 = {"res2": 64, "res3": 128, "res4": 256, "res5": 512}
 
@@ -45,13 +46,23 @@ def _port_traj(q, k, v, wq, bq, wkv, bkv, f, h):
                                      t(wkv.T.copy()), t(bkv), f, h)
 
 
-@pytest.mark.parametrize("b,f,n,h,d", [(3, 5, 23, 8, 32), (2, 2, 43, 8, 32)])
+@pytest.mark.parametrize("b,f,n,h,d", [(3, 5, 23, 8, 32), (2, 2, 43, 8, 32),
+                                       (3, 5, 23, 8, 8), (3, 5, 23, 4, 16)])
 def test_traj_core_matches_jax_math(rng, b, f, n, h, d):
     from axial_vs_tpu.ops.traj_pallas import _traj_math
 
     args = _traj_args(rng, b, f, n, h * d)
     want = _traj_math(*map(jnp.asarray, args), f, h, d ** -0.5)
     close(_port_traj(*args, f, h), want, TOL_MODULE)
+
+
+@pytest.mark.parametrize("c,h", [(24, 3), (40, 5), (8, 1)])
+def test_traj_core_refuses_channels_off_16(rng, c, h):
+    """K3 takes C a multiple of 16 (its TMA row pitch and 16-column steps),
+    on every device: the CPU's plain version refuses the same shapes."""
+    args = _traj_args(rng, 2, 2, 5, c)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _port_traj(*args, 2, h)
 
 
 def test_traj_core_matches_interpret_kernel(rng):
@@ -129,6 +140,16 @@ def _features(rng, bt, chans, hw=(16, 24)):
 
 
 def test_fused_msda_trajectory_attention(rng):
+    _check_fused_attention(rng, temporal=True)
+
+
+def test_fused_msda_attention_without_temporal(rng):
+    """The Tube-Link baseline's layer: deformable attention alone, no
+    ``gamma`` and no ``temporal_encoder`` on either side."""
+    _check_fused_attention(rng, temporal=False)
+
+
+def _check_fused_attention(rng, temporal):
     from axial_vs_tpu.layers.position_embeddings import (
         position_embedding_sine_3d)
     from axial_vs_tpu.models.tube_link.pixel_decoder import (
@@ -143,7 +164,8 @@ def test_fused_msda_trajectory_attention(rng):
     pos = rng.randn(s, c).astype(np.float32)
     pos_3d = [np.asarray(position_embedding_sine_3d(f, h, w, c // 2))
               for h, w in shapes[:2]]
-    kw = dict(embed_dims=c, num_temporal_dim=48, num_frames=f)
+    kw = dict(embed_dims=c, num_temporal_dim=48, num_frames=f,
+              use_temporal=temporal)
     jm = J(**kw)
     jargs = (jnp.asarray(query), jnp.asarray(pos),
              [jnp.asarray(p) for p in pos_3d], shapes)
@@ -151,6 +173,7 @@ def test_fused_msda_trajectory_attention(rng):
     want = jax_apply(jm, v, *jargs[:3], spatial_shapes=shapes)
     sd = convert.tube_link_pixel_decoder({"layer0_attn": v["params"]})
     sd = {k[len("layers.0.attn."):]: x for k, x in sd.items()}
+    assert ("gamma" in sd) == temporal
     got = port(FusedMSDATrajectoryAttention(**kw), sd)
     close(got(t(query), t(pos), [t(p) for p in pos_3d], shapes), want,
           TOL_MODULE)
