@@ -819,13 +819,18 @@ __host__ __device__ inline size_t stage2_smem_f32(int C) {
   return ((size_t)3 * GW * (C + 4) + (size_t)F2_STAGES * F2_BM * F2_LDA) * 4;
 }
 
-template <int HD>
+// PART: C is not a multiple of 32, so the last group is part (16 columns)
+// and its last 64-column slice may be a quarter one. Without it (every C of
+// d = 32) no column bound is tested and the slice loop stops only at a half
+// slice: those tests at every C cost stage 2 about 3% at d = 32 (H100).
+template <int HD, bool PART>
 __global__ void __launch_bounds__(F2_THREADS, 1)
 traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD,
                        const float* __restrict__ wq, const float* __restrict__ bq,
                        const float* __restrict__ wkv, const float* __restrict__ bkv,
                        float* __restrict__ out, int BN, int F, int H, float scale) {
   constexpr int SUB = GW / HD, JH = HD / 8;  // heads of a group; columns of a head a lane
+  constexpr int KSTEP = PART ? 16 : 32;  // the depth a part slice ends at a multiple of
   extern __shared__ __align__(16) float smf2[];
   const int C = H * HD, ldw = C + 4;
   float* Wq_s = smf2;
@@ -837,7 +842,7 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
   const int units = tiles * ((C + GW - 1) / GW);
   const int u0 = (int)((long long)blockIdx.x * units / gridDim.x);
   const int u1 = (int)((long long)(blockIdx.x + 1) * units / gridDim.x);
-  const int KS = (C + F2_BK - 1) / F2_BK;  // the last slice may be part (C = 16 m)
+  const int KS = (C + F2_BK - 1) / F2_BK;  // the last slice may be part (C % 64 != 0)
   const int per_unit = (F + 1) * KS;  // slices: XD, then frames 0 .. F - 1
   const int total = (u1 - u0) * per_unit;
 
@@ -876,15 +881,17 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
         const int r = i / (C / 4), c4 = i % (C / 4);  // r: Wq rows, then Wk, then Wv
         const int m = r / GW, row = col0 + r % GW;  // zeros past C
         const float* src = m == 0 ? wq + (size_t)row * C : wkv + (size_t)((m - 1) * C + row) * C;
-        *(float4*)(Wq_s + r * ldw + 4 * c4) =
-            row < C ? *(const float4*)(src + 4 * c4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        *(float4*)(Wq_s + r * ldw + 4 * c4) = !PART || row < C
+                                                  ? *(const float4*)(src + 4 * c4)
+                                                  : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = col0 + cg + 8 * j;
-        bqr[j] = col < C ? bq[col] : 0.f;
-        bkr[j] = col < C ? bkv[col] : 0.f;
-        bvr[j] = col < C ? bkv[C + col] : 0.f;
+        const bool in = !PART || col < C;
+        bqr[j] = in ? bq[col] : 0.f;
+        bkr[j] = in ? bkv[col] : 0.f;
+        bvr[j] = in ? bkv[C + col] : 0.f;
       }
       cur = group;
     }
@@ -904,7 +911,7 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
     if (a == 0) {  // q2 of the group, into ak
 #pragma unroll
       for (int kk = 0; kk < F2_BK; kk += 4) {
-        if (kk % 16 == 0 && kc + kk >= C) break;  // a part slice past C
+        if (kk % KSTEP == 0 && kc + kk >= C) break;  // a part slice past C
         float4 x4[TM], w4[4];
 #pragma unroll
         for (int i = 0; i < TM; ++i) x4[i] = *(const float4*)(A + (rg + 32 * i) * F2_LDA + kk);
@@ -919,7 +926,7 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
     } else {  // k2 and v2 of the group for frame a - 1
 #pragma unroll
       for (int kk = 0; kk < F2_BK; kk += 4) {
-        if (kk % 16 == 0 && kc + kk >= C) break;
+        if (kk % KSTEP == 0 && kc + kk >= C) break;
         float4 x4[TM], k4[4], v4[4];
 #pragma unroll
         for (int i = 0; i < TM; ++i) x4[i] = *(const float4*)(A + (rg + 32 * i) * F2_LDA + kk);
@@ -984,7 +991,7 @@ traj_stage2_f32_kernel(const float* __restrict__ X, const float* __restrict__ XD
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = col0 + cg + 8 * j;
-          if (col < C) out[(size_t)row * C + col] = o[i][j] / l[i][j / JH];
+          if (!PART || col < C) out[(size_t)row * C + col] = o[i][j] / l[i][j / JH];
         }
       }
     }
@@ -1000,10 +1007,10 @@ constexpr int width_index(int d) {
 }
 
 // The dynamic shared memory each kernel has been allowed so far on a device,
-// per head width.
+// per head width (f32 stage 2: per width and PART).
 struct SmemAllowed {
   size_t smem1[3] = {0, 0, 0}, smem2[3] = {0, 0, 0};
-  size_t smem1_f32[3] = {0, 0, 0}, smem2_f32[3] = {0, 0, 0};
+  size_t smem1_f32[3] = {0, 0, 0}, smem2_f32[3][2] = {{0, 0}, {0, 0}, {0, 0}};
 };
 
 SmemAllowed& smem_allowed(int dev) {
@@ -1088,12 +1095,19 @@ int launch_f32(const float* q, const float* k, const float* v, const float* wq, 
   if (bn * F > 2147483647LL) return (int)cudaErrorInvalidValue;
   const int BN = (int)bn;
   const size_t smem2 = stage2_smem_f32(C);
-  err = raise_smem(traj_stage2_f32_kernel<HD>, dc.smem2_f32[wi], smem2);
-  if (err != cudaSuccess) return (int)err;
   const long long units = (long long)((BN + F2_BM - 1) / F2_BM) * ((C + GW - 1) / GW);
   const int grid2 = (int)(units < sms ? units : sms);
-  traj_stage2_f32_kernel<HD><<<grid2, F2_THREADS, smem2, stream>>>(x_ws, xd_ws, wq, bq, wkv, bkv,
-                                                                   out, BN, F, H, scale);
+  if (C % GW == 0) {
+    err = raise_smem(traj_stage2_f32_kernel<HD, false>, dc.smem2_f32[wi][0], smem2);
+    if (err != cudaSuccess) return (int)err;
+    traj_stage2_f32_kernel<HD, false><<<grid2, F2_THREADS, smem2, stream>>>(
+        x_ws, xd_ws, wq, bq, wkv, bkv, out, BN, F, H, scale);
+  } else if constexpr (HD < GW) {  // h d = 16 mod 32: d of 8 or 16
+    err = raise_smem(traj_stage2_f32_kernel<HD, true>, dc.smem2_f32[wi][1], smem2);
+    if (err != cudaSuccess) return (int)err;
+    traj_stage2_f32_kernel<HD, true><<<grid2, F2_THREADS, smem2, stream>>>(
+        x_ws, xd_ws, wq, bq, wkv, bkv, out, BN, F, H, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@ each split whose JSON lies on disk:
 
 and the YTVIS-format sets the Tube-Link configs name (the JAX package
 registers none: its callers use ``data/ytvis.py::register_ytvis``), in
-detectron2's layout: ``ytvis_{2019,2021,2022}_{train,val}`` from
+detectron2's layout: ``ytvis_{2019,2021}_{train,val}`` from
 ``<root>/ytvis_<year>/{train,valid}.json`` with frames under
 ``<root>/ytvis_<year>/{train,valid}/JPEGImages``, and ``ovis_{train,val}``
 from ``<root>/ovis/annotations_{train,valid}.json`` with frames under
@@ -33,7 +33,7 @@ from .ytvis import register_ytvis
 #: YTVIS-format sets: name -> (frames, JSON) under the root
 _SPLITS = (("train", "train"), ("val", "valid"))
 _YTVIS = {f"{d}_{split}": (f"{d}/{folder}/JPEGImages", f"{d}/{folder}.json")
-          for d in ("ytvis_2019", "ytvis_2021", "ytvis_2022")
+          for d in ("ytvis_2019", "ytvis_2021")
           for split, folder in _SPLITS}
 _YTVIS.update({f"ovis_{split}": (f"ovis/{folder}",
                                  f"ovis/annotations_{folder}.json")

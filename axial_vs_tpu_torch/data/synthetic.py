@@ -79,11 +79,15 @@ def write_vipseg_videos(root: str, lengths=(6, 18), hw=(720, 1280),
 
 
 def write_ytvis_videos(root: str, n_videos: int = 2, n_frames=8,
-                       hw=(96, 160), seed: int = 0):
+                       hw=(96, 160), seed: int = 0,
+                       compress_level: int | None = None):
     """Write (where absent) the frames and ``train.json`` of ``n_videos``
     YTVIS-format videos of ``n_frames`` frames each (or one length a video,
-    a sequence) at ``hw`` under ``<root>/ytvis_<h>x<w>``. Returns (image
-    root, JSON path)."""
+    a sequence) at ``hw`` under ``<root>/ytvis_<h>x<w>``. The PNGs are
+    saved at zlib level ``compress_level`` (None: PIL's default, which
+    gives the test fixture's bytes; 0 stores the noisy frames, several
+    times faster to write and read at 720x1280). Returns (image root,
+    JSON path)."""
     from PIL import Image
 
     from .mask_rle import encode
@@ -115,7 +119,9 @@ def write_ytvis_videos(root: str, n_videos: int = 2, n_frames=8,
             m2[56:84, 112:148] = 1
             path = os.path.join(img_root, rel)
             if not os.path.exists(path):
-                Image.fromarray(img).save(path)
+                Image.fromarray(img).save(path, **(
+                    {} if compress_level is None
+                    else {"compress_level": compress_level}))
             masks1.append(m1)
             masks2.append(m2)
         videos.append(dict(id=v + 1, file_names=files, height=h, width=w,

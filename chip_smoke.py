@@ -1185,6 +1185,19 @@ def _function_grads(torch, fn, args, seed):
         return out.detach(), torch.autograd.grad(out, wanted, ct)
 
 
+def _kernel_and_plain():
+    """K2's and K3's wrapper, plain version and forward bound in bf16 ulps
+    of max|out| (f32: ``F32_REL_BOUND``)."""
+    from axial_vs_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
+    from axial_vs_tpu_torch.ops.traj import (TRAJ_ULPS,
+                                             trajectory_attention_core,
+                                             trajectory_attention_core_plain)
+
+    return {"K2": (ms_deform_attn, ms_deform_attn_plain, 2),
+            "K3": (trajectory_attention_core, trajectory_attention_core_plain,
+                   TRAJ_ULPS)}
+
+
 def _check_train_backward(torch, captured, keys=("K2", "K3")):
     """The autograd Functions of ``keys`` (K2, K3; each must be in
     ``captured``, else ``KeyError``) against autograd of their plain
@@ -1192,18 +1205,9 @@ def _check_train_backward(torch, captured, keys=("K2", "K3")):
     f32: ``F32_REL_BOUND`` of max|out|, bf16: 2 bf16 ulp for K2 and
     ``TRAJ_ULPS`` for K3) and each input's gradient, max |diff| / max |ref|
     (``TRAIN_GRAD_BOUND`` in f32, ``TRAIN_GRAD_BOUND_BF16`` in bf16)."""
-    from axial_vs_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
-    from axial_vs_tpu_torch.ops.traj import (TRAJ_ULPS,
-                                             trajectory_attention_core,
-                                             trajectory_attention_core_plain)
-
-    functions = {
-        "K2": (ms_deform_attn, ms_deform_attn_plain, 2),
-        "K3": (trajectory_attention_core, trajectory_attention_core_plain,
-               TRAJ_ULPS)}
     out = {}
     for key in keys:
-        fn, plain, ulps = functions[key]
+        fn, plain, ulps = _kernel_and_plain()[key]
         got, g_got = _function_grads(torch, fn, captured[key], 7)
         want, g_want = _function_grads(torch, plain, captured[key], 7)
         bf16 = got.dtype == torch.bfloat16
@@ -2574,19 +2578,25 @@ YTVIS_VIDEOS, YTVIS_HW = (15, 36), (720, 1280)
 
 class HostPeak:
     """While active, the process's peak resident memory (GiB), sampled from
-    ``/proc/self/statm`` every 20 ms by a thread."""
+    ``/proc/self/statm`` every 20 ms by a thread; ``base`` is the resident
+    memory on entry (what earlier phases left), so ``peak - base`` is what
+    the work inside needed on top of it."""
 
     def __enter__(self):
         import threading
 
-        self.peak, self._stop = 0.0, threading.Event()
+        self._stop = threading.Event()
         page = os.sysconf("SC_PAGE_SIZE")
+
+        def rss():
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * page / 2**30
+
+        self.base = self.peak = rss()
 
         def sample():
             while True:
-                with open("/proc/self/statm") as f:
-                    rss = int(f.read().split()[1]) * page / 2**30
-                self.peak = max(self.peak, rss)
+                self.peak = max(self.peak, rss())
                 if self._stop.wait(0.02):
                     return
 
@@ -2608,8 +2618,8 @@ def phase_ytvis_eval(torch, root: str):
     built by the registry (``build_model_and_criterion``). Checks finite
     AP/AR, the predictions and the launch counts; logs frames/s, the
     forward's share (CUDA events), the host upsample's and RLE's shares,
-    the JSON's size and peak device and host memory. Returns the launch
-    counts of each run."""
+    the JSON's size, the host threads and peak device and host memory.
+    Returns the launch counts of each run."""
     import axial_vs_tpu_torch.data.ytvis as ytvis
     from axial_vs_tpu_torch.data.synthetic import write_ytvis_videos
     from axial_vs_tpu_torch.engine import evaluator_loop
@@ -2620,14 +2630,18 @@ def phase_ytvis_eval(torch, root: str):
     laps = Laps("ytvis eval")
     dev = torch.device("cuda")
     name = "ytvis_chip_smoke_val"
+    # stored PNGs (zlib level 0): the noisy frames compress little, and
+    # PIL's default level 6 took 10.6 s for these 51 frames on the host of
+    # an H100 machine
     meta = ytvis.register_ytvis(name, *write_ytvis_videos(
-        root, len(YTVIS_VIDEOS), YTVIS_VIDEOS, hw=YTVIS_HW))
+        root, len(YTVIS_VIDEOS), YTVIS_VIDEOS, hw=YTVIS_HW, compress_level=0))
     # the model's 40 classes are YTVIS-2019's category ids 1-40; the
     # synthetic ground truth is in categories 1 and 2
     meta.contiguous_to_dataset_id = list(
         range(1, tube_link_r50_config().model.num_classes + 1))
     laps(f"wrote {len(YTVIS_VIDEOS)} videos of {YTVIS_VIDEOS} frames at "
-         f"{YTVIS_HW[0]}x{YTVIS_HW[1]}")
+         f"{YTVIS_HW[0]}x{YTVIS_HW[1]}; {evaluator_loop.host_threads()} host "
+         f"threads for the upsample (os.cpu_count() {os.cpu_count()})")
     tubes = sum(len(video_split(v, TL_T)) for v in YTVIS_VIDEOS)
     frames = sum(YTVIS_VIDEOS)
     spans, host = [], {"upsample": 0.0, "rle": 0.0}
@@ -2678,7 +2692,7 @@ def phase_ytvis_eval(torch, root: str):
             fields = {k: v for k, v in res.items()
                       if k not in ("results_json", "per_category_AP")}
             k = cfg.model.tube_link.test_topk
-            biggest = k * max(YTVIS_VIDEOS) * YTVIS_HW[0] * YTVIS_HW[1] * 4
+            biggest = k * max(YTVIS_VIDEOS) * YTVIS_HW[0] * YTVIS_HW[1]
             log(f"ytvis eval {label} (use_temporal_attn {temporal}): "
                 f"{frames} frames in {tubes} tubes, {wall:.2f} s, "
                 f"{frames / wall:.3f} frames/s; forward {fwd:.2f} s "
@@ -2688,9 +2702,11 @@ def phase_ytvis_eval(torch, root: str):
                 f"({host['rle'] / wall:.3f}); results JSON "
                 f"{os.path.getsize(path) / 2**20:.2f} MiB, "
                 f"{res['num_predictions']} predictions; peak device "
-                f"{dev_peak:.3f} GiB, peak host RSS {peak.peak:.3f} GiB "
-                f"(the largest video's probabilities {biggest / 2**30:.3f} "
-                f"GiB); AP/AR " + json.dumps(fields))
+                f"{dev_peak:.3f} GiB, host RSS {peak.base:.3f} GiB before "
+                f"the eval, its peak {peak.peak - peak.base:.3f} GiB above "
+                f"that (the largest video's masks {biggest / 2**30:.3f} GiB, "
+                f"its f32 probabilities {4 * biggest / 2**30:.3f}); AP/AR "
+                + json.dumps(fields))
             log(f"ytvis eval {label}: launches {launches} (want {want})")
             if launches != want:
                 raise AssertionError(f"ytvis eval {label}: launches {launches}")
@@ -2712,43 +2728,87 @@ def phase_ytvis_eval(torch, root: str):
 
 
 @contextlib.contextmanager
-def traj_head_widths(box: list):
+def overfit_calls(box: dict):
     """While active, each K3 call of the trajectory layers appends (head
     width, whether it runs under autograd: grad mode on and an input that
-    requires grad) to ``box``."""
+    requires grad) to ``box["K3 calls"]``, and the arguments of the first
+    K2 and the first K3 call under autograd and outside it are kept in
+    ``box[(key, grad)]`` (detached copies on the card as ``_Leaf``, as
+    ``first_train_calls`` keeps them)."""
     import torch
 
-    from axial_vs_tpu_torch.layers import trajectory_attention
+    from axial_vs_tpu_torch.layers import msda_attention, trajectory_attention
 
-    real = trajectory_attention.trajectory_attention_core
+    sites = ((msda_attention, "ms_deform_attn", "K2"),
+             (trajectory_attention, "trajectory_attention_core", "K3"))
+    box["K3 calls"] = []
 
-    def call(*args, **kwargs):
-        box.append((args[0].shape[-1] // int(args[8]),
-                    torch.is_grad_enabled() and any(
-                        getattr(a, "requires_grad", False) for a in args)))
-        return real(*args, **kwargs)
+    def wrap(real, key):
+        def call(*args, **kwargs):
+            grad = torch.is_grad_enabled() and any(
+                getattr(a, "requires_grad", False) for a in args)
+            if key == "K3":
+                box["K3 calls"].append((args[0].shape[-1] // int(args[8]),
+                                        grad))
+            if (key, grad) not in box:
+                box[(key, grad)] = tuple(
+                    _Leaf((a.detach().clone(), a.requires_grad))
+                    if torch.is_tensor(a) else a for a in args)
+            return real(*args, **kwargs)
+        return call
 
-    trajectory_attention.trajectory_attention_core = call
+    reals = [getattr(mod, name) for mod, name, _ in sites]
+    for (mod, name, key), real in zip(sites, reals):
+        setattr(mod, name, wrap(real, key))
     try:
         yield
     finally:
-        trajectory_attention.trajectory_attention_core = real
+        for (mod, name, _), real in zip(sites, reals):
+            setattr(mod, name, real)
+
+
+def _check_forward(torch, captured):
+    """The kernels of ``captured`` (K2, K3: the arguments of a call, tensors
+    as ``_Leaf``) against their plain versions at those arguments, outside
+    autograd, within the bounds of ``_check_train_backward``'s forward."""
+    out = {}
+    with torch.no_grad():
+        for key, args in captured.items():
+            fn, plain, ulps = _kernel_and_plain()[key]
+            leaves = [a[0] if isinstance(a, _Leaf) else a for a in args]
+            got, want = fn(*leaves), plain(*leaves)
+            err = (got.float() - want.float()).abs().max().item()
+            bound = (ulps * bf16_ulp(want.float().abs().max().item())
+                     if got.dtype == torch.bfloat16 else f32_bound(want))
+            out[key] = {"dtype": str(got.dtype)[6:], "max_abs_err": err,
+                        "bound": bound,
+                        "shape": list(leaves[0].shape)}
+            log(f"forward {key} {out[key]['dtype']} at "
+                f"{out[key]['shape']}: |kernel - plain| {err:.3g} (bound "
+                f"{bound:.3g})")
+            if not (err <= bound and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"forward {key}: {out[key]}")
+    return out
 
 
 def phase_overfit_heads(torch, root: str):
     """The port's WC overfit tool for one step and one eval on the card
     (``tools/validate_overfit.py``, the JAX tool's module: 64 channels in
     8 heads of 8): K3 runs at head width 8, under autograd in the step.
-    Returns the launch counts."""
+    Holds K2 and K3 on the first call of each in the step (forward and the
+    autograd backward, ``_check_train_backward``) and in the eval
+    (``_check_forward``) to their plain versions. Returns the launch
+    counts and, by kernel, those checks."""
     from axial_vs_tpu_torch.tools import validate_overfit
 
-    calls = []
+    box = {}
     reset_counts()
-    with traj_head_widths(calls):
+    with overfit_calls(box):
         rc = validate_overfit.main(["--steps", "1", "--eval-every", "1",
                                     "--target", "0", "--out", root,
                                     "--device", "cuda"])
     launches = read_counts()
+    calls = box["K3 calls"]
     widths = sorted({d for d, _ in calls})
     log(f"overfit tool, one step and one eval: rc {rc}, {len(calls)} K3 "
         f"calls at head widths {widths}, {sum(g for _, g in calls)} under "
@@ -2757,7 +2817,13 @@ def phase_overfit_heads(torch, root: str):
             launches["K3"] != len(calls) or launches["K2"] == 0:
         raise AssertionError(f"overfit tool: rc {rc}, calls {calls}, "
                              f"launches {launches}")
-    return launches
+    log("overfit tool, the step's first K2 and K3 calls (d = 8):")
+    step = _check_train_backward(torch, {k: box[(k, True)]
+                                         for k in ("K2", "K3")})
+    log("overfit tool, the eval's first K2 and K3 calls (d = 8):")
+    evals = _check_forward(torch, {k: box[(k, False)] for k in ("K2", "K3")})
+    return launches, {k: {"step": step[k], "eval": evals[k]}
+                      for k in ("K2", "K3")}
 
 
 #: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
@@ -3408,7 +3474,7 @@ def main() -> int:
                         lambda root: phase_ytvis_eval(torch, root))
     paths["ytvis_eval_temporal_2_videos"] = ytvis["temporal"]
     paths["ytvis_eval_baseline_2_videos"] = ytvis["baseline"]
-    paths["overfit_wc_8_heads_1_step"] = timed_phase(
+    paths["overfit_wc_8_heads_1_step"], overfit_checks = timed_phase(
         "overfit heads of 8", in_temp_dir, "chip_smoke_overfit_",
         lambda root: phase_overfit_heads(torch, root))
     results["K2"] = timed_phase("K2 model inputs", phase_k2_model, torch,
@@ -3467,7 +3533,9 @@ def main() -> int:
                                     train_backward_bf16[key]}
                                if key in train_backward else {}),
             **({"train_backward_cc_f32": train_backward_cc[key]}
-               if key in train_backward_cc else {})})
+               if key in train_backward_cc else {}),
+            **({"overfit_wc_8_heads": overfit_checks[key]}
+               if key in overfit_checks else {})})
     log("msda bench, ms per layer: " + ", ".join(
         f"{k} {v:.4f}" for k, v in variant_ms.items()))
     log(card)  # as nvidia-smi gives it: name, power limit

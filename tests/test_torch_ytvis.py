@@ -64,6 +64,31 @@ def test_mask_rle_matches_jax():
     assert P.iou_rle(a, b) == J.iou_rle(a, b)
 
 
+@pytest.mark.parametrize("top", [10, 10**4, 10**9])
+def test_rle_codec_matches_jax(top):
+    """The count strings, both ways, on seeded counts up to ``top``
+    (differences of either sign, 1-7 five-bit groups); counts that under-
+    and over-fill a mask; the runs of masks of 0-3 dimensions, each
+    dimension 0-8 long, and of values 0-2."""
+    from axial_vs_tpu.data import mask_rle as J
+    from axial_vs_tpu_torch.data import mask_rle as P
+
+    rng = np.random.RandomState(top % 97)
+    for n in (0, 1, 2, 3, 4, 5, 17, 300):
+        counts = rng.randint(0, top, n).tolist()
+        s = P.rle_encode_string(counts)
+        assert s == J.rle_encode_string(counts)
+        assert P.rle_decode_string(s) == J.rle_decode_string(s) == counts
+        assert P.rle_decode_string(s.encode()) == counts
+    for counts in ([3, 2], [2, 20], [0, 9], [], [9]):
+        np.testing.assert_array_equal(P.rle_counts_to_mask(counts, (3, 3)),
+                                      J.rle_counts_to_mask(counts, (3, 3)))
+    for i in range(300):
+        shape = tuple(rng.randint(0, 9, rng.randint(0, 4)))
+        m = rng.randint(0, 3, shape) if i % 3 == 0 else rng.rand(*shape) > 0.5
+        assert P.mask_to_rle_counts(m) == J.mask_to_rle_counts(m), shape
+
+
 # ----------------------------------------------------------------- data ----
 
 def test_synthetic_writer_equals_fixture(tmp_path):
@@ -81,6 +106,25 @@ def test_synthetic_writer_equals_fixture(tmp_path):
         with open(tmp_path / "a" / rel, "rb") as f, \
                 open(tmp_path / "b" / rel, "rb") as g:
             assert f.read() == g.read(), rel
+
+
+def test_synthetic_writer_stored_frames(tmp_path):
+    """``compress_level=0`` (the smoke's 720x1280 videos) stores the same
+    pixels and the same JSON as the fixture's default level."""
+    from PIL import Image
+
+    from axial_vs_tpu_torch.data.synthetic import write_ytvis_videos
+
+    a = write_ytvis_videos(str(tmp_path / "a"), 1, 3, seed=3)
+    b = write_ytvis_videos(str(tmp_path / "b"), 1, 3, seed=3,
+                           compress_level=0)
+    with open(a[1]) as f, open(b[1]) as g:
+        assert f.read() == g.read()
+    for i in range(3):
+        pa, pb = (os.path.join(r, "v0", f"{i:03d}.png") for r in (a[0], b[0]))
+        np.testing.assert_array_equal(np.asarray(Image.open(pa)),
+                                      np.asarray(Image.open(pb)))
+        assert os.path.getsize(pb) > os.path.getsize(pa)
 
 
 def test_loader_and_mapper_match_jax(fixture_root):
