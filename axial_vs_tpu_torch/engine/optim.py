@@ -6,11 +6,12 @@ The JAX package matches its rules against flax paths; ``param_rules``
 matches the same rules against the port's ``state_dict`` names, which
 differ where a module owns a norm (``bn1``, ``downsample.1``,
 ``_in_norms.0``, ``input_proj.0.1``, ``stem.1``, the cross-clip module's
-``conv_norms.{i}``) and in the ConvNeXt layout (``stem``,
-``stages.{i}.downsample``, ``stages.{i}.blocks.{j}``).
-``tests/test_torch_train.py`` (the WC model) and
-``tests/test_torch_cc_train.py`` (the CC module) hold every parameter's
-(lr_mult, wd) equal to JAX's for the same parameter.
+``conv_norms.{i}``, the Tube-Link pixel decoder's ``input_norms.{i}``) and
+in the ConvNeXt layout (``stem``, ``stages.{i}.downsample``,
+``stages.{i}.blocks.{j}``). ``tests/test_torch_train.py`` (the WC model),
+``tests/test_torch_cc_train.py`` (the CC module) and
+``tests/test_torch_tube_link_train.py`` (``TubeLinkVIS``) hold every
+parameter's (lr_mult, wd) equal to JAX's for the same parameter.
 
 Only parameters that require grad are optimized: a frozen module (the
 segmenter of the cross-clip model) is in no group, so neither its
@@ -34,7 +35,7 @@ _HEAD_NAMES = ("class_embedding_projection", "mask_embedding_projection",
                "pixel_space_mask_batch_norm")
 #: port modules that are norms but whose name holds no "norm"
 _NORM_OWNER = re.compile(
-    r"(^|\.)(bn\d|layer\d\.\d+\.downsample\.1|_in_norms\.\d+|"
+    r"(^|\.)(bn\d|layer\d\.\d+\.downsample\.1|(_in|input)_norms\.\d+|"
     r"(input|output)_proj\.\d+\.1|stem\.1|stages\.\d+\.downsample\.0|"
     r"conv_norms\.\d+)$")
 

@@ -1,7 +1,8 @@
 """One training step (counterpart of ``axial_vs_tpu/engine/train_step.py``):
 the forward in ``train()`` (BatchNorm on batch statistics, updating its
-running statistics), the set criterion, the weighted total, the backward,
-one optimizer update and one schedule step."""
+running statistics), the criterion (the set criterion of the kMaX models,
+or the Tube-Link criterion of ``TubeLinkVIS``), the weighted total, the
+backward, one optimizer update and one schedule step."""
 from __future__ import annotations
 
 import torch
@@ -10,8 +11,9 @@ import torch
 def train_step(model, criterion, optimizer, scheduler, batch, generator,
                mark=None):
     """batch: {"images": (B*T, H, W, 3), "targets": {...}} (the targets of
-    ``losses/criterion.py``); ``generator`` draws the step's dropout,
-    drop-path and Gumbel samples. Returns every loss and "total_loss" as
+    ``losses/criterion.py`` or ``models/tube_link/criterion.py``);
+    ``generator`` draws the step's dropout, drop-path, Gumbel and point
+    samples. Returns every loss and "total_loss" as
     Python floats, read from the device once. ``mark(name)``, if given, is
     called after each part of the step ("forward", "criterion",
     "backward", "optimizer"), e.g. to record a CUDA event there.
@@ -21,10 +23,6 @@ def train_step(model, criterion, optimizer, scheduler, batch, generator,
     gradient there is zero). A frozen parameter (``requires_grad`` off:
     the cross-clip model's segmenter) is in no optimizer group, so it gets
     no gradient and no update."""
-    if criterion is None:
-        raise NotImplementedError("no criterion: the Tube-Link VIS loss "
-                                  "(models/tube_link/criterion.py) is not "
-                                  "ported")
     mark = mark or (lambda name: None)
     model.train()
     optimizer.zero_grad(set_to_none=True)

@@ -3,8 +3,8 @@ and schedule -> loop, on one card (counterpart of
 ``axial_vs_tpu/engine/trainer.py``; no data-parallel mesh: one device, no
 DDP).
 
-Each step is ``engine/train_step.py::train_step``, its dropout, drop-path
-and Gumbel draws from one explicit generator on the device, seeded from
+Each step is ``engine/train_step.py::train_step``, its dropout, drop-path,
+Gumbel and point draws from one explicit generator on the device, seeded from
 ``cfg.seed + 1`` and saved in every checkpoint. Checkpoints
 (``engine/checkpoint.py``, under ``<output_dir>/checkpoints``) come every
 ``solver.checkpoint_period`` steps, at the end, and at a SIGTERM
@@ -15,9 +15,10 @@ every ``test.eval_period`` steps, switching to the intervals of
 YouTube-VIS or OVIS set (a Tube-Link model), else ``evaluate_vipseg`` (with
 ``CCInferencePipeline`` for a cross-clip model).
 
-A Tube-Link VIS model (``TubeLinkVIS``) is built for evaluation only: its
-criterion (``models/tube_link/criterion.py``) is not ported, so ``train``
-raises ``NotImplementedError`` rather than step without a loss.
+A Tube-Link VIS model (``TubeLinkVIS``) trains with the Tube-Link
+criterion (``models/tube_link/criterion.py``, the device auction) on
+``solver.ims_per_batch`` tubes of ``input.num_video_frames`` frames a step
+from the YTVIS clip mapper, on JAX's schedule (``tf2_warmup_poly_lr``).
 
 A cross-clip model (``MaXTronCCModel``, built from a ``MaXTronCCDeepLab``
 config) trains its CC module on the frozen segmenter, one video of
@@ -207,11 +208,6 @@ class Trainer:
         hook's steps (module docstring); ``dynamic_eval_intervals``
         [(milestone, interval), ...] defaults to the config's. Returns the
         last step's losses."""
-        if self.criterion is None:
-            raise NotImplementedError(
-                f"{self.cfg.model.meta_architecture} has no criterion in the "
-                "port (models/tube_link/criterion.py is not ported): it "
-                "evaluates only")
         self.resume_or_load(resume)
         cfg = self.cfg
         max_iter = max_iter or cfg.solver.max_iter

@@ -7,9 +7,9 @@ segmenter of ``input.num_clip_frames`` frames under the CC module of
 ``model.maxtron.cc``, its clips aligned by the device auction, with the
 criterion of the class and mask losses; and ``TubeLinkVIS`` through
 ``models/tube_link/detector.py::build_tube_link_vis``, with or without
-MaXTron's temporal attention (``model.tube_link.use_temporal_attn``), for
-inference: its criterion is not ported, so it comes with criterion None,
-and the trainer refuses to train it. Every other architecture of the JAX
+MaXTron's temporal attention (``model.tube_link.use_temporal_attn``), with
+the Tube-Link criterion of ``model.tube_link``'s weights and the device
+auction (``_tube_criterion``). Every other architecture of the JAX
 registry (``TubeLinkVideoVIS``, ``TubeLinkVPS``, ``ImageMask2Former``)
 raises ``NotImplementedError`` naming itself.
 """
@@ -47,12 +47,24 @@ def criterion_from_config(cfg):
     )
 
 
+def _tube_criterion(cfg):
+    """The Tube-Link criterion of ``cfg.model.tube_link``'s loss weights,
+    matched by the device auction, as the JAX builder's."""
+    from .tube_link.criterion import TubeLinkCriterion
+
+    tl = cfg.model.tube_link
+    return TubeLinkCriterion(
+        num_things=cfg.model.num_classes, cls_weight=tl.cls_weight,
+        mask_weight=tl.mask_weight, dice_weight=tl.dice_weight,
+        bg_cls_weight=tl.bg_cls_weight, num_points=tl.num_points,
+        exact_matching=False)
+
+
 def build_model_and_criterion(cfg, train: bool = True,
                               device=torch.device("cuda"),
                               generator: torch.Generator | None = None):
     """(model, criterion) of ``cfg.model.meta_architecture`` on ``device``,
-    its weights drawn from ``generator`` (required, on ``device``); the
-    criterion is None for ``TubeLinkVIS`` (inference only)."""
+    its weights drawn from ``generator`` (required, on ``device``)."""
     from .kmax import build_segmenter
 
     arch = cfg.model.meta_architecture
@@ -62,7 +74,7 @@ def build_model_and_criterion(cfg, train: bool = True,
         from .tube_link.detector import build_tube_link_vis
 
         model = build_tube_link_vis(cfg, device, generator)
-        return model.train(train), None
+        return model.train(train), _tube_criterion(cfg)
     if not cfg.model.maxtron.wc.enable:
         raise NotImplementedError(f"{arch} without the within-clip module is "
                                   "not ported")

@@ -53,7 +53,7 @@ def _softmax(x):
 
 
 class TubeLinkVIS(nn.Module):
-    """backbone + Mask2Former tube head; one tube of T frames per call."""
+    """backbone + Mask2Former tube head over a batch of tubes of T frames."""
 
     def __init__(self, backbone, in_channels: dict,
                  num_things_classes: int = 40, num_queries: int = 100,
@@ -71,10 +71,13 @@ class TubeLinkVIS(nn.Module):
             use_temporal_attn=use_temporal_attn, device=device)
         self.dtype = dtype
 
-    def forward(self, images, return_query: bool = False):
-        """images (T, H, W, 3) -> {"cls_preds": [(1, Q, K+1)] per layer,
-        "mask_preds": [(1, T, Q, H/4, W/4)], and with ``return_query``
-        "query" (1, Q, C) and "mask_features"}."""
+    def forward(self, images, return_query: bool = False, generator=None):
+        """images (B*T, H, W, 3), B tubes of T frames -> {"cls_preds": [(B,
+        Q, K+1)] per layer, "mask_preds": [(B, T, Q, H/4, W/4)], and with
+        ``return_query`` "query" (B, Q, C) and "mask_features"}. In
+        ``train()`` the backbone's BatchNorm uses the batch's statistics and
+        updates its running ones. ``generator``, the training step's, goes
+        unused: the model has no stochastic layer."""
         x = images if self.dtype is None else images.to(self.dtype)
         return self.head(self.backbone(x), return_query=return_query)
 

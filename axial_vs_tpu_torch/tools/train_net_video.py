@@ -18,8 +18,8 @@ checkpoint with ``--resume`` or ``model.weights``: a ``ytvis*`` or
 ``ovis*`` test set (or ``--format-only``) through ``evaluate_ytvis``, which
 writes the YTVIS submission JSON to the ``--format-only`` path; any other
 through ``evaluate_vipseg``; the COCO-panoptic evaluator is not ported and
-raises. A Tube-Link VIS config evaluates only (its criterion is not
-ported). ``--distributed`` raises: the port trains on one card.
+raises. A Tube-Link VIS config trains and evaluates (YTVIS sets).
+``--distributed`` raises: the port trains on one card.
 """
 from __future__ import annotations
 

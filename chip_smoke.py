@@ -110,6 +110,27 @@ Phases, in order; any failure exits non-zero before the last line:
                slice's and the Tube-Link path's warm-up (bf16 as captured,
                and in f32), against its plain version, timed eager and in a
                CUDA graph per clip and per tube
+ 13d. train tube-link - 3 steps of ``train_step`` on the Tube-Link VIS
+               model of configs/ytvis19/tube_link_maxtron_wc_r50.yaml at full
+               width (R50, 100 queries, 9 decoder layers, 40 classes, f32,
+               AdamW with clip 0.01, the device auction), built with its
+               criterion by the registry, on 7 tubes of 5 frames at 512x512
+               a step (the yaml's 8 do not fit in 80 GB) from the config's
+               YTVIS mapper over two synthetic
+               720x1280 videos: JAX's 30 loss names, finite; K2 and K3
+               launched each step; the parameters moved; step 0's auction
+               against the CPU's; K2's and K3's forward and backward at the
+               first calls against their plain versions; ms a step, the
+               matching's share and peak memory
+ 13e. tube-link train reference - one step of the narrow model of
+               tests/test_torch_tube_link_train.py (64 channels: K3 at heads
+               of 8) on the card and on the CPU from the same weights,
+               batch, draws and points: losses and gradients within bounds
+               (the gradients beside the CPU's own move at 1 +- 2^-22)
+ 13f. overfit vis - the port's Tube-Link VIS overfit tool
+               (``tools/validate_overfit_vis.py``) for 2 steps and one eval:
+               the first K2 and K3 call (d = 8) of the steps against the
+               plain versions forward and backward, and of the eval forward
  14. MSDA bench - ``axial_vs_tpu_torch.tools.bench_msda`` at the WC shape:
                one checking pass over its six formulations (each against
                ``prod``, K2), their launch counts and ms per layer; K6, K7
@@ -2670,7 +2691,7 @@ def phase_ytvis_eval(torch, root: str):
             model, criterion = build_model_and_criterion(
                 cfg, train=False, device=dev,
                 generator=torch.Generator(device=dev).manual_seed(0))
-            assert criterion is None and not model.training
+            assert not (criterion.exact_matching or model.training)
             with torch.inference_mode():  # warm-up tube (kernel selection)
                 model(torch.zeros(TL_T, TL_H, TL_W, 3, device=dev))
             torch.cuda.synchronize()
@@ -2791,39 +2812,439 @@ def _check_forward(torch, captured):
     return out
 
 
-def phase_overfit_heads(torch, root: str):
-    """The port's WC overfit tool for one step and one eval on the card
-    (``tools/validate_overfit.py``, the JAX tool's module: 64 channels in
-    8 heads of 8): K3 runs at head width 8, under autograd in the step.
-    Holds K2 and K3 on the first call of each in the step (forward and the
-    autograd backward, ``_check_train_backward``) and in the eval
-    (``_check_forward``) to their plain versions. Returns the launch
-    counts and, by kernel, those checks."""
-    from axial_vs_tpu_torch.tools import validate_overfit
-
+def check_overfit_tool(torch, label: str, main, argv, want=None,
+                       grad_calls=None):
+    """``main(argv)``, an overfit tool's steps and one eval on the card
+    (``--target 0``), under ``overfit_calls``: exit 0, K3 at head width 8
+    only, every K3 call launched, some under autograd, K2 launched (and,
+    where given, exactly the launches ``want`` and ``grad_calls`` K3 calls
+    under autograd). Then holds K2 and K3 on the first call of each in the
+    steps (forward and the autograd backward, ``_check_train_backward``)
+    and in the eval (``_check_forward``) to their plain versions. Returns
+    the launch counts and, by kernel, those checks."""
     box = {}
     reset_counts()
     with overfit_calls(box):
-        rc = validate_overfit.main(["--steps", "1", "--eval-every", "1",
-                                    "--target", "0", "--out", root,
-                                    "--device", "cuda"])
+        rc = main(argv)
     launches = read_counts()
     calls = box["K3 calls"]
     widths = sorted({d for d, _ in calls})
-    log(f"overfit tool, one step and one eval: rc {rc}, {len(calls)} K3 "
-        f"calls at head widths {widths}, {sum(g for _, g in calls)} under "
-        f"autograd; launches {launches}")
-    if rc != 0 or widths != [8] or not any(g for _, g in calls) or \
-            launches["K3"] != len(calls) or launches["K2"] == 0:
-        raise AssertionError(f"overfit tool: rc {rc}, calls {calls}, "
-                             f"launches {launches}")
-    log("overfit tool, the step's first K2 and K3 calls (d = 8):")
+    grads = sum(g for _, g in calls)
+    log(f"{label}: rc {rc}, {len(calls)} K3 calls at head widths {widths}, "
+        f"{grads} under autograd; launches {launches} (want {want})")
+    if (rc != 0 or widths != [8] or not grads or launches["K2"] == 0
+            or launches["K3"] != len(calls)
+            or (want is not None and launches != want)
+            or (grad_calls is not None and grads != grad_calls)):
+        raise AssertionError(f"{label}: rc {rc}, calls {calls}, launches "
+                             f"{launches}")
+    log(f"{label}, the steps' first K2 and K3 calls (d = 8):")
     step = _check_train_backward(torch, {k: box[(k, True)]
                                          for k in ("K2", "K3")})
-    log("overfit tool, the eval's first K2 and K3 calls (d = 8):")
+    log(f"{label}, the eval's first K2 and K3 calls (d = 8):")
     evals = _check_forward(torch, {k: box[(k, False)] for k in ("K2", "K3")})
     return launches, {k: {"step": step[k], "eval": evals[k]}
                       for k in ("K2", "K3")}
+
+
+def phase_overfit_heads(torch, root: str):
+    """The port's WC overfit tool for one step and one eval on the card
+    (``tools/validate_overfit.py``, the JAX tool's module: 64 channels in
+    8 heads of 8): K3 runs at head width 8, under autograd in the step;
+    ``check_overfit_tool``'s checks."""
+    from axial_vs_tpu_torch.tools import validate_overfit
+
+    return check_overfit_tool(
+        torch, "overfit tool, one step and one eval", validate_overfit.main,
+        ["--steps", "1", "--eval-every", "1", "--target", "0", "--out", root,
+         "--device", "cuda"])
+
+
+#: the Tube-Link training phase (``configs/ytvis19/tube_link_maxtron_wc_
+#: r50.yaml`` at full width): its steps, and the frames of the synthetic
+#: 720x1280 YTVIS videos its mapper samples 5-frame tubes from
+TL_TRAIN_YAML = "ytvis19/tube_link_maxtron_wc_r50.yaml"
+TL_TRAIN_STEPS = 3
+#: tubes a step: the yaml's ``solver.ims_per_batch`` is 8, whose forward
+#: alone outgrew the card's 80 GB (77.76 GiB allocated at the criterion of
+#: the first layer); the largest batch that fits (peak 69.157 GiB at 7,
+#: 59.387 at 6, 49.668 at 5 on an NVIDIA H100 80GB HBM3)
+TL_TRAIN_BATCH = 7
+TL_TRAIN_VIDEOS = (12, 9)
+#: launches of one Tube-Link training step: one forward of the pixel
+#: decoder over every tube of the batch (6 encoder layers; K3 on 2 levels x
+#: the H and W axes each); the backward is the plain versions' VJP
+TL_TRAIN_K2, TL_TRAIN_K3 = K2_TL_CALLS, 4 * K3_TL_CALLS
+#: JAX's loss names: the 9 decoder layers' (d0. - d8.) and the last one's
+TL_LOSS_NAMES = sorted([f"d{i}.{k}" for i in range(9)
+                        for k in ("loss_cls", "loss_mask", "loss_dice")]
+                       + ["loss_cls", "loss_mask", "loss_dice"])
+
+
+@contextlib.contextmanager
+def matching_spans(torch, spans: list):
+    """While active, each assignment of the Tube-Link criterion
+    (``hungarian_assign``, the profiler range ``matching``) is bracketed by
+    CUDA events, kept in ``spans`` as (start, end)."""
+    from axial_vs_tpu_torch.models.tube_link import criterion
+
+    real = criterion.hungarian_assign
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    criterion.hungarian_assign = timed
+    try:
+        yield
+    finally:
+        criterion.hungarian_assign = real
+
+
+def phase_train_tube_link(torch, root: str, card: str):
+    """``TL_TRAIN_STEPS`` steps of ``train_step`` on the Tube-Link VIS model
+    of ``configs/ytvis19/tube_link_maxtron_wc_r50.yaml`` at full width (R50,
+    100 queries, 9 decoder layers, 256 channels, 40 classes, f32, AdamW with
+    clip 0.01, the device auction), built with its criterion by the
+    registry, on batches of ``TL_TRAIN_BATCH`` tubes of 5 frames at
+    512x512 (the yaml's 8 outgrow the card) that the
+    config's YTVIS mapper (multiscale 0.5-1.5) cuts from two synthetic
+    720x1280 videos (``write_ytvis_videos``), loaded before the steps.
+    Checks each step's 30 losses (JAX's names) finite, the launches (K2
+    and K3 each step), finite gradients, the parameters moved; the first
+    step's auction against the CPU's (``check_auction``); and K2's and
+    K3's forward and backward at the first step's first calls against
+    their plain versions. Logs ms a step (CUDA events, median of steps 2
+    and 3), the matching's share (CUDA events around each assignment) and
+    the peak memory. Returns the launch counts and the backward check."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.data.build import build_mapper
+    from axial_vs_tpu_torch.data.catalog import DatasetCatalog
+    from axial_vs_tpu_torch.data.loader import ClipDataLoader, to_device
+    from axial_vs_tpu_torch.data.synthetic import write_ytvis_videos
+    from axial_vs_tpu_torch.data.ytvis import register_ytvis
+    from axial_vs_tpu_torch.engine.lr_schedule import tf2_warmup_poly_lr
+    from axial_vs_tpu_torch.engine.optim import build_optimizer
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    laps = Laps("train tube-link")
+    dev = torch.device("cuda")
+    full_f32(torch)
+    log(f"train tube-link: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"of the card held by earlier phases")
+    name = "ytvis_chip_smoke_train"
+    register_ytvis(name, *write_ytvis_videos(
+        root, len(TL_TRAIN_VIDEOS), TL_TRAIN_VIDEOS, hw=YTVIS_HW,
+        compress_level=0))
+    cfg = load_config(TL_TRAIN_YAML, ["datasets.train", [name],
+                                      "datasets.test", [], "output_dir", root])
+    if cfg.solver.ims_per_batch != 8:
+        raise AssertionError(f"the yaml trains {cfg.solver.ims_per_batch} "
+                             "tubes a step, not 8")
+    cfg.solver.ims_per_batch = TL_TRAIN_BATCH
+    sol, tl = cfg.solver, cfg.model.tube_link
+    queries = tl.num_queries
+    if not (cfg.model.backbone.name == "resnet50" and tl.num_queries == 100
+            and tl.num_decoder_layers == 9 and tl.feat_channels == 256
+            and cfg.model.num_classes == 40 and cfg.model.dtype == "float32"
+            and cfg.input.num_video_frames == TL_T
+            and list(cfg.input.image_size) == [512, 512]
+            and sol.clip_gradients.enabled
+            and sol.clip_gradients.clip_value == 0.01):
+        raise AssertionError(f"not the yaml's full-width config: {cfg}")
+    model, criterion = build_model_and_criterion(
+        cfg, train=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    if criterion.exact_matching or not model.training:
+        raise AssertionError("want the auction and a model in train()")
+    optimizer, scheduler = build_optimizer(cfg, model, tf2_warmup_poly_lr(
+        sol.base_lr, sol.max_iter, warmup_iters=sol.warmup_iters,
+        power=sol.poly_power))
+    loader = ClipDataLoader(DatasetCatalog.get(name), build_mapper(cfg),
+                            batch_size=sol.ims_per_batch, num_workers=0)
+    it = iter(loader)
+    batches = [to_device(next(it), dev) for _ in range(TL_TRAIN_STEPS)]
+    shapes = {k: list(v.shape) for k, v in batches[0]["targets"].items()}
+    gts = [int(b["targets"]["valid"].sum()) for b in batches]
+    laps(f"wrote {TL_TRAIN_VIDEOS} frames at {YTVIS_HW[0]}x{YTVIS_HW[1]}, "
+         f"built the model ({sum(p.numel() for p in model.parameters())} "
+         f"parameters) and mapped {TL_TRAIN_STEPS} batches: images "
+         f"{list(batches[0]['images'].shape)}, targets {shapes}, valid GTs "
+         f"{gts}")
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    totals = {k: 0 for k in counted_kernels()}
+    captured, ms, match_ms, parts = {}, [], [], []
+    want = expect(K2=TL_TRAIN_K2, K3=TL_TRAIN_K3)
+    for step, batch in enumerate(batches):
+        box, spans, marks = captured if step == 0 else {}, [], []
+
+        def mark(name):
+            marks.append((name, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+
+        reset_counts()
+        with (first_train_calls(box), matching_spans(torch, spans),
+              first_auction_call(box) if step == 0 else contextlib.nullcontext()):
+            mark("start")
+            losses = train_step(model, criterion, optimizer, scheduler, batch,
+                                gen, mark=mark)
+            marks[-1][1].synchronize()
+        ms.append(marks[0][1].elapsed_time(marks[-1][1]))
+        match_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+        parts.append({name: round(marks[i - 1][1].elapsed_time(ev), 2)
+                      for i, (name, ev) in enumerate(marks) if i})
+        launches = read_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        finite = bool(torch.stack([p.grad.isfinite().all()
+                                   for p in model.parameters()]).all())
+        names = sorted(k for k in losses if k != "total_loss")
+        log(f"train tube-link step {step}: total_loss "
+            f"{losses['total_loss']:.6g}, {len(names)} losses; launches "
+            f"{launches} (want {want}); gradients finite {finite}; "
+            f"{len(spans)} assignments, {match_ms[-1]:.2f} ms of "
+            f"{ms[-1]:.2f} ms; parts (CUDA events) {parts[-1]}")
+        if (names != TL_LOSS_NAMES or launches != want or not finite
+                or not all(math.isfinite(v) for v in losses.values())
+                or len(spans) != 10 or set(box["devices"]) != {"cuda"}):
+            raise AssertionError(f"train tube-link step {step}: {losses}, "
+                                 f"launches {launches}, finite {finite}")
+    changed = [n for n, p in model.named_parameters()
+               if not torch.equal(p, params0[n])]
+    log(f"train tube-link: {len(changed)} of {len(params0)} parameter "
+        f"tensors moved")
+    if 2 * len(changed) < len(params0):
+        raise AssertionError("train tube-link: the parameters did not move")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, optimizer, batches, params0
+    torch.cuda.empty_cache()
+    laps("the steps")
+    auction = check_auction(torch, *captured.pop("auction"))
+    log(f"train tube-link, step 0's first auction (cost {auction['valid_columns']}"
+        f" valid columns of {queries}): {json.dumps(auction)}")
+    backward = _check_train_backward(torch, captured)
+    del captured
+    torch.cuda.empty_cache()
+    laps("the auction's and the kernels' checks")
+    step_ms = statistics.median(ms[1:])
+    share = statistics.median(m / s for m, s in zip(match_ms[1:], ms[1:]))
+    log(f"train tube-link ({card}): {TL_TRAIN_STEPS} steps of "
+        f"{TL_TRAIN_BATCH} tubes of "
+        f"{TL_T} frames at 512x512, f32: ms per step "
+        f"{', '.join(f'{t:.2f}' for t in ms)} (median of steps 2-3 "
+        f"{step_ms:.2f}, CUDA events, eager); matching ms per step "
+        f"{', '.join(f'{t:.2f}' for t in match_ms)} (10 auctions of "
+        f"{queries} columns, share of the step {share:.4f}, median of "
+        f"steps 2-3); peak memory {peak:.3f} GiB; launches {totals}")
+    return totals, backward
+
+
+#: the Tube-Link reference step: the narrow model of
+#: ``tests/test_torch_tube_link_train.py`` (R18, 64 channels: K3 at heads of
+#: 8, 2 decoder layers, 8 queries, 5 classes, 64x64 tubes of 2, 2 tubes)
+TL_REF_OPTS = ["model.backbone.name", "resnet18",
+               "model.backbone.resnet.depth", 18, "model.num_classes", 5,
+               "model.tube_link.num_queries", 8,
+               "model.tube_link.feat_channels", 64,
+               "model.tube_link.out_channels", 64,
+               "model.tube_link.num_decoder_layers", 2,
+               "input.num_clip_frames", 2, "input.num_video_frames", 2,
+               "input.image_size", [64, 64], "datasets.train", []]
+#: bounds of the card's f32 step against the CPU's on the same weights,
+#: batch, draws and points: each loss, relative; each parameter's gradient
+#: within ``TL_REF_GRAD_BOUND`` of its max on the CPU, or within
+#: ``TL_REF_JITTER`` times as far as the CPU's own gradient moves when the
+#: frames are scaled by 1 +- 2^-22 (a few f32 ulps: at 64x64 the early
+#: ResNet layers' gradients move by up to 2.7% of their max so on the CPU
+#: alone), or, for a gradient that is zero in exact arithmetic (a key bias
+#: of a softmax attention), below ``TL_REF_GRAD_NOISE`` of the step's
+#: largest gradient on both devices
+TL_REF_LOSS_BOUND = 1e-4
+TL_REF_GRAD_BOUND = 1e-3
+TL_REF_JITTER = 8
+TL_REF_GRAD_NOISE = 1e-6
+
+
+class CriterionReplay:
+    """Records the Tube-Link criterion's random match points (``_randint``
+    outside the point sampling) and its sampled loss points
+    (``uncertainty_point_idx``) in one run, and replays them in another:
+    then both runs sample the same points, though the |logit| ranking of
+    the uncertain points may break near-ties apart on two devices."""
+
+    def __init__(self):
+        self.draws, self.points = [], []
+
+    @contextlib.contextmanager
+    def record(self):
+        from axial_vs_tpu_torch.models.tube_link import criterion as mod
+
+        real = (mod._randint, mod.uncertainty_point_idx)
+        inside = []
+
+        def points(*args, **kwargs):
+            inside.append(True)
+            try:
+                out = real[1](*args, **kwargs)
+            finally:
+                inside.pop()
+            self.points.append(out.cpu())
+            return out
+
+        def draw(*args, **kwargs):
+            out = real[0](*args, **kwargs)
+            if not inside:
+                self.draws.append(out.cpu())
+            return out
+
+        mod._randint, mod.uncertainty_point_idx = draw, points
+        try:
+            yield
+        finally:
+            mod._randint, mod.uncertainty_point_idx = real
+
+    @contextlib.contextmanager
+    def replay(self):
+        from axial_vs_tpu_torch.models.tube_link import criterion as mod
+
+        real = (mod._randint, mod.uncertainty_point_idx)
+        draws, points = iter(self.draws), iter(self.points)
+
+        def draw(generator, shape, high, device):
+            out = next(draws)
+            assert tuple(out.shape) == tuple(shape), (out.shape, shape)
+            return out.to(device)
+
+        mod._randint = draw
+        mod.uncertainty_point_idx = lambda g, logits, *a, **k: next(
+            points).to(logits.device)
+        try:
+            yield
+        finally:
+            mod._randint, mod.uncertainty_point_idx = real
+
+
+def phase_tube_link_train_reference(torch):
+    """One ``train_step`` of the narrow Tube-Link model (``TL_REF_OPTS``)
+    on the card in f32 (K2, K3 at heads of 8) and on the CPU (their plain
+    versions), from the same weights on the same batch, the CPU replaying
+    the card's draws and sampled points, both matched exactly (scipy: the
+    auction on equal costs is held to the CPU's in ``phase_train_tube_link``);
+    and two more CPU steps on the frames scaled by 1 +- 2^-22, for how far
+    the CPU's own gradients move. Checks every loss and every parameter's
+    gradient (``TL_REF_*``). Returns the card run's launch counts."""
+    import copy
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.engine.lr_schedule import tf2_warmup_poly_lr
+    from axial_vs_tpu_torch.engine.optim import build_optimizer
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    full_f32(torch)
+    cfg = load_config(TL_TRAIN_YAML, TL_REF_OPTS)
+    sol = cfg.solver
+    model, criterion = build_model_and_criterion(
+        cfg, train=True, device=torch.device("cpu"),
+        generator=torch.Generator().manual_seed(0))
+    criterion.exact_matching = True
+    rs = np.random.RandomState(0)
+    b, t, m, hw = 2, 2, 4, 16
+    images = torch.from_numpy(
+        rs.randn(b * t, 4 * hw, 4 * hw, 3).astype(np.float32))
+    targets = {"labels": torch.from_numpy(rs.randint(0, 5, (b, m))),
+               "masks": torch.from_numpy(
+                   (rs.rand(b, m, t, hw, hw) > 0.6).astype(np.float32)),
+               "valid": torch.tensor([[True, False, False, False],
+                                      [True, True, True, False]])}
+    replay = CriterionReplay()
+
+    def step(where, scale=1.0):
+        net = copy.deepcopy(model).to(where)
+        opt, sched = build_optimizer(cfg, net, tf2_warmup_poly_lr(
+            sol.base_lr, sol.max_iter, warmup_iters=sol.warmup_iters,
+            power=sol.poly_power))
+        grads = {}
+        for n, p in net.named_parameters():  # the gradient before the clip
+            p.register_hook(lambda g, n=n: grads.__setitem__(n, g.cpu()))
+        with replay.record() if where == "cuda" else replay.replay():
+            losses = train_step(net, criterion, opt, sched,
+                                {"images": (images * scale).to(where),
+                                 "targets": {k: v.to(where) for k, v in
+                                             targets.items()}},
+                                torch.Generator(device=where).manual_seed(1))
+        return losses, grads
+
+    reset_counts()
+    got, g_got = step("cuda")
+    launches = read_counts()
+    want, g_want = step("cpu")
+    moved = [step("cpu", np.float32(1 + e))[1] for e in (2 ** -22, -2 ** -22)]
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                   for k in want)
+    noise = TL_REF_GRAD_NOISE * max(g.abs().max().item()
+                                    for g in g_want.values())
+    plain, jittery, noisy, bad, worst = 0, [], [], [], (0.0, "")
+    for n, w in g_want.items():
+        err = (g_got[n] - w).abs().max().item()
+        rel = err / max(w.abs().max().item(), 1e-30)
+        jitter = max((g[n] - w).abs().max().item() for g in moved)
+        if rel <= TL_REF_GRAD_BOUND:
+            plain += 1
+            worst = max(worst, (rel, n))
+        elif err <= TL_REF_JITTER * jitter:
+            jittery.append(f"{n} {rel:.3g} ({err / max(jitter, 1e-30):.2f}x)")
+        elif max(g_got[n].abs().max().item(), w.abs().max().item()) <= noise:
+            noisy.append(n)
+        else:
+            bad.append(f"{n} {rel:.3g}")
+    log(f"tube-link train reference, card f32 against CPU f32: {len(want)} "
+        f"losses, max relative |diff| {loss_err:.3g} (bound "
+        f"{TL_REF_LOSS_BOUND}); {len(g_want)} gradients: {plain} within "
+        f"{TL_REF_GRAD_BOUND} of their max (the largest {worst[0]:.3g}, "
+        f"{worst[1]}), {len(jittery)} within {TL_REF_JITTER}x the CPU's own "
+        f"move at 1 +- 2^-22 (|diff| / max, |diff| / move): {jittery}; "
+        f"{len(noisy)} zero in exact arithmetic, below {noise:.3g}; "
+        f"{len(replay.draws)} draws and {len(replay.points)} point sets "
+        f"replayed; launches {launches}")
+    if (sorted(got) != sorted(want) or loss_err > TL_REF_LOSS_BOUND or bad
+            or len(g_got) != len(g_want)
+            or launches != expect(K2=TL_TRAIN_K2, K3=TL_TRAIN_K3)):
+        raise AssertionError(f"tube-link train reference: losses {got} / "
+                             f"{want}, gradients {bad}, launches {launches}")
+    return launches
+
+
+#: launches of the VIS overfit tool's two steps and one eval of its two
+#: 8-frame videos in tubes of 2 (each step and tube: K2 6, K3 24)
+OVERFIT_VIS_STEPS, OVERFIT_VIS_TUBES = 2, 2 * 4
+
+
+def phase_overfit_vis(torch, root: str):
+    """The port's Tube-Link VIS overfit tool (``tools/validate_overfit_vis.
+    py``: R18, 64 channels, the pixel decoder's 8 heads of 8) for
+    ``OVERFIT_VIS_STEPS`` steps and one eval on the card: K3 at head width
+    8, under autograd in the steps; ``check_overfit_tool``'s checks, with
+    the launches of the steps and the eval's tubes."""
+    from axial_vs_tpu_torch.tools import validate_overfit_vis
+
+    runs = OVERFIT_VIS_STEPS + OVERFIT_VIS_TUBES
+    return check_overfit_tool(
+        torch, f"overfit vis tool, {OVERFIT_VIS_STEPS} steps and one eval",
+        validate_overfit_vis.main,
+        ["--steps", str(OVERFIT_VIS_STEPS), "--eval-every",
+         str(OVERFIT_VIS_STEPS), "--target", "0", "--out", root,
+         "--device", "cuda"],
+        want=expect(K2=TL_TRAIN_K2 * runs, K3=TL_TRAIN_K3 * runs),
+        grad_calls=TL_TRAIN_K3 * OVERFIT_VIS_STEPS)
 
 
 #: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
@@ -3481,6 +3902,14 @@ def main() -> int:
                                 captured, k2_drawn)
     del captured
     torch.cuda.empty_cache()
+    paths["train_tube_link_3_steps"], train_backward_tl = timed_phase(
+        "train tube-link", in_temp_dir, "chip_smoke_tl_train_",
+        lambda root: phase_train_tube_link(torch, root, card))
+    paths["tube_link_train_reference"] = timed_phase(
+        "tube-link train reference", phase_tube_link_train_reference, torch)
+    paths["overfit_vis_2_steps"], overfit_vis_checks = timed_phase(
+        "overfit vis", in_temp_dir, "chip_smoke_overfit_vis_",
+        lambda root: phase_overfit_vis(torch, root))
     paths["msda_bench"], reduces, variant_ms = timed_phase(
         "msda bench", phase_msda_bench, torch, gen)
     results.update(reduces)
@@ -3535,7 +3964,10 @@ def main() -> int:
             **({"train_backward_cc_f32": train_backward_cc[key]}
                if key in train_backward_cc else {}),
             **({"overfit_wc_8_heads": overfit_checks[key]}
-               if key in overfit_checks else {})})
+               if key in overfit_checks else {}),
+            **({"train_backward_tube_link_f32": train_backward_tl[key],
+                "overfit_vis_8_heads": overfit_vis_checks[key]}
+               if key in train_backward_tl else {})})
     log("msda bench, ms per layer: " + ", ".join(
         f"{k} {v:.4f}" for k, v in variant_ms.items()))
     log(card)  # as nvidia-smi gives it: name, power limit

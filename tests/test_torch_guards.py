@@ -654,12 +654,13 @@ def test_unported_architectures_raise(arch):
 
 
 def test_tube_link_trainer_refuses_to_train(tmp_path):
-    """A Tube-Link VIS config builds (criterion None: its loss is not
-    ported) and evaluates, but ``Trainer.train`` and ``train_step`` raise
-    naming the missing criterion rather than step without a loss."""
+    """A Tube-Link VIS config builds with its criterion (the Tube-Link
+    losses, matched by the device auction) and trains; without a training
+    set ``Trainer.train`` refuses, naming the missing data, rather than
+    step on nothing."""
     from axial_vs_tpu_torch.config import load_config
-    from axial_vs_tpu_torch.engine.train_step import train_step
     from axial_vs_tpu_torch.engine.trainer import Trainer
+    from axial_vs_tpu_torch.models.tube_link.criterion import TubeLinkCriterion
     from axial_vs_tpu_torch.models.tube_link.detector import TubeLinkVIS
 
     cfg = load_config("ytvis19/tube_link_r50.yaml", [
@@ -669,12 +670,12 @@ def test_tube_link_trainer_refuses_to_train(tmp_path):
         "model.tube_link.num_decoder_layers", 1, "datasets.train", [],
         "output_dir", str(tmp_path)])
     trainer = Trainer(cfg, device=torch.device("cpu"))
-    assert isinstance(trainer.model, TubeLinkVIS) and trainer.criterion is None
-    with pytest.raises(NotImplementedError, match="tube_link/criterion.py"):
+    assert isinstance(trainer.model, TubeLinkVIS)
+    assert isinstance(trainer.criterion, TubeLinkCriterion)
+    assert not trainer.criterion.exact_matching
+    with pytest.raises(RuntimeError, match="no training data"):
         trainer.train()
-    with pytest.raises(NotImplementedError, match="tube_link/criterion.py"):
-        train_step(trainer.model, None, trainer.optimizer, trainer.scheduler,
-                   {}, trainer.generator)
+    assert trainer.step == 0
 
 
 def test_cli_refuses_coco_evaluation():
