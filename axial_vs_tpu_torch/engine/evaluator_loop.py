@@ -191,9 +191,13 @@ def evaluate_ytvis(cfg, model, max_videos: int | None = None,
     "num_predictions"[, "results_json"], AP/AR fields}."""
     from ..data.ytvis import results_to_ytvis_json
     from ..evaluation.ytvis_eval import YTVISEvaluator
-    from ..models.tube_link.detector import TubeLinkVISInference
+    from ..models.tube_link.detector import TubeLinkVIS, TubeLinkVISInference
     from ..models.video_inference import preprocess_frames
 
+    if not isinstance(model, TubeLinkVIS):
+        raise NotImplementedError(
+            f"evaluate_ytvis runs a TubeLinkVIS model, not "
+            f"{type(model).__name__}")
     name = cfg.datasets.test[0]
     videos = DatasetCatalog.get(name)[:max_videos]
     cont_to_ds = list(MetadataCatalog.get(name).get(

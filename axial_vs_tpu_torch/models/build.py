@@ -5,20 +5,25 @@ The port builds ``MaXTronWCDeepLab`` and ``KMaXDeepLab`` with a within-clip
 (WC) model; ``MaXTronCCDeepLab``: the cross-clip (CC) model, a frozen WC
 segmenter of ``input.num_clip_frames`` frames under the CC module of
 ``model.maxtron.cc``, its clips aligned by the device auction, with the
-criterion of the class and mask losses; and ``TubeLinkVIS`` through
-``models/tube_link/detector.py::build_tube_link_vis``, with or without
-MaXTron's temporal attention (``model.tube_link.use_temporal_attn``), with
+criterion of the class and mask losses; and the Tube-Link models, each with
 the Tube-Link criterion of ``model.tube_link``'s weights and the device
-auction (``_tube_criterion``). Every other architecture of the JAX
-registry (``TubeLinkVideoVIS``, ``TubeLinkVPS``, ``ImageMask2Former``)
-raises ``NotImplementedError`` naming itself.
+auction (``_tube_criterion``): ``TubeLinkVIS``
+(``models/tube_link/detector.py::build_tube_link_vis``), with or without
+MaXTron's temporal attention (``model.tube_link.use_temporal_attn``);
+``TubeLinkVPS`` (``vps.py::build_tube_link_vps``), ``TubeLinkVideoVIS``
+(``cc_detector.py::build_tube_link_video_vis``) and ``ImageMask2Former``
+(``image_mask2former.py::build_image_mask2former``), the panoptic ones
+splitting ``model.num_classes`` by ``model.num_things`` (all things where it
+is unset). Any other architecture raises ``NotImplementedError`` naming
+itself.
 """
 from __future__ import annotations
 
 import torch
 
 _PORTED = ("MaXTronWCDeepLab", "KMaXDeepLab", "MaXTronCCDeepLab",
-           "TubeLinkVIS")
+           "TubeLinkVIS", "TubeLinkVPS", "TubeLinkVideoVIS",
+           "ImageMask2Former")
 
 
 def criterion_from_config(cfg):
@@ -60,6 +65,18 @@ def _tube_criterion(cfg):
         exact_matching=False)
 
 
+def _tube_link_builders() -> dict:
+    from .tube_link.cc_detector import build_tube_link_video_vis
+    from .tube_link.detector import build_tube_link_vis
+    from .tube_link.image_mask2former import build_image_mask2former
+    from .tube_link.vps import build_tube_link_vps
+
+    return {"TubeLinkVIS": build_tube_link_vis,
+            "TubeLinkVPS": build_tube_link_vps,
+            "TubeLinkVideoVIS": build_tube_link_video_vis,
+            "ImageMask2Former": build_image_mask2former}
+
+
 def build_model_and_criterion(cfg, train: bool = True,
                               device=torch.device("cuda"),
                               generator: torch.Generator | None = None):
@@ -70,10 +87,9 @@ def build_model_and_criterion(cfg, train: bool = True,
     arch = cfg.model.meta_architecture
     if arch not in _PORTED:
         raise NotImplementedError(f"meta-architecture {arch!r} is not ported")
-    if arch == "TubeLinkVIS":
-        from .tube_link.detector import build_tube_link_vis
-
-        model = build_tube_link_vis(cfg, device, generator)
+    tube_link = _tube_link_builders().get(arch)
+    if tube_link is not None:
+        model = tube_link(cfg, device, generator)
         return model.train(train), _tube_criterion(cfg)
     if not cfg.model.maxtron.wc.enable:
         raise NotImplementedError(f"{arch} without the within-clip module is "

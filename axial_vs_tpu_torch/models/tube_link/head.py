@@ -77,7 +77,13 @@ class _DecoderLayer(nn.Module):
 
 
 class Mask2FormerVideoHeadTube(nn.Module):
+    """``num_queries`` counts every query: with ``num_stuff_classes`` > 0
+    (the VPS and image models) the caller passes things' queries plus one
+    slot per stuff class, and ``cls_embed`` scores ``num_things_classes +
+    num_stuff_classes`` classes and the void class."""
+
     def __init__(self, in_channels: dict, num_things_classes: int = 40,
+                 num_stuff_classes: int = 0,
                  num_queries: int = 100, feat_channels: int = 256,
                  out_channels: int = 256, num_decoder_layers: int = 9,
                  num_heads: int = 8, ffn_dim: int = 2048, num_frames: int = 2,
@@ -96,7 +102,8 @@ class Mask2FormerVideoHeadTube(nn.Module):
         self._inits = {k: ("normal", 1.0)
                        for k in ("level_embed", "query_feat", "query_embed")}
         self.post_norm = LayerNorm(c, eps=1e-5, device=device)
-        self.cls_embed = Linear(c, num_things_classes + 1, device=device)
+        self.cls_embed = Linear(
+            c, num_things_classes + num_stuff_classes + 1, device=device)
         self.mask_embed1 = Linear(c, c, device=device)
         self.mask_embed2 = Linear(c, c, device=device)
         self.mask_embed3 = Linear(c, out_channels, device=device)

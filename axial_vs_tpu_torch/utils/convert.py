@@ -7,7 +7,9 @@ segmenter (the upstream torch layout). It is the inverse of
 ``axial_vs_tpu/utils/torch_convert.py::convert_maxtron_wc``; ``resnet`` is
 the inverse of its ``convert_torchvision_resnet``. ``tube_link_vis`` maps
 ``axial_vs_tpu.models.tube_link.detector.TubeLinkVIS``'s variables, whose
-names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``);
+names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``), and
+``tube_link_vps``, ``tube_link_video_vis`` and ``image_mask2former`` those
+of the other Tube-Link models, each under the JAX module's names;
 ``maxtron_cc`` maps ``axial_vs_tpu.models.maxtron_cc.MaXTronCCModel``'s
 (the segmenter and the CC module, whose names follow the upstream module:
 ``trajectory_attn{i}`` -> ``transformer_trajectory_self_attention_layers.
@@ -550,13 +552,74 @@ def tube_link_head(p) -> dict:
     return sd
 
 
+def _tube_link_detector(variables, head: str = "head") -> tuple:
+    """(params, the state_dict of the ResNet backbone and of the tube head
+    under ``head``) of a Tube-Link model's variables."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    return params, {
+        **_prefix("backbone", resnet(params["backbone"], stats["backbone"])),
+        **_prefix(head, tube_link_head(params[head]))}
+
+
+def _by_name(p, convert) -> dict:
+    """Each entry of ``p`` through ``convert(name, entry)``, prefixed with
+    its name."""
+    return {k: v for name, sub in p.items()
+            for k, v in _prefix(name, convert(name, sub)).items()}
+
+
+def _norm_or_linear(name, p) -> dict:
+    return _norm(p) if "scale" in p else _linear(p)
+
+
 def tube_link_vis(variables) -> dict:
     """``TubeLinkVIS`` variables {"params", "batch_stats"} -> port
     state_dict (ResNet backbone)."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    return {**_prefix("backbone", resnet(params["backbone"],
-                                         stats["backbone"])),
-            **_prefix("head", tube_link_head(params["head"]))}
+    return _tube_link_detector(variables)[1]
+
+
+#: ``ImageMask2Former``'s variables: a backbone and a ``head``, as
+#: ``TubeLinkVIS``'s
+image_mask2former = tube_link_vis
+
+
+def thing_query_link(p) -> dict:
+    """``ThingQueryLink``: ``link_attn``, ``norm1``, ``ffn1``, ``ffn2``,
+    ``norm2``."""
+    return _by_name(p, lambda name, sub: _attention(sub)
+                    if name == "link_attn" else _norm_or_linear(name, sub))
+
+
+def tube_link_vps(variables) -> dict:
+    """``TubeLinkVPS`` variables -> port state_dict (ResNet backbone): the
+    detector's, ``thing_link`` (``link_attn``, ``norm1``, ``ffn1``,
+    ``ffn2``, ``norm2``) and, unless ``mlp_only``, ``track_head`` (``fc0``,
+    ``fc_out``)."""
+    params, sd = _tube_link_detector(variables)
+    sd.update(_prefix("thing_link", thing_query_link(params["thing_link"])))
+    if "track_head" in params:
+        sd.update(_prefix("track_head", _by_name(
+            params["track_head"], _norm_or_linear)))
+    return sd
+
+
+def tube_link_video_vis(variables) -> dict:
+    """``TubeLinkVideoVIS`` variables -> port state_dict (ResNet backbone):
+    the frozen detector's (its head ``wc_head_wrapper``), ``cc_layers``
+    (``trajectory_attn{i}``, ``attn_norm{i}``, ``aspp{i}``,
+    ``conv_norm{i}``) and the heads ``activation_proj``, ``cls_embed``,
+    ``mask_embed{1,2,3}``."""
+    params, sd = _tube_link_detector(variables, "wc_head_wrapper")
+
+    def cc_layer(name, p):
+        if name.startswith("trajectory_attn"):
+            return trajectory_attention(p)
+        return temporal_aspp(p) if name.startswith("aspp") else _norm(p)
+
+    sd.update(_prefix("cc_layers", _by_name(params["cc_layers"], cc_layer)))
+    sd.update(_by_name({k: v for k, v in params.items() if k not in (
+        "backbone", "wc_head_wrapper", "cc_layers")}, _norm_or_linear))
+    return sd
 
 
 def load_into(model, state_dict: dict):

@@ -131,6 +131,34 @@ Phases, in order; any failure exits non-zero before the last line:
                (``tools/validate_overfit_vis.py``) for 2 steps and one eval:
                the first K2 and K3 call (d = 8) of the steps against the
                plain versions forward and backward, and of the eval forward
+ 13g. tube-link vps - the Tube-Link VPS R50 of configs/vipseg/
+               tube_link_vps_r50.yaml at full width (58 thing + 66 stuff
+               classes, 100 + 66 queries, f32, windows of 5), built by the
+               registry (the head's residual branches scaled by 0.1, so
+               that its queries stay apart): a synthetic 15-frame 720x1280
+               video through ``preprocess_frames`` at 512x512, 3 windows of
+               ``TubeLinkVPSInference.process_window`` and of
+               ``process_window_instance``, at the defaults and at zero
+               thresholds: the id convention, a thing track carried across
+               windows, the launch counts; the first window on the card
+               against the CPU (logits, masks, track embeddings 1e-3; id
+               maps 0.999 of the pixels; the CPU's head masked by the
+               card's attention masks); K2 on the layer's own first call
+ 13h. cc vis - the cross-clip Tube-Link VIS R50 of configs/ytvis21/
+               tube_link_maxtron_cc_r50.yaml at full width (100 queries, 40
+               classes, clips of 5, 4 CC layers, f32), built by the
+               registry: 360x640 videos of 15 and 60 frames (K3 in the CC
+               layers at n = 100, f = 3 and 12), every CC layer's outputs,
+               the launch counts; K3's first CC-layer call of each video
+               against its plain version, beside its bound; a 15-frame
+               video at 180x320 on the card against the CPU (1e-3, the
+               card's attention masks)
+ 13i. image m2f - the image Mask2Former R50 of configs/image/
+               mask2former_r50_coco_panoptic_50e.yaml at full width (80 +
+               53 classes, 100 queries, f32): one 1024x1024 image (K2
+               only), every layer's outputs, the launch counts; the image
+               on the card against the CPU (1e-3, the card's attention
+               masks); K2 on the layer's own first call
  14. MSDA bench - ``axial_vs_tpu_torch.tools.bench_msda`` at the WC shape:
                one checking pass over its six formulations (each against
                ``prod``, K2), their launch counts and ms per layer; K6, K7
@@ -3247,6 +3275,526 @@ def phase_overfit_vis(torch, root: str):
         grad_calls=TL_TRAIN_K3 * OVERFIT_VIS_STEPS)
 
 
+# ---- Tube-Link VPS, cross-clip VIS and image Mask2Former -----------------
+
+VPS_YAML = "vipseg/tube_link_vps_r50.yaml"
+VPS_FRAMES, VPS_SOURCE_HW = 15, (720, 1280)  # 3 windows of 5 at VIPSeg's size
+#: the VPS stream at zero thresholds: random weights pass none of the
+#: defaults' gates (the fusion's 0.8 and the tracker's 0.3 / 0.35, over
+#: softmaxes of 125 classes), so without these no segment or track exists
+VPS_ZERO = dict(object_mask_thr=0.0, iou_thr=0.0, tracker_kwargs=dict(
+    init_score_thr=0.0, obj_score_thr=0.0, match_score_thr=0.0))
+#: bound on max |card - CPU| / max |CPU| of f32 outputs: both sides in f32
+#: (TF32 off), the kernels within F32_REL_BOUND (1e-4) of their plain
+#: versions, the rest cuDNN / cuBLAS against the CPU's sums in other
+#: orders through 9 decoder layers
+CARD_CPU_BOUND = 1e-3
+#: share of the card's VPS id-map pixels equal to the CPU's on one window
+VPS_ID_AGREEMENT = 0.999
+K2_TUBE = K2_TL_CALLS        # K2 calls a Tube-Link forward: 6 MSDA layers
+K3_TUBE = 4 * K3_TL_CALLS    # K3 calls a tube: 6 layers x 2 levels x 2 axes
+CC_VIS_YAML = "ytvis21/tube_link_maxtron_cc_r50.yaml"
+CC_VIS_FRAMES = (15, 60)     # 3 clips of 5 (the yaml's video) and 12 clips
+CC_VIS_QUERIES = 100
+#: the CC VIS card-against-CPU video: 15 frames at half the driven height
+#: and width (at 360x640 the CPU's plain versions took 45 s of the phase's
+#: 48 on the H100's host)
+CC_VIS_REF_HW = (180, 320)
+IMAGE_YAML = "image/mask2former_r50_coco_panoptic_50e.yaml"
+
+
+def vipseg_like_video(n: int, hw, seed: int):
+    """n uint8 frames at hw: a background of blocks of colour (the stuff,
+    80 pixels at 720x1280) and four squares of 80-180 pixels that move 8
+    pixels a frame (the things)."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    block, step = h // 9, w // 160
+    bg = rng.integers(0, 256, (h // block + 1, w // block + 1, 3),
+                      dtype=np.uint8)
+    frames = np.repeat(np.repeat(bg, block, 0), block, 1)[None, :h, :w]
+    frames = frames.repeat(n, 0)
+    for _ in range(4):
+        size = int(rng.integers(h // 9, h // 4))
+        y = int(rng.integers(0, h - size))
+        x = int(rng.integers(0, w - size - step * n))
+        colour = rng.integers(0, 256, 3, dtype=np.uint8)
+        for i in range(n):
+            frames[i, y:y + size, x + step * i:x + step * i + size] = colour
+    return frames
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, on the host in f32."""
+    got, want = (np.asarray(x.float().cpu() if hasattr(x, "float") else x,
+                            np.float32) for x in (got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"{got.shape} != {want.shape}")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def check_vps_ids(maps, pipe, label: str):
+    """The reference convention: void = num_classes, stuff and untracked
+    things < num_classes, tracked things cls + (track + 1) * divisor with
+    cls < num_things."""
+    off = pipe.label_divisor
+    for m in maps:
+        if not (((m <= pipe.num_classes) | (m % off < pipe.num_things))
+                & (m >= 0)).all():
+            raise AssertionError(f"vps {label}: ids outside the convention: "
+                                 f"{np.unique(m)[:20]}")
+
+
+#: the factor on the tube head's residual branches in the VPS phase
+VPS_WAKE = 0.1
+
+
+def wake_tube_head(torch, head, scale: float = VPS_WAKE):
+    """Scale the residual branches of the tube head's decoder layers (the
+    attentions' ``out_proj`` and ``ffn2``) by ``scale``. At the drawn
+    weights the 9 layers pull every query to one (mean cosine 0.995
+    between queries after 3 layers, measured on the CPU), so that one query
+    wins every pixel and no thing segment reaches the tracker; scaled, each
+    query keeps its identity and the stream has segments and tracks."""
+    with torch.no_grad():
+        for layer in head.layers:
+            for lin in (layer.cross_attn.out_proj, layer.self_attn.out_proj,
+                        layer.ffn2):
+                lin.weight.mul_(scale)
+
+
+@contextlib.contextmanager
+def shared_attention_masks(card_head, cpu_head, flips: list):
+    """While active, the CPU's tube head masks its cross-attention with the
+    card head's masks, call by call in the order the card made them (run
+    the card first). Each mask is ``sigmoid(mask logit) < 0.5``: where a
+    logit lies within the f32 noise of 0 the two devices may block other
+    keys, and the layers after differ by far more than their sums' noise
+    (the CC VIS model at 15x96x160 on an H100: 27 bits of the last
+    layer's masks, 1e-3-5e-3 of max |ref| from the third layer on).
+    ``flips`` gets, per call, the bits where the CPU's own mask
+    differed."""
+    masks = []
+    real_card, real_cpu = card_head._heads, cpu_head._heads
+
+    def card(*args):
+        out = real_card(*args)
+        masks.append(out[2].cpu())
+        return out
+
+    def cpu(*args):
+        cls_pred, mask_pred, own = real_cpu(*args)
+        theirs = masks.pop(0)
+        flips.append(int((own != theirs).sum()))
+        return cls_pred, mask_pred, theirs
+
+    card_head._heads, cpu_head._heads = card, cpu
+    try:
+        yield
+    finally:
+        del card_head._heads, cpu_head._heads
+
+
+def recorded_forwards(pipe, box: list):
+    """``pipe.window_forward`` keeping each window's outputs in ``box``."""
+    real = pipe.window_forward
+
+    def forward(images):
+        box.append(real(images))
+        return box[-1]
+
+    pipe.window_forward = forward
+    return pipe
+
+
+def phase_vps(torch, card: str):
+    """The Tube-Link VPS R50 of ``VPS_YAML`` at full width (58 thing + 66
+    stuff classes, 100 + 66 queries, f32, windows of 5), random weights
+    from seed 0, built by the registry, its decoder layers' residual
+    branches scaled by ``VPS_WAKE`` (``wake_tube_head``): a synthetic
+    15-frame 720x1280
+    video through ``preprocess_frames`` at the yaml's 512x512, streamed in
+    3 windows by ``TubeLinkVPSInference.process_window`` and then
+    ``process_window_instance``, at the defaults and at zero thresholds.
+    Checks the id convention, the instances, that a thing track started in
+    the first window carries into a later one (zero thresholds) and the
+    launch counts; the first window on the card against the CPU on the
+    same weights: logits, masks, track embeddings within
+    ``CARD_CPU_BOUND`` and the id maps' agreement, the CPU's head masked
+    by the card's attention masks (``shared_attention_masks``). K2 on the
+    layers' own first call (f32). Returns the launch counts and K2's
+    entry."""
+    import copy
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.tube_link.vps import (
+        TubeLinkVPSInference, num_things_split)
+    from axial_vs_tpu_torch.models.video_inference import preprocess_frames
+
+    laps = Laps("tube-link vps")
+    dev = torch.device("cuda")
+    cfg = load_config(VPS_YAML)
+    num_things, num_stuff = num_things_split(cfg)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    wake_tube_head(torch, model.head)
+    t, q = cfg.input.num_clip_frames, cfg.model.tube_link.num_queries
+    kw = dict(clip_len=t, num_things_classes=num_things,
+              num_stuff_classes=num_stuff)
+    frames = vipseg_like_video(VPS_FRAMES, VPS_SOURCE_HW, 0)
+    images, _, _ = preprocess_frames(frames, cfg.input.pixel_mean,
+                                     cfg.input.pixel_std, cfg.input.image_size)
+    windows = [torch.from_numpy(images[i:i + t]).to(dev)
+               for i in range(0, VPS_FRAMES, t)]
+    laps(f"built ({num_things} + {num_stuff} classes, {q} + {num_stuff} "
+         f"queries, {sum(p.numel() for p in model.parameters())} "
+         f"parameters), {VPS_FRAMES} frames preprocessed to "
+         f"{tuple(images.shape)}")
+    captured = {}
+    with first_msda_call(captured, "vps"):  # warm-up window
+        TubeLinkVPSInference(model, **kw).window_forward(windows[0])
+    torch.cuda.synchronize()
+
+    spans, runs = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for label, extra in (("defaults", {}), ("zero thresholds", VPS_ZERO)):
+        pipe = TubeLinkVPSInference(model, **kw, **extra)
+        pipe.window_forward = cuda_spans(torch, spans, pipe.window_forward)
+        pipe.init_memory()
+        w0 = time.perf_counter()
+        maps, started = [], []
+        for i, window in enumerate(windows):
+            maps.append(pipe.process_window(window, i))
+            started.append(pipe.tracker.num_tracks)
+        pan_s = time.perf_counter() - w0
+        carried = sorted(tid for tid, tr in pipe.tracker.tracks.items()
+                         if tid < started[0] and tr["last_frame"] >= 1)
+        pipe.init_memory()
+        thr = None if label == "defaults" else 0.0
+        inst = [pipe.process_window_instance(w, i, score_thr=thr)
+                for i, w in enumerate(windows)]
+        runs[label] = (maps, started, carried, inst, pan_s)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd_ms = [a.elapsed_time(b) for a, b in spans]
+    n_fwd = 4 * len(windows)
+    want = expect(K2=K2_TUBE * n_fwd, K3=K3_TUBE * n_fwd)
+    mask_hw = tuple(s // 4 for s in cfg.input.image_size)
+
+    conv = TubeLinkVPSInference(model, **kw)  # the id convention's numbers
+    off = conv.label_divisor
+    for label, (maps, started, carried, inst, pan_s) in runs.items():
+        check_vps_ids(maps, conv, label)
+        for m in maps:
+            if m.shape != (t,) + mask_hw:
+                raise AssertionError(f"vps {label}: id map {m.shape}")
+        n_seg = [len(np.unique(m[m != conv.num_classes])) for m in maps]
+        things = [sorted(set((m[m >= off] // off).ravel().tolist()))
+                  for m in maps]
+        n_inst = [len(frame["labels"]) for w in inst for frame in w]
+        for w in inst:
+            for frame in w:
+                k = len(frame["labels"])
+                if (frame["masks"].shape != (k,) + mask_hw
+                        or frame["masks"].dtype != bool
+                        or frame["track_ids"].shape != (k,)
+                        or (k and frame["labels"].max() >= num_things)):
+                    raise AssertionError(f"vps {label} instances: {frame}")
+        log(f"tube-link vps {label}: {len(windows)} windows of {t}, "
+            f"segments a window {n_seg}, thing instance ids a window "
+            f"{[len(x) for x in things]}, tracks after each window {started}, "
+            f"tracks of window 0 carried on {carried}; instances a frame "
+            f"{sorted(set(n_inst))}; process_window {pan_s:.2f} s for "
+            f"{VPS_FRAMES} frames")
+        if label == "zero thresholds":
+            inst_ids = [set(w[0]["track_ids"].tolist()) - {-1} for w in inst]
+            if not (min(n_seg) > 0 and carried and started[0] > 0
+                    and inst_ids[0] & inst_ids[1]):
+                raise AssertionError(
+                    f"vps at zero thresholds: segments {n_seg}, carried "
+                    f"{carried}, instance track ids {inst_ids}")
+    log(f"tube-link vps: launches {launches} (want {want}) over {n_fwd} "
+        f"window forwards; forward {statistics.median(fwd_ms):.2f} ms a "
+        f"window (median, CUDA events, {len(fwd_ms)} windows), the streams "
+        f"{wall:.2f} s ({4 * VPS_FRAMES / wall:.3f} frames/s with the "
+        f"host's fusion and tracker); peak memory {peak:.3f} GiB; {card}")
+    if launches != want:
+        raise AssertionError(f"vps launch counts {launches}")
+    laps("stream")
+
+    # the first window on the card and on the CPU, zero thresholds
+    outs, flips, cpu_model = {}, [], copy.deepcopy(model).cpu()
+    with shared_attention_masks(model.head, cpu_model.head, flips):
+        for side, m, x in (("card", model, windows[0]),
+                           ("cpu", cpu_model, windows[0].cpu())):
+            box = []
+            pipe = recorded_forwards(
+                TubeLinkVPSInference(m, **kw, **VPS_ZERO), box)
+            pipe.init_memory()
+            ids = pipe.process_window(x, 0)
+            outs[side] = (box[0], ids)
+    errs = {k: rel_err(g, w) for k, g, w in zip(
+        ("logits", "masks", "track_embeds"), outs["card"][0], outs["cpu"][0])}
+    agree = float((outs["card"][1] == outs["cpu"][1]).mean())
+    log(f"tube-link vps card vs CPU (the first window, f32 both, zero "
+        f"thresholds): max |diff| / max |ref| "
+        + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + f" (bound {CARD_CPU_BOUND}); id-map pixels equal {agree:.6f} "
+        f"(need {VPS_ID_AGREEMENT}); the CPU's own attention masks differ "
+        f"in {sum(flips)} bits ({flips}), the card's taken")
+    if not (max(errs.values()) <= CARD_CPU_BOUND
+            and agree >= VPS_ID_AGREEMENT):
+        raise AssertionError("vps card vs CPU disagree")
+    laps("card vs CPU")
+
+    value, shapes, _, loc, weights = captured["vps"]
+    _, k2 = _k2_case(torch, "vps window model inputs (f32)",
+                     value.to(dev), shapes, loc.to(dev), weights.to(dev),
+                     K2_TUBE)
+    return launches, k2
+
+
+@contextlib.contextmanager
+def cc_layer_traj_calls(box: dict, queries: int):
+    """While active, the arguments of the first K3 call at each clip count
+    f that a CC layer makes (one row of f x ``queries`` tokens) are kept in
+    ``box[f]``, cloned on the card; every call still runs the wrapper."""
+    import torch
+
+    from axial_vs_tpu_torch.layers import trajectory_attention as layer
+
+    real = layer.trajectory_attention_core
+
+    def capture(*args):
+        q, f = args[0], args[-2]
+        if q.shape[0] == 1 and q.shape[1] == f * queries and f not in box:
+            box[f] = tuple(a.detach().clone() if torch.is_tensor(a) else a
+                           for a in args)
+        return real(*args)
+
+    layer.trajectory_attention_core = capture
+    try:
+        yield
+    finally:
+        layer.trajectory_attention_core = real
+
+
+def _k3_cc_case(torch, f: int, args):
+    """K3 on a CC layer's own inputs (f32) against its plain version within
+    F32_REL_BOUND of max|out|, timed eager, in a CUDA graph and plain,
+    beside its bound. Returns its entry."""
+    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+                                             trajectory_attention_core_plain)
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
+    got = trajectory_attention_core(*args)
+    want = trajectory_attention_core_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    bound = f32_bound(want)
+
+    def kernel():
+        return trajectory_attention_core(*args)
+
+    ms = cuda_ms(torch, kernel)
+    g_ms = graph_ms(kernel, "cuda", 10)
+    plain_ms = cuda_ms(torch, lambda: trajectory_attention_core_plain(*args),
+                       launches=3)
+    b, nt, c = args[0].shape
+    flops, nbytes = _traj_work(b, f, nt // f, c, size=4)
+    bound_t, by = bound_ms(flops, nbytes, PEAK_F32)
+    log(f"K3 f32 CC layer, the layer's own inputs (B'={b}, f={f}, "
+        f"n={nt // f}, 8 heads of {c // 8}): max_abs_err {err:.6g} (bound "
+        f"F32_REL_BOUND of max|out| = {bound:.6g}); kernel {ms:.4f} ms "
+        f"({g_ms:.4f} in a CUDA graph), plain {plain_ms:.4f} ms, bound "
+        f"{bound_t:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), {bound_t / g_ms:.3f} of the bound in a "
+        f"graph")
+    if not (err <= bound and torch.isfinite(got).all()):
+        raise AssertionError(f"K3 disagrees on the CC layer's f={f} call")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_t, "bound_by": by}
+
+
+def phase_cc_vis(torch, card: str):
+    """The cross-clip Tube-Link VIS R50 of ``CC_VIS_YAML`` at full width
+    (100 queries, 40 classes, clips of 5, 4 CC layers, f32), random weights
+    from seed 0, built by the registry: synthetic 360x640 videos of 15 and
+    60 frames (3 and 12 clips; K3 in the CC layers at n = 100, f = 3 and
+    12). Checks every CC layer's outputs and the launch counts; K3's first
+    CC-layer call of each video against its plain version and beside its
+    bound; a 15-frame video at ``CC_VIS_REF_HW`` on the card against the
+    CPU on the same weights, the CPU's head masked by the card's
+    attention masks (``shared_attention_masks``). Returns the launch counts
+    and K3's entries."""
+    import copy
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    laps = Laps("cc vis")
+    dev = torch.device("cuda")
+    cfg = load_config(CC_VIS_YAML)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    v, layers = cfg.input.num_clip_frames, cfg.model.maxtron.cc.num_layers
+    k = cfg.model.num_classes
+    videos = [torch.randn(n, TL_H, TL_W, 3, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(s))
+              for s, n in enumerate(CC_VIS_FRAMES)]
+    with torch.inference_mode():
+        model(videos[0])  # warm-up (kernel selection, allocator)
+    torch.cuda.synchronize()
+    laps("built and warmed up")
+
+    captured, launches, video_ms = {}, None, []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for video in videos:
+        clips = video.shape[0] // v
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode(), cc_layer_traj_calls(captured,
+                                                         CC_VIS_QUERIES):
+            start.record()
+            out = model(video)
+            end.record()
+        end.synchronize()
+        video_ms.append(start.elapsed_time(end))
+        got = {key: n - before[key] for key, n in read_counts().items()}
+        want = expect(K2=K2_TUBE * clips, K3=K3_TUBE * clips + layers)
+        log(f"cc vis: {video.shape[0]}-frame video ({clips} clips): "
+            f"{video_ms[-1]:.2f} ms (CUDA events), launches {got} (want "
+            f"{want})")
+        if got != want:
+            raise AssertionError(f"cc vis launch counts {got}")
+        for name, shape in (("cls_preds", (1, CC_VIS_QUERIES, k + 1)),
+                            ("mask_preds", (1, video.shape[0], CC_VIS_QUERIES)
+                             + TL_MASK_HW)):
+            if len(out[name]) != layers:
+                raise AssertionError(f"cc vis {name}: {len(out[name])} layers")
+            for x in out[name]:
+                if (tuple(x.shape) != shape or x.dtype != torch.float32
+                        or not torch.isfinite(x).all()):
+                    raise AssertionError(f"cc vis {name} {tuple(x.shape)}")
+        del out
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"cc vis: {sum(CC_VIS_FRAMES)} frames in {len(videos)} videos, "
+        + ", ".join(f"{n / (ms / 1e3):.3f} frames/s at {n}"
+                    for n, ms in zip(CC_VIS_FRAMES, video_ms))
+        + f"; peak memory {peak:.3f} GiB; {card}")
+    if sorted(captured) != [n // v for n in CC_VIS_FRAMES]:
+        raise AssertionError(f"cc vis: CC-layer K3 calls at f {sorted(captured)}")
+    k3 = {f"f={f}": _k3_cc_case(torch, f, captured[f])
+          for f in sorted(captured)}
+    del captured
+    laps("videos")
+
+    x = torch.randn(CC_VIS_FRAMES[0], *CC_VIS_REF_HW, 3,
+                    generator=torch.Generator().manual_seed(9))
+    flips, cpu_model = [], copy.deepcopy(model).cpu()
+    with torch.inference_mode(), shared_attention_masks(
+            model.wc_head_wrapper, cpu_model.wc_head_wrapper, flips):
+        card_out = model(x.to(dev))
+        cpu_out = cpu_model(x)
+    errs = {name: max(rel_err(g, w) for g, w in zip(card_out[name],
+                                                    cpu_out[name]))
+            for name in ("cls_preds", "mask_preds")}
+    log(f"cc vis card vs CPU ({CC_VIS_FRAMES[0]}x{CC_VIS_REF_HW[0]}x"
+        f"{CC_VIS_REF_HW[1]}, f32 both, every CC layer): max |diff| / max "
+        f"|ref| " + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + f" (bound {CARD_CPU_BOUND}); the CPU's own attention masks "
+        f"differ in {sum(flips)} bits over {len(flips)} head calls, the "
+        f"card's taken")
+    if max(errs.values()) > CARD_CPU_BOUND:
+        raise AssertionError("cc vis card vs CPU disagree")
+    laps("card vs CPU")
+    return launches, k3
+
+
+def phase_image_m2f(torch, card: str):
+    """The image Mask2Former R50 of ``IMAGE_YAML`` at full width (80 thing +
+    53 stuff classes, 100 queries, f32), random weights from seed 0, built
+    by the registry: one 1024x1024 image (K2 only). Checks every layer's
+    outputs and the launch counts; the image on the card against the CPU
+    on the same weights (the CPU's head masked by the card's attention
+    masks); K2 on the layer's own first call. Returns the launch counts
+    and K2's entry."""
+    import copy
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    dev = torch.device("cuda")
+    cfg = load_config(IMAGE_YAML)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    hw = tuple(cfg.input.image_size)
+    x = torch.randn(1, *hw, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    captured = {}
+    with torch.inference_mode(), first_msda_call(captured, "image"):
+        model(x)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        start.record()
+        out = model(x)
+        end.record()
+    end.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expect(K2=K2_TUBE)
+    classes = cfg.model.num_classes + 1
+    q = cfg.model.tube_link.num_queries
+    for name, shape in (("cls_preds", (1, q, classes)),
+                        ("mask_preds", (1, q, hw[0] // 4, hw[1] // 4))):
+        for y in out[name]:
+            if (tuple(y.shape) != shape or y.dtype != torch.float32
+                    or not torch.isfinite(y).all()):
+                raise AssertionError(f"image m2f {name} {tuple(y.shape)}")
+    log(f"image m2f: one {hw[0]}x{hw[1]} image, {len(out['cls_preds'])} "
+        f"layers of (1, {q}, {classes}) logits and (1, {q}, {hw[0] // 4}, "
+        f"{hw[1] // 4}) masks, finite; {start.elapsed_time(end):.2f} ms (CUDA "
+        f"events); launches {launches} (want {want}); peak memory "
+        f"{peak:.3f} GiB; {card}")
+    if launches != want:
+        raise AssertionError(f"image m2f launch counts {launches}")
+    del out
+
+    flips, cpu_model = [], copy.deepcopy(model).cpu()
+    with torch.inference_mode(), shared_attention_masks(
+            model.head, cpu_model.head, flips):
+        card_out = model(x)
+        cpu_out = cpu_model(x.cpu())
+    errs = {name: max(rel_err(g, w) for g, w in zip(card_out[name],
+                                                    cpu_out[name]))
+            for name in ("cls_preds", "mask_preds")}
+    log(f"image m2f card vs CPU (the image, f32 both, every layer): max "
+        f"|diff| / max |ref| "
+        + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + f" (bound {CARD_CPU_BOUND}); the CPU's own attention masks "
+        f"differ in {sum(flips)} bits ({flips}), the card's taken")
+    if max(errs.values()) > CARD_CPU_BOUND:
+        raise AssertionError("image m2f card vs CPU disagree")
+    value, shapes, _, loc, weights = captured["image"]
+    _, k2 = _k2_case(torch, f"image m2f {hw[0]}x{hw[1]} model inputs (f32)",
+                     value.to(dev), shapes, loc.to(dev), weights.to(dev),
+                     K2_TUBE)
+    return launches, k2
+
 #: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
 #: of max|prod|. K2 rounds nothing before its f32 sum; the table variants
 #: round each slot weight (bilinear times attention weight) to bf16, and
@@ -3910,6 +4458,13 @@ def main() -> int:
     paths["overfit_vis_2_steps"], overfit_vis_checks = timed_phase(
         "overfit vis", in_temp_dir, "chip_smoke_overfit_vis_",
         lambda root: phase_overfit_vis(torch, root))
+    paths["tube_link_vps_12_windows"], results["K2"]["vps_window_f32"] = (
+        timed_phase("tube-link vps", phase_vps, torch, card))
+    paths["cc_vis_2_videos"], results["K3"]["cc_vis_layer_f32"] = (
+        timed_phase("cc vis", phase_cc_vis, torch, card))
+    paths["image_m2f_1_image"], results["K2"]["image_m2f_f32"] = timed_phase(
+        "image m2f", phase_image_m2f, torch, card)
+    torch.cuda.empty_cache()
     paths["msda_bench"], reduces, variant_ms = timed_phase(
         "msda bench", phase_msda_bench, torch, gen)
     results.update(reduces)

@@ -359,7 +359,10 @@ def traj_inputs(gen, b, f, n, c=256, dtype=torch.bfloat16):
                                    # clips, n = 128 queries; and a ragged
                                    # f > 8
                                    (1, 3, 128), (1, 9, 128), (1, 24, 128),
-                                   (1, 64, 128), (2, 13, 37)])
+                                   (1, 64, 128), (2, 13, 37),
+                                   # the Tube-Link CC layers: 100 queries,
+                                   # 3 and 12 clips
+                                   (1, 3, 100), (1, 12, 100)])
 def test_trajectory_attention_core_kernel(gen, full_f32, b, f, n, dtype):
     """K3 in bf16 (TRAJ_ULPS) and in f32 (F32_REL_BOUND) against its plain
     version; q, k, v of two dtypes raise."""
@@ -714,6 +717,61 @@ def test_train_step_on_card(gen, full_f32):
         if n.endswith(("value_proj.weight", "sampling_offsets.weight",
                        "attn.q.weight", "attn.proj_kv.weight")):
             assert p.grad.abs().max() > 0, n
+
+
+@pytest.mark.parametrize("yaml", ["vipseg/tube_link_vps_r50.yaml",
+                                  "ytvis21/tube_link_maxtron_cc_r50.yaml",
+                                  "image/mask2former_r50_coco_panoptic_50e.yaml"])
+def test_inference_only_tube_link_models_on_card(gen, full_f32, yaml):
+    """The VPS, cross-clip VIS and image models (R18, 8 thing queries, the
+    head at its widths) built by the registry on the card, its default
+    device: K2 (and K3 with temporal attention) launched, every output
+    within 1e-3 of max |CPU| of a CPU copy's on 64x64 frames; the VPS
+    stream's two windows with ids equal on 0.999 of the pixels."""
+    import copy
+
+    import numpy as np
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.tube_link.vps import (TubeLinkVPSInference,
+                                                         num_things_split)
+    from axial_vs_tpu_torch.ops.msda import ms_deform_attn
+    from axial_vs_tpu_torch.ops.traj import trajectory_attention_core
+
+    cfg = load_config(yaml, [
+        "model.backbone.name", "resnet18", "model.backbone.resnet.depth", 18,
+        "model.tube_link.num_queries", 8, "input.num_clip_frames", 2])
+    model, _ = build_model_and_criterion(cfg, train=False, generator=gen)
+    assert next(model.parameters()).device.type == "cuda"
+    cpu = copy.deepcopy(model).cpu()
+    frames = 1 if "image" in yaml else 4
+    x = torch.randn(frames, 64, 64, 3, generator=gen, device="cuda")
+    k2, k3 = ms_deform_attn.launches, trajectory_attention_core.launches
+    if "vps" in yaml:
+        things, stuff = num_things_split(cfg)
+        kw = dict(clip_len=2, num_things_classes=things,
+                  num_stuff_classes=stuff, object_mask_thr=0.0, iou_thr=0.0,
+                  tracker_kwargs=dict(init_score_thr=0.0, obj_score_thr=0.0))
+        maps = {}
+        for side, m, xs in (("card", model, x), ("cpu", cpu, x.cpu())):
+            pipe = TubeLinkVPSInference(m, **kw)
+            pipe.init_memory()
+            maps[side] = np.stack([pipe.process_window(xs[:2], 0),
+                                   pipe.process_window(xs[2:], 1)])
+        assert (maps["card"] == maps["cpu"]).mean() >= 0.999
+        # two windows: 6 MSDA layers, 6 x 2 levels x 2 axes trajectory calls
+        assert ms_deform_attn.launches - k2 == 2 * 6
+        assert trajectory_attention_core.launches - k3 == 2 * 24
+        return
+    with torch.inference_mode():
+        got, want = model(x), cpu(x.cpu())
+    assert ms_deform_attn.launches - k2 == 6 * (2 if "cc" in yaml else 1)
+    assert (trajectory_attention_core.launches - k3 > 0) == ("cc" in yaml)
+    for key in ("cls_preds", "mask_preds"):
+        for g, w in zip(got[key], want[key]):
+            assert torch.isfinite(g).all(), key
+            assert (g.cpu() - w).abs().max() <= 1e-3 * w.abs().max(), key
 
 
 #: (R, N, P, D) of the MSDA reduces: the WC bench shape (R = 2*8*21168

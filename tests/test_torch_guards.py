@@ -2,7 +2,8 @@
 round-trip, the package imports without JAX, CPU tensors take the kernels'
 plain versions without launching anything, the builders and the bench and
 probe tools default to the card, the bf16 segmenter and Tube-Link detector
-run, and chip_smoke.py's configs are the benches' configs."""
+run, the inference-only Tube-Link models build and refuse training, and
+chip_smoke.py's configs are the benches' configs."""
 import inspect
 import subprocess
 import sys
@@ -18,8 +19,13 @@ from axial_vs_tpu_torch.models.kmax import build_segmenter
 from axial_vs_tpu_torch.ops.convnext_cuda import (
     convnext_block_fused, convnext_block_fused_plain, convnext_mlp_residual,
     convnext_mlp_residual_plain, dwconv7x7_layernorm, dwconv7x7_layernorm_plain)
+from axial_vs_tpu_torch.models.tube_link.cc_detector import (
+    build_tube_link_video_vis)
 from axial_vs_tpu_torch.models.tube_link.detector import (
     TubeLinkVISInference, build_tube_link_vis)
+from axial_vs_tpu_torch.models.tube_link.image_mask2former import (
+    build_image_mask2former)
+from axial_vs_tpu_torch.models.tube_link.vps import build_tube_link_vps
 from axial_vs_tpu_torch.ops.msda import (level_start_index, ms_deform_attn,
                                          ms_deform_attn_plain)
 from axial_vs_tpu_torch.ops.msda_reduce import (
@@ -113,7 +119,12 @@ def test_port_imports_without_jax():
                    "data.synthetic", "engine.trainer", "engine.checkpoint",
                    "engine.logger", "models.build", "tools.train_net_video",
                    "tools.validate_overfit", "tools.validate_overfit_cc",
-                   "data.mask_rle", "data.ytvis", "evaluation.ytvis_eval"):
+                   "data.mask_rle", "data.ytvis", "evaluation.ytvis_eval",
+                   "models.tube_link.vps", "models.tube_link.fusion",
+                   "models.tube_link.cc_detector",
+                   "models.tube_link.image_mask2former",
+                   "trackers.quasi_dense", "evaluation.dstq",
+                   "evaluation.vspw_metrics"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 
@@ -590,7 +601,9 @@ def test_msda_vector_path_rule():
     assert not vector_path(aligned, torch.zeros(97)[1:], aligned)
 
 
-@pytest.mark.parametrize("builder", [build_segmenter, build_tube_link_vis])
+@pytest.mark.parametrize("builder", [
+    build_segmenter, build_tube_link_vis, build_tube_link_vps,
+    build_tube_link_video_vis, build_image_mask2former])
 def test_builders_default_to_the_card(builder):
     """The entry points build on the card unless the caller passes another
     device, and draw the weights only from a generator they are given."""
@@ -639,18 +652,63 @@ def test_bf16_tube_link_runs_on_cpu(rng):
     assert np.all(res["scores"][:-1] >= res["scores"][1:])
 
 
-@pytest.mark.parametrize("arch", ["TubeLinkVideoVIS", "TubeLinkVPS",
-                                  "ImageMask2Former"])
-def test_unported_architectures_raise(arch):
-    """The registry builds ``TubeLinkVIS`` now; the other Tube-Link models
-    and the image Mask2Former still raise, naming themselves."""
-    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+@pytest.mark.parametrize("arch,yaml,classes", [
+    ("TubeLinkVPS", "vipseg/tube_link_vps_r50.yaml", 58 + 66 + 1),
+    ("TubeLinkVideoVIS", "ytvis21/tube_link_maxtron_cc_r50.yaml", 40 + 1),
+    ("ImageMask2Former", "image/mask2former_r50_coco_panoptic_50e.yaml",
+     80 + 53 + 1)])
+def test_inference_only_architectures(arch, yaml, classes, tmp_path):
+    """The registry builds the other Tube-Link models and the image
+    Mask2Former (here on the CPU, an R18 backbone), with the Tube-Link
+    criterion; the registry and each model's builder default to the card;
+    ``Trainer`` refuses to train them, naming the architecture; and none of
+    it imports JAX or the JAX package (run in a process where they are
+    unimportable)."""
+    code = f"""
+import inspect, sys
+for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):
+    sys.modules[m] = None
+import torch
+from axial_vs_tpu_torch.config import load_config
+from axial_vs_tpu_torch.engine.trainer import Trainer
+from axial_vs_tpu_torch.models import build
+from axial_vs_tpu_torch.models.tube_link.criterion import TubeLinkCriterion
 
-    cfg = _tube_link_config("float32")
-    cfg.model.meta_architecture = arch
-    with pytest.raises(NotImplementedError, match=arch):
-        build_model_and_criterion(cfg, device=torch.device("cpu"),
-                                  generator=torch.Generator())
+cuda = torch.device('cuda')
+builder = build._tube_link_builders()[{arch!r}]
+for fn in (build.build_model_and_criterion, builder):
+    assert inspect.signature(fn).parameters['device'].default == cuda
+cfg = load_config({yaml!r}, ['model.backbone.name', 'resnet18',
+                            'model.backbone.resnet.depth', 18,
+                            'output_dir', {str(tmp_path)!r}])
+model, crit = build.build_model_and_criterion(
+    cfg, train=False, device=torch.device('cpu'),
+    generator=torch.Generator().manual_seed(0))
+assert type(model).__name__ == {arch!r} and not model.training
+assert isinstance(crit, TubeLinkCriterion) and not crit.exact_matching
+head = getattr(model, 'head', None) or model.wc_head_wrapper
+assert head.cls_embed.weight.shape[0] == {classes}
+try:
+    Trainer(cfg, device=torch.device('cpu'))
+except NotImplementedError as e:
+    assert {arch!r} in str(e), e
+else:
+    raise AssertionError('Trainer took ' + {arch!r})
+assert not any(k == 'axial_vs_tpu' or k.startswith('axial_vs_tpu.')
+               for k in sys.modules), 'the JAX package was imported'
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_evaluate_ytvis_refuses_other_models():
+    """``evaluate_ytvis`` runs ``TubeLinkVISInference``: another model is
+    refused, named, before any data is read."""
+    from axial_vs_tpu_torch.engine.evaluator_loop import evaluate_ytvis
+
+    with pytest.raises(NotImplementedError, match="Module"):
+        evaluate_ytvis(None, torch.nn.Module())
 
 
 def test_tube_link_trainer_refuses_to_train(tmp_path):
