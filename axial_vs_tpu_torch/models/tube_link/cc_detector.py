@@ -25,6 +25,10 @@ from ..cc_module import TemporalASPP1D
 from ..kmax import build_backbone, materialize
 from .head import Mask2FormerVideoHeadTube
 
+# The CC layers' 1-D ASPP over the clip axis, as JAX's defaults.
+ASPP_KERNEL_SIZES = (3, 3, 3)
+ASPP_ATROUS_RATES = (1, 2, 3)
+
 
 class TubeLinkCCLayers(nn.Module):
     """CC refinement of per-clip queries (T_clips, Q, C): per layer,
@@ -33,7 +37,6 @@ class TubeLinkCCLayers(nn.Module):
     per query, residual, ``conv_norm{i}``. Returns every layer's queries."""
 
     def __init__(self, channels: int = 256, num_cc_layers: int = 4,
-                 kernel_sizes=(3, 3, 3), atrous_rates=(1, 2, 3),
                  device=None):
         super().__init__()
         self.num_cc_layers = num_cc_layers
@@ -43,7 +46,7 @@ class TubeLinkCCLayers(nn.Module):
             setattr(self, f"attn_norm{i}",
                     LayerNorm(channels, eps=1e-5, device=device))
             setattr(self, f"aspp{i}", TemporalASPP1D(
-                channels, tuple(kernel_sizes), tuple(atrous_rates),
+                channels, ASPP_KERNEL_SIZES, ASPP_ATROUS_RATES,
                 norm_fn="ln", device=device))
             setattr(self, f"conv_norm{i}",
                     LayerNorm(channels, eps=1e-5, device=device))

@@ -19,14 +19,13 @@ from .vps import num_things_split
 class ImageMask2Former(nn.Module):
     def __init__(self, backbone, in_channels: dict,
                  num_things_classes: int = 80, num_stuff_classes: int = 53,
-                 num_queries: int = 100, use_temporal_attn: bool = False,
-                 dtype=None, device=None):
+                 num_queries: int = 100, dtype=None, device=None):
         super().__init__()
         self.backbone = backbone
         self.head = Mask2FormerVideoHeadTube(
             in_channels, num_things_classes, num_stuff_classes,
             num_queries=num_queries, num_frames=1,
-            use_temporal_attn=use_temporal_attn, device=device)
+            use_temporal_attn=False, device=device)
         self.dtype = dtype
 
     def forward(self, images, return_query: bool = False, generator=None):

@@ -32,20 +32,21 @@ from .fusion import INSTANCE_OFFSET, panoptic_fusion
 from .head import Mask2FormerVideoHeadTube, MaskedMultiheadAttention
 
 
+TRACK_HEAD_HIDDEN = 1  # ReLU layers before ``fc_out``, as JAX's default
+
+
 class TrackEmbedHead(nn.Module):
-    """Query -> track embedding: ``num_layers - 1`` ReLU layers then
+    """Query -> track embedding: ``TRACK_HEAD_HIDDEN`` ReLU layers then
     ``fc_out`` (QuasiDenseMaskEmbedHeadGTMask)."""
 
-    def __init__(self, embed_dim: int = 256, num_layers: int = 2,
-                 device=None):
+    def __init__(self, embed_dim: int = 256, device=None):
         super().__init__()
-        self.num_hidden = num_layers - 1
-        for i in range(self.num_hidden):
+        for i in range(TRACK_HEAD_HIDDEN):
             setattr(self, f"fc{i}", Linear(embed_dim, embed_dim, device=device))
         self.fc_out = Linear(embed_dim, embed_dim, device=device)
 
     def forward(self, query):
-        for i in range(self.num_hidden):
+        for i in range(TRACK_HEAD_HIDDEN):
             query = F.relu(getattr(self, f"fc{i}")(query))
         return self.fc_out(query)
 

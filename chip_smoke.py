@@ -2135,11 +2135,12 @@ CC_TRAJ_PROJECTIONS = ("self_attn.qkv.weight", "self_attn.proj_q.weight",
 
 
 @contextlib.contextmanager
-def cc_traj_calls(box: dict):
+def traj_calls(box: dict, key):
     """While active, every K3 call of the trajectory layers is kept in
     ``box["calls"]`` as (device, dtype, frames), and the arguments of the
-    first f32 call (the CC module's) in ``box["K3"]`` (detached copies on
-    the card, with each tensor's ``requires_grad``)."""
+    first call for each ``key(args)`` that is not None in ``box[key(args)]``
+    (detached copies on the card as ``_Leaf``, with each tensor's
+    ``requires_grad``); every call still runs the wrapper."""
     import torch
 
     from axial_vs_tpu_torch.layers import trajectory_attention
@@ -2150,8 +2151,9 @@ def cc_traj_calls(box: dict):
     def call(*args, **kwargs):
         box["calls"].append((args[0].device.type, str(args[0].dtype)[6:],
                              int(args[7])))
-        if args[0].dtype == torch.float32 and "K3" not in box:
-            box["K3"] = tuple(_Leaf((a.detach().clone(), a.requires_grad))
+        name = key(args)
+        if name is not None and name not in box:
+            box[name] = tuple(_Leaf((a.detach().clone(), a.requires_grad))
                               if torch.is_tensor(a) else a for a in args)
         return real(*args, **kwargs)
 
@@ -2302,7 +2304,8 @@ def phase_train_cc_convnext_large(torch, card: str):
             for v in spans.values():
                 v.clear()
             reset_counts()
-            with cc_traj_calls(box):
+            with traj_calls(box, lambda a: "K3" if a[0].dtype == torch.float32
+                            else None):  # the CC module's first call
                 mark("start")
                 losses = train_step(*parts, batch, gen, mark=mark)
                 torch.cuda.synchronize()
@@ -2570,24 +2573,49 @@ def _pixel_decoder_outputs(model, x):
             **{k: v for k, v in zip(("res5", "res4", "res3"), levels)}}
 
 
-def phase_tube_link_reference(torch, model):
-    """A 5x96x160 tube through a copy of the model on the card (bf16,
-    kernels) and in f32 on the CPU (the plain versions). In the copy the
-    pixel decoder's gammas (1e-6 at init) are set to 0.5, so that K3's
-    branch reaches the outputs. The head's outputs pass a sigmoid < 0.5
-    threshold, where bf16 may flip single mask bits, so they are checked
-    for shape and finiteness only."""
-    import copy
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, on the host in f32."""
+    got, want = (np.asarray(x.float().cpu() if hasattr(x, "float") else x,
+                            np.float32) for x in (got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"{got.shape} != {want.shape}")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
+
+#: the gamma that ``open_decoder_gammas`` gives the Tube-Link pixel
+#: decoder's trajectory branches in a card-against-CPU comparison
+K3_GAMMA = 0.5
+
+
+def open_decoder_gammas(torch, model):
+    """Set the gammas of the Tube-Link pixel decoder's trajectory branches
+    (1e-6 at init, so that K3's output reaches the outputs scaled by 1e-6)
+    to ``K3_GAMMA``, so that a wrong K3 shows in a comparison of the whole
+    model's outputs. Raises if the model has no such branch."""
     from axial_vs_tpu_torch.models.tube_link.pixel_decoder import (
         FusedMSDATrajectoryAttention)
 
+    branches = [m for m in model.modules()
+                if isinstance(m, FusedMSDATrajectoryAttention)]
+    if not branches:
+        raise AssertionError("no trajectory branch in the pixel decoder")
+    with torch.no_grad():
+        for m in branches:
+            m.gamma.fill_(K3_GAMMA)
+
+
+def phase_tube_link_reference(torch, model):
+    """A 5x96x160 tube through a copy of the model on the card (bf16,
+    kernels) and in f32 on the CPU (the plain versions). In the copy the
+    pixel decoder's gammas are opened (``open_decoder_gammas``), so that
+    K3's branch reaches the outputs. The head's outputs pass a sigmoid <
+    0.5 threshold, where bf16 may flip single mask bits, so they are
+    checked for shape and finiteness only."""
+    import copy
+
     dev = torch.device("cuda")
     card_model = copy.deepcopy(model)
-    with torch.no_grad():
-        for m in card_model.modules():
-            if isinstance(m, FusedMSDATrajectoryAttention):
-                m.gamma.fill_(0.5)
+    open_decoder_gammas(torch, card_model)
     ref_model = copy.deepcopy(card_model).float().cpu()
     bf16_model = copy.deepcopy(card_model).cpu()
     g = torch.Generator(device=dev).manual_seed(7)
@@ -2602,16 +2630,10 @@ def phase_tube_link_reference(torch, model):
             if not torch.isfinite(v.float()).all():
                 raise AssertionError(f"tube-link reference: {k} not finite")
 
-    def rel(a, b):
-        if a.shape != b.shape:
-            raise AssertionError(f"{a.shape} != {b.shape}")
-        return ((a.float().cpu() - b).abs().max()
-                / b.abs().max().clamp_min(1e-6)).item()
-
-    worst = {k: rel(got[k], want[k]) for k in want}
-    drift = {k: rel(cpu_bf16[k], want[k]) for k in want}
-    log("tube-link reference (5x96x160 tube, gamma 0.5, card bf16 vs CPU "
-        "f32 plain versions): max |diff| / max |ref| " + ", ".join(
+    worst = {k: rel_err(got[k], want[k]) for k in want}
+    drift = {k: rel_err(cpu_bf16[k], want[k]) for k in want}
+    log(f"tube-link reference (5x96x160 tube, gamma {K3_GAMMA}, card bf16 "
+        "vs CPU f32 plain versions): max |diff| / max |ref| " + ", ".join(
             f"{k} {v:.4g}" for k, v in worst.items())
         + f"; bound {TL_REFERENCE_BOUND}; CPU bf16 plain versions vs the "
         "same f32 run: " + ", ".join(f"{k} {v:.4g}" for k, v in drift.items()))
@@ -3291,6 +3313,11 @@ VPS_ZERO = dict(object_mask_thr=0.0, iou_thr=0.0, tracker_kwargs=dict(
 CARD_CPU_BOUND = 1e-3
 #: share of the card's VPS id-map pixels equal to the CPU's on one window
 VPS_ID_AGREEMENT = 0.999
+#: most of the tube head's attention-mask bits in which the CPU's own masks
+#: may differ from the card's in a card-against-CPU run: mask logits within
+#: the f32 noise of 0 flip single bits (3-24 of millions a run on an H100);
+#: a divergence that moves many logits across 0 flips far more
+MASK_FLIP_SHARE = 1e-5
 K2_TUBE = K2_TL_CALLS        # K2 calls a Tube-Link forward: 6 MSDA layers
 K3_TUBE = 4 * K3_TL_CALLS    # K3 calls a tube: 6 layers x 2 levels x 2 axes
 CC_VIS_YAML = "ytvis21/tube_link_maxtron_cc_r50.yaml"
@@ -3324,15 +3351,6 @@ def vipseg_like_video(n: int, hw, seed: int):
     return frames
 
 
-def rel_err(got, want) -> float:
-    """max |got - want| / max |want|, on the host in f32."""
-    got, want = (np.asarray(x.float().cpu() if hasattr(x, "float") else x,
-                            np.float32) for x in (got, want))
-    if got.shape != want.shape:
-        raise AssertionError(f"{got.shape} != {want.shape}")
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
-
-
 def check_vps_ids(maps, pipe, label: str):
     """The reference convention: void = num_classes, stuff and untracked
     things < num_classes, tracked things cls + (track + 1) * divisor with
@@ -3364,7 +3382,7 @@ def wake_tube_head(torch, head, scale: float = VPS_WAKE):
 
 
 @contextlib.contextmanager
-def shared_attention_masks(card_head, cpu_head, flips: list):
+def shared_attention_masks(card_head, cpu_head, flips: list, label: str):
     """While active, the CPU's tube head masks its cross-attention with the
     card head's masks, call by call in the order the card made them (run
     the card first). Each mask is ``sigmoid(mask logit) < 0.5``: where a
@@ -3372,9 +3390,9 @@ def shared_attention_masks(card_head, cpu_head, flips: list):
     keys, and the layers after differ by far more than their sums' noise
     (the CC VIS model at 15x96x160 on an H100: 27 bits of the last
     layer's masks, 1e-3-5e-3 of max |ref| from the third layer on).
-    ``flips`` gets, per call, the bits where the CPU's own mask
-    differed."""
-    masks = []
+    ``flips`` gets, per call, the bits where the CPU's own mask differed;
+    on exit, raises if they exceed ``MASK_FLIP_SHARE`` of the bits."""
+    masks, bits = [], [0]
     real_card, real_cpu = card_head._heads, cpu_head._heads
 
     def card(*args):
@@ -3386,6 +3404,7 @@ def shared_attention_masks(card_head, cpu_head, flips: list):
         cls_pred, mask_pred, own = real_cpu(*args)
         theirs = masks.pop(0)
         flips.append(int((own != theirs).sum()))
+        bits[0] += theirs.numel()
         return cls_pred, mask_pred, theirs
 
     card_head._heads, cpu_head._heads = card, cpu
@@ -3393,6 +3412,12 @@ def shared_attention_masks(card_head, cpu_head, flips: list):
         yield
     finally:
         del card_head._heads, cpu_head._heads
+    share = sum(flips) / max(bits[0], 1)
+    log(f"{label}: the CPU's own attention masks differ from the card's in "
+        f"{sum(flips)} of {bits[0]} bits ({share:.3g}, bound "
+        f"{MASK_FLIP_SHARE}) over {len(flips)} head calls: {flips}")
+    if not (share <= MASK_FLIP_SHARE and not masks):
+        raise AssertionError(f"{label}: attention masks diverge")
 
 
 def recorded_forwards(pipe, box: list):
@@ -3419,11 +3444,12 @@ def phase_vps(torch, card: str):
     Checks the id convention, the instances, that a thing track started in
     the first window carries into a later one (zero thresholds) and the
     launch counts; the first window on the card against the CPU on the
-    same weights: logits, masks, track embeddings within
-    ``CARD_CPU_BOUND`` and the id maps' agreement, the CPU's head masked
-    by the card's attention masks (``shared_attention_masks``). K2 on the
-    layers' own first call (f32). Returns the launch counts and K2's
-    entry."""
+    same weights with the pixel decoder's gammas opened
+    (``open_decoder_gammas``, so that K3 reaches the outputs): logits,
+    masks, track embeddings within ``CARD_CPU_BOUND`` and the id maps'
+    agreement, the CPU's head masked by the card's attention masks
+    (``shared_attention_masks``). K2 and K3 on the layers' own first call
+    (f32). Returns the launch counts and K2's and K3's entries."""
     import copy
 
     from axial_vs_tpu_torch.config import load_config
@@ -3453,7 +3479,8 @@ def phase_vps(torch, card: str):
          f"parameters), {VPS_FRAMES} frames preprocessed to "
          f"{tuple(images.shape)}")
     captured = {}
-    with first_msda_call(captured, "vps"):  # warm-up window
+    with first_msda_call(captured, "vps"), traj_calls(
+            captured, lambda a: "vps K3"):  # warm-up window
         TubeLinkVPSInference(model, **kw).window_forward(windows[0])
     torch.cuda.synchronize()
 
@@ -3461,23 +3488,27 @@ def phase_vps(torch, card: str):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    for label, extra in (("defaults", {}), ("zero thresholds", VPS_ZERO)):
-        pipe = TubeLinkVPSInference(model, **kw, **extra)
-        pipe.window_forward = cuda_spans(torch, spans, pipe.window_forward)
-        pipe.init_memory()
-        w0 = time.perf_counter()
-        maps, started = [], []
-        for i, window in enumerate(windows):
-            maps.append(pipe.process_window(window, i))
-            started.append(pipe.tracker.num_tracks)
-        pan_s = time.perf_counter() - w0
-        carried = sorted(tid for tid, tr in pipe.tracker.tracks.items()
-                         if tid < started[0] and tr["last_frame"] >= 1)
-        pipe.init_memory()
-        thr = None if label == "defaults" else 0.0
-        inst = [pipe.process_window_instance(w, i, score_thr=thr)
-                for i, w in enumerate(windows)]
-        runs[label] = (maps, started, carried, inst, pan_s)
+    # the model's forward alone, without the window's copy to the host
+    model.forward = cuda_spans(torch, spans, model.forward)
+    try:
+        for label, extra in (("defaults", {}), ("zero thresholds", VPS_ZERO)):
+            pipe = TubeLinkVPSInference(model, **kw, **extra)
+            pipe.init_memory()
+            w0 = time.perf_counter()
+            maps, started = [], []
+            for i, window in enumerate(windows):
+                maps.append(pipe.process_window(window, i))
+                started.append(pipe.tracker.num_tracks)
+            pan_s = time.perf_counter() - w0
+            carried = sorted(tid for tid, tr in pipe.tracker.tracks.items()
+                             if tid < started[0] and tr["last_frame"] >= 1)
+            pipe.init_memory()
+            thr = None if label == "defaults" else 0.0
+            inst = [pipe.process_window_instance(w, i, score_thr=thr)
+                    for i, w in enumerate(windows)]
+            runs[label] = (maps, started, carried, inst, pan_s)
+    finally:
+        del model.forward
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3519,17 +3550,21 @@ def phase_vps(torch, card: str):
                     f"vps at zero thresholds: segments {n_seg}, carried "
                     f"{carried}, instance track ids {inst_ids}")
     log(f"tube-link vps: launches {launches} (want {want}) over {n_fwd} "
-        f"window forwards; forward {statistics.median(fwd_ms):.2f} ms a "
-        f"window (median, CUDA events, {len(fwd_ms)} windows), the streams "
+        f"window forwards; model forward {statistics.median(fwd_ms):.2f} ms "
+        f"a window (median, CUDA events, {len(fwd_ms)} windows, without "
+        f"the copy to the host), the streams "
         f"{wall:.2f} s ({4 * VPS_FRAMES / wall:.3f} frames/s with the "
         f"host's fusion and tracker); peak memory {peak:.3f} GiB; {card}")
     if launches != want:
         raise AssertionError(f"vps launch counts {launches}")
     laps("stream")
 
-    # the first window on the card and on the CPU, zero thresholds
+    # the first window on the card and on the CPU, zero thresholds, K3's
+    # branch opened
+    open_decoder_gammas(torch, model)
     outs, flips, cpu_model = {}, [], copy.deepcopy(model).cpu()
-    with shared_attention_masks(model.head, cpu_model.head, flips):
+    with shared_attention_masks(model.head, cpu_model.head, flips,
+                                "tube-link vps card vs CPU"):
         for side, m, x in (("card", model, windows[0]),
                            ("cpu", cpu_model, windows[0].cpu())):
             box = []
@@ -3542,11 +3577,10 @@ def phase_vps(torch, card: str):
         ("logits", "masks", "track_embeds"), outs["card"][0], outs["cpu"][0])}
     agree = float((outs["card"][1] == outs["cpu"][1]).mean())
     log(f"tube-link vps card vs CPU (the first window, f32 both, zero "
-        f"thresholds): max |diff| / max |ref| "
+        f"thresholds, gamma {K3_GAMMA}): max |diff| / max |ref| "
         + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
         + f" (bound {CARD_CPU_BOUND}); id-map pixels equal {agree:.6f} "
-        f"(need {VPS_ID_AGREEMENT}); the CPU's own attention masks differ "
-        f"in {sum(flips)} bits ({flips}), the card's taken")
+        f"(need {VPS_ID_AGREEMENT}); the card's attention masks taken")
     if not (max(errs.values()) <= CARD_CPU_BOUND
             and agree >= VPS_ID_AGREEMENT):
         raise AssertionError("vps card vs CPU disagree")
@@ -3556,42 +3590,21 @@ def phase_vps(torch, card: str):
     _, k2 = _k2_case(torch, "vps window model inputs (f32)",
                      value.to(dev), shapes, loc.to(dev), weights.to(dev),
                      K2_TUBE)
-    return launches, k2
+    k3 = _k3_model_case(torch, "vps window", captured["vps K3"])
+    return launches, k2, k3
 
 
-@contextlib.contextmanager
-def cc_layer_traj_calls(box: dict, queries: int):
-    """While active, the arguments of the first K3 call at each clip count
-    f that a CC layer makes (one row of f x ``queries`` tokens) are kept in
-    ``box[f]``, cloned on the card; every call still runs the wrapper."""
-    import torch
-
-    from axial_vs_tpu_torch.layers import trajectory_attention as layer
-
-    real = layer.trajectory_attention_core
-
-    def capture(*args):
-        q, f = args[0], args[-2]
-        if q.shape[0] == 1 and q.shape[1] == f * queries and f not in box:
-            box[f] = tuple(a.detach().clone() if torch.is_tensor(a) else a
-                           for a in args)
-        return real(*args)
-
-    layer.trajectory_attention_core = capture
-    try:
-        yield
-    finally:
-        layer.trajectory_attention_core = real
-
-
-def _k3_cc_case(torch, f: int, args):
-    """K3 on a CC layer's own inputs (f32) against its plain version within
-    F32_REL_BOUND of max|out|, timed eager, in a CUDA graph and plain,
-    beside its bound. Returns its entry."""
+def _k3_model_case(torch, label: str, args):
+    """K3 on a layer's own inputs (f32; ``args`` as ``traj_calls`` keeps
+    them) against its plain version within F32_REL_BOUND of max|out|,
+    timed eager, in a CUDA graph and plain, beside its bound. Returns its
+    entry."""
     from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
                                              trajectory_attention_core_plain)
     from axial_vs_tpu_torch.tools.timing import graph_ms
 
+    args = [a[0] if isinstance(a, _Leaf) else a for a in args]
+    f, heads = int(args[7]), int(args[8])
     got = trajectory_attention_core(*args)
     want = trajectory_attention_core_plain(*args)
     torch.cuda.synchronize()
@@ -3608,15 +3621,15 @@ def _k3_cc_case(torch, f: int, args):
     b, nt, c = args[0].shape
     flops, nbytes = _traj_work(b, f, nt // f, c, size=4)
     bound_t, by = bound_ms(flops, nbytes, PEAK_F32)
-    log(f"K3 f32 CC layer, the layer's own inputs (B'={b}, f={f}, "
-        f"n={nt // f}, 8 heads of {c // 8}): max_abs_err {err:.6g} (bound "
-        f"F32_REL_BOUND of max|out| = {bound:.6g}); kernel {ms:.4f} ms "
-        f"({g_ms:.4f} in a CUDA graph), plain {plain_ms:.4f} ms, bound "
-        f"{bound_t:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB), {bound_t / g_ms:.3f} of the bound in a "
-        f"graph")
+    log(f"K3 f32 {label}, the layer's own inputs (B'={b}, f={f}, "
+        f"n={nt // f}, {heads} heads of {c // heads}): max_abs_err "
+        f"{err:.6g} (bound F32_REL_BOUND of max|out| = {bound:.6g}); "
+        f"kernel {ms:.4f} ms ({g_ms:.4f} in a CUDA graph), plain "
+        f"{plain_ms:.4f} ms, bound {bound_t:.4f} ms ({by}: "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+        f"{bound_t / g_ms:.3f} of the bound in a graph")
     if not (err <= bound and torch.isfinite(got).all()):
-        raise AssertionError(f"K3 disagrees on the CC layer's f={f} call")
+        raise AssertionError(f"K3 disagrees on the {label} call")
     return {"max_abs_err": err, "ms": ms, "graph_ms": g_ms,
             "plain_ms": plain_ms, "bound_ms": bound_t, "bound_by": by}
 
@@ -3627,11 +3640,13 @@ def phase_cc_vis(torch, card: str):
     from seed 0, built by the registry: synthetic 360x640 videos of 15 and
     60 frames (3 and 12 clips; K3 in the CC layers at n = 100, f = 3 and
     12). Checks every CC layer's outputs and the launch counts; K3's first
-    CC-layer call of each video against its plain version and beside its
-    bound; a 15-frame video at ``CC_VIS_REF_HW`` on the card against the
-    CPU on the same weights, the CPU's head masked by the card's
+    CC-layer call of each video, and the segmenter's first K2 and K3 call
+    of the 15-frame video, against their plain versions and beside their
+    bounds; a 15-frame video at ``CC_VIS_REF_HW`` on the card against the
+    CPU on the same weights with the pixel decoder's gammas opened
+    (``open_decoder_gammas``), the CPU's head masked by the card's
     attention masks (``shared_attention_masks``). Returns the launch counts
-    and K3's entries."""
+    and K2's and K3's entries."""
     import copy
 
     from axial_vs_tpu_torch.config import load_config
@@ -3648,12 +3663,20 @@ def phase_cc_vis(torch, card: str):
     videos = [torch.randn(n, TL_H, TL_W, 3, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(s))
               for s, n in enumerate(CC_VIS_FRAMES)]
-    with torch.inference_mode():
+
+    def which(args):  # a CC layer's call is one row of f x queries tokens
+        f = int(args[7])
+        cc = tuple(args[0].shape[:2]) == (1, f * CC_VIS_QUERIES)
+        return f"{'layer' if cc else 'segmenter'} f={f}"
+
+    captured = {}
+    with torch.inference_mode(), first_msda_call(captured, "K2"), traj_calls(
+            captured, which):
         model(videos[0])  # warm-up (kernel selection, allocator)
     torch.cuda.synchronize()
     laps("built and warmed up")
 
-    captured, launches, video_ms = {}, None, []
+    launches, video_ms = None, []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     for video in videos:
@@ -3661,8 +3684,7 @@ def phase_cc_vis(torch, card: str):
         before = read_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        with torch.inference_mode(), cc_layer_traj_calls(captured,
-                                                         CC_VIS_QUERIES):
+        with torch.inference_mode(), traj_calls(captured, which):
             start.record()
             out = model(video)
             end.record()
@@ -3691,33 +3713,39 @@ def phase_cc_vis(torch, card: str):
         + ", ".join(f"{n / (ms / 1e3):.3f} frames/s at {n}"
                     for n, ms in zip(CC_VIS_FRAMES, video_ms))
         + f"; peak memory {peak:.3f} GiB; {card}")
-    if sorted(captured) != [n // v for n in CC_VIS_FRAMES]:
-        raise AssertionError(f"cc vis: CC-layer K3 calls at f {sorted(captured)}")
-    k3 = {f"f={f}": _k3_cc_case(torch, f, captured[f])
-          for f in sorted(captured)}
+    keys = [f"layer f={n // v}" for n in CC_VIS_FRAMES] + [f"segmenter f={v}"]
+    if sorted(captured) != sorted(keys + ["K2", "calls"]):
+        raise AssertionError(f"cc vis: K3 calls kept {sorted(captured)}")
+    k3 = {key: _k3_model_case(torch, "cc vis " + key, captured[key])
+          for key in keys}
+    value, shapes, _, loc, weights = captured["K2"]
+    _, k2 = _k2_case(torch, f"cc vis segmenter {CC_VIS_FRAMES[0]}-frame "
+                     "video inputs (f32)", value.to(dev), shapes,
+                     loc.to(dev), weights.to(dev), K2_TUBE)
     del captured
     laps("videos")
 
     x = torch.randn(CC_VIS_FRAMES[0], *CC_VIS_REF_HW, 3,
                     generator=torch.Generator().manual_seed(9))
+    open_decoder_gammas(torch, model)
     flips, cpu_model = [], copy.deepcopy(model).cpu()
     with torch.inference_mode(), shared_attention_masks(
-            model.wc_head_wrapper, cpu_model.wc_head_wrapper, flips):
+            model.wc_head_wrapper, cpu_model.wc_head_wrapper, flips,
+            "cc vis card vs CPU"):
         card_out = model(x.to(dev))
         cpu_out = cpu_model(x)
     errs = {name: max(rel_err(g, w) for g, w in zip(card_out[name],
                                                     cpu_out[name]))
             for name in ("cls_preds", "mask_preds")}
     log(f"cc vis card vs CPU ({CC_VIS_FRAMES[0]}x{CC_VIS_REF_HW[0]}x"
-        f"{CC_VIS_REF_HW[1]}, f32 both, every CC layer): max |diff| / max "
-        f"|ref| " + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
-        + f" (bound {CARD_CPU_BOUND}); the CPU's own attention masks "
-        f"differ in {sum(flips)} bits over {len(flips)} head calls, the "
-        f"card's taken")
+        f"{CC_VIS_REF_HW[1]}, f32 both, gamma {K3_GAMMA}, every CC layer): "
+        f"max |diff| / max |ref| "
+        + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + f" (bound {CARD_CPU_BOUND}); the card's attention masks taken")
     if max(errs.values()) > CARD_CPU_BOUND:
         raise AssertionError("cc vis card vs CPU disagree")
     laps("card vs CPU")
-    return launches, k3
+    return launches, k2, k3
 
 
 def phase_image_m2f(torch, card: str):
@@ -3776,7 +3804,7 @@ def phase_image_m2f(torch, card: str):
 
     flips, cpu_model = [], copy.deepcopy(model).cpu()
     with torch.inference_mode(), shared_attention_masks(
-            model.head, cpu_model.head, flips):
+            model.head, cpu_model.head, flips, "image m2f card vs CPU"):
         card_out = model(x)
         cpu_out = cpu_model(x.cpu())
     errs = {name: max(rel_err(g, w) for g, w in zip(card_out[name],
@@ -3785,8 +3813,7 @@ def phase_image_m2f(torch, card: str):
     log(f"image m2f card vs CPU (the image, f32 both, every layer): max "
         f"|diff| / max |ref| "
         + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
-        + f" (bound {CARD_CPU_BOUND}); the CPU's own attention masks "
-        f"differ in {sum(flips)} bits ({flips}), the card's taken")
+        + f" (bound {CARD_CPU_BOUND}); the card's attention masks taken")
     if max(errs.values()) > CARD_CPU_BOUND:
         raise AssertionError("image m2f card vs CPU disagree")
     value, shapes, _, loc, weights = captured["image"]
@@ -4458,10 +4485,12 @@ def main() -> int:
     paths["overfit_vis_2_steps"], overfit_vis_checks = timed_phase(
         "overfit vis", in_temp_dir, "chip_smoke_overfit_vis_",
         lambda root: phase_overfit_vis(torch, root))
-    paths["tube_link_vps_12_windows"], results["K2"]["vps_window_f32"] = (
-        timed_phase("tube-link vps", phase_vps, torch, card))
-    paths["cc_vis_2_videos"], results["K3"]["cc_vis_layer_f32"] = (
-        timed_phase("cc vis", phase_cc_vis, torch, card))
+    (paths["tube_link_vps_12_windows"], results["K2"]["vps_window_f32"],
+     results["K3"]["vps_window_f32"]) = timed_phase(
+        "tube-link vps", phase_vps, torch, card)
+    (paths["cc_vis_2_videos"], results["K2"]["cc_vis_segmenter_f32"],
+     results["K3"]["cc_vis_f32"]) = timed_phase(
+        "cc vis", phase_cc_vis, torch, card)
     paths["image_m2f_1_image"], results["K2"]["image_m2f_f32"] = timed_phase(
         "image m2f", phase_image_m2f, torch, card)
     torch.cuda.empty_cache()
