@@ -15,6 +15,10 @@ has 124 and 58).
 frames under ``frames/v<i>/`` and a ``train.json`` with per-frame RLE tubes
 of two things, a moving box (category 1) and a static box (category 2), on
 4-aligned positions so that the OS4 mask grid holds them exactly.
+
+``write_coco_panoptic`` writes COCO-format panoptic images (png images,
+panoptic pngs and one JSON, in the layout ``data/coco.py`` reads) with
+COCO's 133 categories, 80 things then 53 stuff.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import os
 import numpy as np
 
 VIPSEG_CLASSES, VIPSEG_THINGS = 124, 58
+COCO_CLASSES, COCO_THINGS = 133, 80
 
 
 def write_vipseg_videos(root: str, lengths=(6, 18), hw=(720, 1280),
@@ -139,3 +144,52 @@ def write_ytvis_videos(root: str, n_videos: int = 2, n_frames=8,
                            categories=[dict(id=1, name="mover"),
                                        dict(id=2, name="sitter")]), fh)
     return img_root, json_path
+
+
+def write_coco_panoptic(root: str, n_images: int = 3, hw=(480, 640),
+                        seed: int = 0):
+    """Write ``n_images`` COCO-format panoptic images at ``hw`` under
+    ``root``: a stuff background of two classes (top and bottom halves) and
+    three thing boxes of drawn classes and places, each segment a flat
+    colour with noise; png images under ``images/``, panoptic pngs under
+    ``panoptic/`` and ``panoptic.json`` with ``COCO_CLASSES`` categories of
+    ids 1-133 (the first ``COCO_THINGS`` things). Returns (image root,
+    panoptic root, JSON path)."""
+    from PIL import Image
+
+    from .panoptic_utils import id2rgb
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    img_root, pan_root = (os.path.join(root, d) for d in ("images", "panoptic"))
+    os.makedirs(img_root)
+    os.makedirs(pan_root)
+    images, annotations = [], []
+    for i in range(n_images):
+        pan = np.full((h, w), 1, np.int32)
+        pan[h // 2:] = 2
+        segments = [dict(id=s, category_id=int(rng.randint(COCO_THINGS + 1,
+                                                           COCO_CLASSES + 1)),
+                         iscrowd=0) for s in (1, 2)]
+        for s in (3, 4, 5):
+            bh, bw = rng.randint(h // 8, h // 3), rng.randint(w // 8, w // 3)
+            y, x = rng.randint(0, h - bh), rng.randint(0, w - bw)
+            pan[y:y + bh, x:x + bw] = s
+            segments.append(dict(id=s, category_id=int(rng.randint(
+                1, COCO_THINGS + 1)), iscrowd=0))
+        colours = rng.randint(0, 256, (6, 3))
+        img = np.clip(colours[pan] + rng.randint(-20, 21, (h, w, 3)), 0, 255)
+        name = f"{i:012d}.png"
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(img_root, name), compress_level=1)
+        Image.fromarray(id2rgb(pan)).save(os.path.join(pan_root, name))
+        images.append(dict(id=i, file_name=name, height=h, width=w))
+        annotations.append(dict(image_id=i, file_name=name,
+                                segments_info=segments))
+    categories = [dict(id=c, name=f"class{c}", isthing=int(c <= COCO_THINGS))
+                  for c in range(1, COCO_CLASSES + 1)]
+    json_file = os.path.join(root, "panoptic.json")
+    with open(json_file, "w") as f:
+        json.dump(dict(images=images, annotations=annotations,
+                       categories=categories), f)
+    return img_root, pan_root, json_file

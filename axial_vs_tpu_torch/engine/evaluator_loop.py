@@ -1,8 +1,8 @@
 """Whole-dataset evaluation loops (counterpart of
 ``axial_vs_tpu/engine/evaluator_loop.py``): ``evaluate_vipseg`` (VPQ and
-STQ of a WC or a CC model) and ``evaluate_ytvis`` (YTVIS AP/AR of a
-Tube-Link VIS model, and its submission JSON). The COCO-panoptic loop is not
-ported yet."""
+STQ of a WC or a CC model), ``evaluate_ytvis`` (YTVIS AP/AR of a Tube-Link
+VIS model, and its submission JSON) and ``evaluate_coco_panoptic`` (PQ of
+the image kMaX-DeepLab on a COCO-format panoptic split)."""
 from __future__ import annotations
 
 import json
@@ -17,26 +17,37 @@ from ..data.catalog import DatasetCatalog, MetadataCatalog
 from ..data.panoptic_utils import rgb2id
 from ..evaluation.stq import STQuality
 from ..evaluation.vipseg_evaluator import VIPSegEvaluator
-from ..models.video_inference import WCInferencePipeline
+from ..models.video_inference import WCInferencePipeline, _to_host
+
+
+def _gt_image(record, ds_to_cont, thing_mask, divisor):
+    """GT ids of one image or frame from its panoptic PNG: cat * divisor +
+    segment id for things, cat for stuff, -1 elsewhere (contiguous cats);
+    and its segments {id: {"category_id", "iscrowd"}}."""
+    pan = rgb2id(np.asarray(Image.open(record["pan_seg_file_name"])
+                            .convert("RGB")))
+    out = np.full(pan.shape, -1, np.int64)
+    segments = {}
+    for seg in record["segments_info"]:
+        cat = ds_to_cont.get(seg["category_id"], None)
+        if cat is None:
+            continue
+        gid = (cat * divisor + seg["id"]
+               if seg.get("isthing", thing_mask[cat]) else cat)
+        out[pan == seg["id"]] = gid
+        segments[int(gid)] = {"category_id": int(cat),
+                              "iscrowd": int(seg.get("iscrowd", 0))}
+    return out, segments
 
 
 def _gt_video(video, ds_to_cont, thing_mask, divisor):
-    """GT id maps of one video from its panoptic PNGs: cat * divisor +
-    segment id for things, cat for stuff, -1 elsewhere (contiguous cats)."""
+    """``_gt_image`` of each frame: the (V, H, W) ids and the segments of
+    the whole video."""
     gt_frames, gt_segments = [], {}
     for f in video["frames"]:
-        pan = rgb2id(np.asarray(Image.open(f["pan_seg_file_name"]).convert("RGB")))
-        out = np.full(pan.shape, -1, np.int64)
-        for seg in f["segments_info"]:
-            cat = ds_to_cont.get(seg["category_id"], None)
-            if cat is None:
-                continue
-            gid = (cat * divisor + seg["id"]
-                   if seg.get("isthing", thing_mask[cat]) else cat)
-            out[pan == seg["id"]] = gid
-            gt_segments[int(gid)] = {"category_id": int(cat),
-                                     "iscrowd": int(seg.get("iscrowd", 0))}
-        gt_frames.append(out)
+        ids, segments = _gt_image(f, ds_to_cont, thing_mask, divisor)
+        gt_frames.append(ids)
+        gt_segments.update(segments)
     return np.stack(gt_frames), gt_segments
 
 
@@ -236,3 +247,80 @@ def evaluate_ytvis(cfg, model, max_videos: int | None = None,
     if gt_records:
         out.update(YTVISEvaluator().evaluate(gt_records, preds))
     return out
+
+
+def evaluate_coco_panoptic(cfg, model, max_images: int | None = None):
+    """Image panoptic PQ of the image kMaX-DeepLab ``model`` over the
+    COCO-format panoptic split ``cfg.datasets.test[0]`` of the port's
+    catalog (COCO, ADE20k and Cityscapes share the format;
+    ``data/coco.py::register_coco_panoptic``), on the model's device. Per
+    image, as the JAX loop: the forward at the padded ``input.image_size``;
+    the mask logits upsampled bilinearly to that size, cropped to the
+    scaled image, upsampled to the original size (``align_corners`` where
+    the padded width is odd); ``panoptic_inference`` with
+    ``model.kmax.test``'s thresholds; the segments encoded as cat *
+    label_divisor + segment id (things) or cat (stuff) and held against the
+    GT PNG by PQ (``evaluation/pq.py``). The upsampled masks (128 x H x W
+    f32: 0.84 GB at 1281x1281) stay on the device and are freed image by
+    image. Returns {"all", "things", "stuff", "per_class"}."""
+    from ..evaluation.pq import pq_compute
+    from ..models.postprocess import panoptic_inference
+    from ..models.video_inference import preprocess_frames
+    from ..ops.resize import resize_bilinear
+
+    name = cfg.datasets.test[0]
+    records = DatasetCatalog.get(name)[:max_images]
+    meta = MetadataCatalog.get(name)
+    thing_mask = _thing_mask(meta)
+    ds_to_cont = {ds: i for i, ds in enumerate(meta.contiguous_to_dataset_id)}
+    divisor = meta.label_divisor
+    test = cfg.model.kmax.test
+    size = tuple(cfg.input.image_size)
+    align_corners = size[1] % 2 == 1
+    device = next(model.parameters()).device
+    things = torch.from_numpy(thing_mask).to(device)
+
+    images = []
+    for rec in records:
+        if "pan_seg_file_name" not in rec:
+            raise ValueError(f"{name!r} has no panoptic PNGs: "
+                             "evaluate_coco_panoptic scores panoptic splits")
+        frame = np.asarray(Image.open(rec["file_name"]).convert("RGB"))
+        oh, ow = frame.shape[:2]
+        x, scaled_h, scaled_w = preprocess_frames(
+            frame[None], cfg.input.pixel_mean, cfg.input.pixel_std, size)
+        with torch.inference_mode():
+            out = model(torch.from_numpy(x).to(device))
+            logits, masks = out["pred_logits"][0], out["pred_masks"][0]
+            del out
+            masks = resize_bilinear(masks, size, align_corners=align_corners)
+            masks = resize_bilinear(masks[:scaled_h, :scaled_w], (oh, ow),
+                                    align_corners=align_corners)
+            result = panoptic_inference(
+                logits, masks, things,
+                pixel_confidence_threshold=test.pixel_confidence_threshold,
+                class_threshold_thing=test.class_threshold_thing,
+                class_threshold_stuff=test.class_threshold_stuff,
+                overlap_threshold=test.overlap_threshold,
+                reorder_class_weight=test.reorder_class_weight,
+                reorder_mask_weight=test.reorder_mask_weight)
+            del masks
+        result = _to_host(result)
+        pan = result.panoptic_seg
+        pred = np.full(pan.shape, -1, np.int64)
+        pred_segments = {}
+        for valid, sid, cat, isthing in zip(
+                result.segment_valid, result.segment_id,
+                result.segment_category, result.segment_isthing):
+            if not valid:
+                continue
+            gid = int(cat) * divisor + int(sid) if isthing else int(cat)
+            pred[pan == sid] = gid
+            pred_segments[gid] = {"category_id": int(cat)}
+        gt, gt_segments = _gt_image(rec, ds_to_cont, thing_mask, divisor)
+        # void = 0 for the PQ core: every id moves up by one
+        images.append((gt + 1, pred + 1,
+                       {g + 1: v for g, v in gt_segments.items()},
+                       {p + 1: v for p, v in pred_segments.items()}))
+    return pq_compute(images, {i: {"isthing": int(t)}
+                               for i, t in enumerate(thing_mask)})

@@ -12,8 +12,13 @@ Gumbel and point draws from one explicit generator on the device, seeded from
 every ``test.eval_period`` steps, switching to the intervals of
 ``test.dynamic_eval_intervals`` past their milestones, and at the end;
 ``Trainer.evaluate`` is the hook of the test set: ``evaluate_ytvis`` for a
-YouTube-VIS or OVIS set (a Tube-Link model), else ``evaluate_vipseg`` (with
-``CCInferencePipeline`` for a cross-clip model).
+YouTube-VIS or OVIS set (a Tube-Link model), ``evaluate_coco_panoptic`` for
+a COCO, ADE20k or Cityscapes-fine set (the image kMaX-DeepLab), else
+``evaluate_vipseg`` (with ``CCInferencePipeline`` for a cross-clip model).
+
+The image kMaX-DeepLab (``KMaXDeepLab``) is built with its COCO mapper, so
+that ``--eval-only`` runs, but does not train here yet: ``Trainer.train``
+refuses a COCO-format training set, naming the mapper.
 
 A Tube-Link VIS model (``TubeLinkVIS``) trains with the Tube-Link
 criterion (``models/tube_link/criterion.py``, the device auction) on
@@ -47,7 +52,7 @@ import zipfile
 
 import torch
 
-from ..data.build import build_mapper
+from ..data.build import build_mapper, resolve_mapper_name
 from ..data.catalog import DatasetCatalog
 from ..data.loader import ClipDataLoader, device_prefetch, to_device
 from ..models.build import build_model_and_criterion
@@ -63,6 +68,11 @@ from .train_step import train_step
 LOADER_TIMEOUT_S = 120.0
 #: test-set prefixes that ``evaluate`` sends to ``evaluate_ytvis``
 YTVIS_TEST_SETS = ("ytvis", "ovis")
+#: test-set prefixes that ``evaluate`` sends to ``evaluate_coco_panoptic``
+COCO_TEST_SETS = ("coco", "ade20k", "cityscapes_fine")
+#: training mappers of the image model, which ``train`` refuses for now
+IMAGE_MAPPERS = ("coco_panoptic", "coco_panoptic_kmaxdeeplab",
+                 "coco_instance", "coco_instance_kmaxdeeplab")
 #: meta-architectures that the port runs for inference only
 INFERENCE_ONLY = ("TubeLinkVPS", "TubeLinkVideoVIS", "ImageMask2Former")
 
@@ -181,15 +191,19 @@ class Trainer:
     def evaluate(self, **kwargs):
         """Evaluate on ``cfg.datasets.test[0]`` with the model in eval mode:
         ``evaluate_ytvis`` for a YouTube-VIS or OVIS set or where
-        ``format_only_path`` is given, else ``evaluate_vipseg`` (a
+        ``format_only_path`` is given, ``evaluate_coco_panoptic`` for a
+        COCO, ADE20k or Cityscapes-fine set, else ``evaluate_vipseg`` (a
         cross-clip model through ``CCInferencePipeline``); the model
         returns to train mode."""
         from ..models.video_inference import CCInferencePipeline
-        from .evaluator_loop import evaluate_vipseg, evaluate_ytvis
+        from .evaluator_loop import (evaluate_coco_panoptic, evaluate_vipseg,
+                                     evaluate_ytvis)
 
-        if (self.cfg.datasets.test[0].startswith(YTVIS_TEST_SETS)
-                or "format_only_path" in kwargs):
+        test = self.cfg.datasets.test[0]
+        if test.startswith(YTVIS_TEST_SETS) or "format_only_path" in kwargs:
             evaluate = evaluate_ytvis
+        elif test.startswith(COCO_TEST_SETS):
+            evaluate = evaluate_coco_panoptic
         else:
             evaluate = evaluate_vipseg
             if self.cross_clip:
@@ -218,6 +232,12 @@ class Trainer:
         hook's steps (module docstring); ``dynamic_eval_intervals``
         [(milestone, interval), ...] defaults to the config's. Returns the
         last step's losses."""
+        mapper = resolve_mapper_name(self.cfg)
+        if mapper in IMAGE_MAPPERS:
+            raise NotImplementedError(
+                f"training the image model on {self.cfg.datasets.train} "
+                f"with the {mapper!r} mapper is not ported: the port "
+                "evaluates it (--eval-only) and trains video models")
         self.resume_or_load(resume)
         cfg = self.cfg
         max_iter = max_iter or cfg.solver.max_iter

@@ -5,8 +5,14 @@ Parameter names follow timm's ConvNeXt (``stem.0``/``stem.1``,
 ``stages.{i}.downsample.{0,1}``, ``stages.{i}.blocks.{j}.{conv_dw, norm,
 mlp.fc1, mlp.fc2, gamma}``) plus the detectron2 per-stage output norms
 ``norm{i}``. The stem is a VALID 4x4/4 conv: trailing rows and columns that
-cannot fill a window are dropped (769x1345 -> 192x336). The ConvNeXtV2 GRN
-block is not ported yet.
+cannot fill a window are dropped (769x1345 -> 192x336).
+
+``use_grn`` builds ConvNeXtV2: its blocks put Global Response Normalization
+(``GRN``, upstream ``grn.gamma`` / ``grn.beta``) between the MLP's GELU and
+its second Linear, and have no layer scale. A GRN block runs the
+``"dwln"`` route only: GRN's sum over the whole image spans the row tiles
+of K5 and K4, as the JAX package gates its fused paths, so the ``"mlp"``
+and ``"block"`` routes raise ``NotImplementedError`` for it.
 
 ``block_kernel`` picks a block's route at inference, as the JAX package's env
 gates do (``AXIALVS_FUSED_MLP``, ``AXIALVS_FUSED_BLOCK``, the latter winning):
@@ -51,6 +57,26 @@ _TN02 = ("trunc_normal", 0.02)
 _ZERO = ("constant", 0.0)
 
 
+class GRN(nn.Module):
+    """Global Response Normalization (ConvNeXtV2) on (N, H, W, C): each
+    channel's L2 norm over the image, divided by its mean over channels,
+    scales x. The sum of squares runs in f32 and the ratio is cast to x's
+    dtype; gamma and beta are f32, zero at init (GRN is then the identity),
+    and the result is cast back to x's dtype, as in the JAX module."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(dim, device=device))
+        self.beta = nn.Parameter(torch.empty(dim, device=device))
+        self._inits = {"gamma": _ZERO, "beta": _ZERO}
+
+    def forward(self, x):
+        gx = x.float().square().sum((1, 2), keepdim=True).sqrt()
+        nx = gx / (gx.mean(-1, keepdim=True) + 1e-6)
+        y = self.gamma.float() * (x * nx.to(x.dtype))
+        return (y + self.beta.float() + x).to(x.dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, device=None):
         super().__init__()
@@ -59,30 +85,43 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim, weight_init=_TN02, bias_init=_ZERO,
                           device=device)
 
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x, grn=None):
+        """fc2(gelu(fc1(x))), with ``grn`` applied before fc2 if given."""
+        y = gelu(self.fc1(x))
+        return self.fc2(y if grn is None else grn(y))
 
 
 class ConvNeXtBlock(nn.Module):
-    """x + gamma * MLP(LN(dwconv7x7(x))), on (N, H, W, C)."""
+    """x + gamma * MLP(LN(dwconv7x7(x))), on (N, H, W, C); with ``use_grn``
+    (ConvNeXtV2) x + MLP(LN(dwconv7x7(x))), GRN inside the MLP and no
+    gamma."""
 
     def __init__(self, dim: int, layer_scale_init_value: float = 1e-6,
                  block_kernel: str = "dwln", drop_path_rate: float = 0.0,
-                 device=None):
+                 use_grn: bool = False, device=None):
         super().__init__()
         self.drop_path_rate = float(drop_path_rate)
-        if layer_scale_init_value <= 0:
+        if layer_scale_init_value <= 0 and not use_grn:
             raise NotImplementedError("blocks without layer scale")
         if block_kernel not in BLOCK_KERNELS:
             raise ValueError(f"block_kernel {block_kernel!r} not in "
                              f"{BLOCK_KERNELS}")
+        if use_grn and block_kernel != "dwln":
+            raise NotImplementedError(
+                f"the {block_kernel!r} route of a GRN (ConvNeXtV2) block: "
+                "GRN sums over the whole image, across the kernel's row "
+                "tiles; GRN blocks run the 'dwln' route")
         self.block_kernel = block_kernel
         self.conv_dw = Conv(dim, dim, 7, padding=3, groups=dim,
                             weight_init=_TN02, device=device)
         self.norm = LayerNorm(dim, eps=1e-6, device=device)
         self.mlp = Mlp(dim, 4 * dim, device=device)
-        self.gamma = nn.Parameter(torch.empty(dim, device=device))
-        self._inits = {"gamma": ("constant", layer_scale_init_value)}
+        self.grn = GRN(4 * dim, device=device) if use_grn else None
+        if use_grn:
+            self.gamma = None
+        else:
+            self.gamma = nn.Parameter(torch.empty(dim, device=device))
+            self._inits = {"gamma": ("constant", layer_scale_init_value)}
         # conv_dw's weight tap-major for the kernels: set in eval mode only
         self.register_buffer("dw_taps", None, persistent=False)
 
@@ -96,8 +135,9 @@ class ConvNeXtBlock(nn.Module):
         """``keep_mask`` (N, 1, 1, 1) bool, in ``train()`` at a positive
         drop-path rate: the samples whose residual branch is kept."""
         if self.training:
-            y = self.mlp(self.norm(self.conv_dw(x)))
-            y = y * self.gamma.to(y.dtype)
+            y = self.mlp(self.norm(self.conv_dw(x)), self.grn)
+            if self.gamma is not None:
+                y = y * self.gamma.to(y.dtype)
             if keep_mask is not None:
                 y = (y / (1.0 - self.drop_path_rate)) * keep_mask.to(y.dtype)
             return x + y
@@ -113,15 +153,15 @@ class ConvNeXtBlock(nn.Module):
         if route == "mlp":
             return convnext_mlp_residual(y, x, fc1.weight, fc1.bias,
                                          fc2.weight, fc2.bias, self.gamma)
-        y = self.mlp(y)
-        return x + y * self.gamma.to(y.dtype)
+        y = self.mlp(y, self.grn)
+        return x + (y if self.gamma is None else y * self.gamma.to(y.dtype))
 
 
 class ConvNeXtStage(nn.Module):
     def __init__(self, in_dim: int, dim: int, depth: int,
                  layer_scale_init_value: float, downsample: bool,
                  block_kernel: str = "dwln", drop_path_rates=None,
-                 remat: bool = False, device=None):
+                 remat: bool = False, use_grn: bool = False, device=None):
         super().__init__()
         if downsample:
             self.downsample = nn.Sequential(
@@ -133,7 +173,8 @@ class ConvNeXtStage(nn.Module):
         rates = drop_path_rates if drop_path_rates is not None else [0.0] * depth
         self.blocks = nn.Sequential(*[
             ConvNeXtBlock(dim, layer_scale_init_value, block_kernel,
-                          drop_path_rate=rates[j], device=device)
+                          drop_path_rate=rates[j], use_grn=use_grn,
+                          device=device)
             for j in range(depth)])
         self.remat = remat
 
@@ -157,7 +198,7 @@ class ConvNeXt(nn.Module):
                  layer_scale_init_value: float = 1e-6,
                  out_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
                  block_kernel: str = "dwln", drop_path_rate: float = 0.0,
-                 remat: bool = False, device=None):
+                 remat: bool = False, use_grn: bool = False, device=None):
         super().__init__()
         rates = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
         starts = np.cumsum((0,) + tuple(depths)).tolist()
@@ -171,7 +212,7 @@ class ConvNeXt(nn.Module):
                           layer_scale_init_value, downsample=i > 0,
                           block_kernel=block_kernel,
                           drop_path_rates=rates[starts[i]:starts[i + 1]],
-                          remat=remat, device=device)
+                          remat=remat, use_grn=use_grn, device=device)
             for i in range(4)])
         for i in range(4):
             if f"res{i + 2}" in self.out_features:

@@ -1,8 +1,9 @@
 """Meta-architecture dispatch: config -> (model, criterion) (counterpart of
 ``axial_vs_tpu/models/build.py``).
 
-The port builds ``MaXTronWCDeepLab`` and ``KMaXDeepLab`` with a within-clip
-(WC) model; ``MaXTronCCDeepLab``: the cross-clip (CC) model, a frozen WC
+The port builds ``MaXTronWCDeepLab`` (the within-clip (WC) model) and
+``KMaXDeepLab`` (the image model, T = 1, with the spatial-only WC module or
+without one); ``MaXTronCCDeepLab``: the cross-clip (CC) model, a frozen WC
 segmenter of ``input.num_clip_frames`` frames under the CC module of
 ``model.maxtron.cc``, its clips aligned by the device auction, with the
 criterion of the class and mask losses; and the Tube-Link models, each with
@@ -91,9 +92,6 @@ def build_model_and_criterion(cfg, train: bool = True,
     if tube_link is not None:
         model = tube_link(cfg, device, generator)
         return model.train(train), _tube_criterion(cfg)
-    if not cfg.model.maxtron.wc.enable:
-        raise NotImplementedError(f"{arch} without the within-clip module is "
-                                  "not ported")
     if arch == "MaXTronCCDeepLab":
         return _build_maxtron_cc(cfg, train, device, generator)
     num_frames = (cfg.input.num_video_frames

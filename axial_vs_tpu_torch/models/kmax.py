@@ -1,12 +1,14 @@
 """kMaX-DeepLab / MaXTron within-clip segmenter and its builder (counterpart
 of ``axial_vs_tpu/models/kmax.py``).
 
-backbone -> within-clip module -> pixel decoder -> video transformer
+backbone -> within-clip module (optional) -> pixel decoder -> transformer
 decoder, on channels-last frames (B*T, H, W, 3) that are already normalized
 and padded. Submodule names follow the upstream detectron2 checkpoint:
 ``backbone``, ``sem_seg_head.wc_module``, ``sem_seg_head.pixel_decoder``,
-``sem_seg_head.predictor``. So far only the within-clip video model with a
-ConvNeXt or ResNet backbone is ported (no image kMaX, no other backbones).
+``sem_seg_head.predictor``. The within-clip (WC) video model and the image
+kMaX-DeepLab (T = 1, with the spatial-only WC module of the ``kmax_wc_*``
+yamls or without any) are ported, with a ResNet, ConvNeXt or ConvNeXtV2
+backbone (no Swin or other backbones).
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ class _Head(nn.Module):
 
 
 class KMaXSegmenter(nn.Module):
+    """backbone -> (optional) WC module -> pixel decoder -> transformer
+    decoder; ``wc_module`` None for the image model without it."""
+
     def __init__(self, backbone, wc_module, pixel_decoder, transformer_decoder,
                  dtype=None):
         super().__init__()
@@ -43,11 +48,15 @@ class KMaXSegmenter(nn.Module):
         (B, T, H/4, W/4, N), "pred_mask_embeddings" (B, N, 128),
         "pixel_feature", "aux_outputs", "cluster_centers"}, and in
         ``train()`` with the semantic head "aux_semantic_pred" (B, T, H/4,
-        W/4, K+1). ``generator`` draws the dropout and drop-path masks in
-        ``train()``."""
+        W/4, K+1). At T = 1 (the image model) the masks, pixel features
+        and semantic logits have no T axis and the outputs have no
+        embeddings or centers, as in the JAX decoder. ``generator`` draws
+        the dropout and drop-path masks in ``train()``."""
         head = self.sem_seg_head
         x = images if self.dtype is None else images.to(self.dtype)
-        features = head.wc_module(self.backbone(x, generator), generator)
+        features = self.backbone(x, generator)
+        if head.wc_module is not None:
+            features = head.wc_module(features, generator)
         pano, semantic, multi_scale = head.pixel_decoder(features, generator)
         return head.predictor(multi_scale, pano, semantic, dtype=self.dtype,
                               generator=generator)
@@ -55,11 +64,12 @@ class KMaXSegmenter(nn.Module):
 
 def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
     """(backbone, {res*: channels}) for a ``resnet*`` or ``convnext*``
-    backbone config. ``block_kernel`` is the ConvNeXt blocks' route at
-    inference (``"dwln"``, ``"mlp"`` or ``"block"``, see
-    ``backbones/convnext.py``); a ResNet has no such blocks. A ConvNeXt
-    takes the config's ``drop_path_rate`` and ``backbone.remat`` (both act
-    in ``train()`` only)."""
+    backbone config (``convnext.use_grn``: ConvNeXtV2). ``block_kernel`` is
+    the ConvNeXt blocks' route at inference (``"dwln"``, ``"mlp"`` or
+    ``"block"``, see ``backbones/convnext.py``; GRN blocks take ``"dwln"``
+    only); a ResNet has no such blocks. A ConvNeXt takes the config's
+    ``drop_path_rate`` and ``backbone.remat`` (both act in ``train()``
+    only)."""
     name = cfg.model.backbone.name
     out_features = tuple(cfg.model.backbone.out_features)
     if name.startswith("resnet"):
@@ -69,14 +79,12 @@ def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
     if not name.startswith("convnext"):
         raise NotImplementedError(f"backbone {name!r} is not ported yet")
     c = cfg.model.backbone.convnext
-    if c.use_grn:
-        raise NotImplementedError("ConvNeXtV2 (GRN) is not ported yet")
     backbone = ConvNeXt(depths=tuple(c.depths), dims=tuple(c.dims),
                         layer_scale_init_value=c.layer_scale_init_value,
                         out_features=out_features, block_kernel=block_kernel,
                         drop_path_rate=c.drop_path_rate,
                         remat=bool(cfg.model.backbone.get("remat", False)),
-                        device=device)
+                        use_grn=bool(c.use_grn), device=device)
     channels = {f"res{i + 2}": d for i, d in enumerate(c.dims)}
     return backbone, channels
 
@@ -120,10 +128,12 @@ def build_segmenter(cfg, device=torch.device("cuda"),
     forward computes in bf16 from those f32 master weights (each layer
     casts its weights at use) with the JAX package's f32 islands
     (softmaxes, norms' statistics, the criterion); a ConvNeXt backbone
-    takes its drop path and ``remat`` from the config."""
+    takes its drop path and ``remat`` from the config.
+
+    Without ``model.maxtron.wc.enable`` the segmenter has no WC module (the
+    image kMaX-DeepLab of ``configs/coco/kmax_r50.yaml``): the backbone's
+    features go to the pixel decoder."""
     w = cfg.model.maxtron.wc
-    if not w.enable:
-        raise NotImplementedError("only the within-clip model is ported")
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
     kmax = cfg.model.kmax
     aux_semantic = train and kmax.aux_semantic_weight > 0
@@ -142,7 +152,7 @@ def build_segmenter(cfg, device=torch.device("cuda"),
         spatial_in_features=tuple(w.spatial_in_features),
         temporal_in_features=tuple(w.temporal_in_features),
         enc_n_points=w.enc_n_points, num_frames=t, dropout=w.dropout,
-        device=meta)
+        device=meta) if w.enable else None
     in_features = tuple(sorted(kmax.pixel_dec.in_features, reverse=True))
     pixel_decoder = KMaXPixelDecoder(
         channels, in_features=in_features,

@@ -1,7 +1,5 @@
-"""Panoptic inference on device tensors (counterpart of
-``axial_vs_tpu/models/postprocess.py``'s ``panoptic_inference`` and
-``remap_panoptic_to_dataset_ids``; the semantic and instance variants wait
-for the image kMaX path).
+"""Panoptic, semantic and instance inference on device tensors (counterpart
+of ``axial_vs_tpu/models/postprocess.py``).
 
 Slots are visited in reorder-score order; the claimed-pixel map, the running
 segment counter and the per-class stuff-segment table stay on the device, and
@@ -122,3 +120,38 @@ def remap_panoptic_to_dataset_ids(result: PanopticOutput,
         valid, new_ids, -1)
     table[0] = -1
     return table[result.panoptic_seg.long()], new_ids
+
+
+def semantic_inference(mask_cls, mask_pred):
+    """Per-pixel class probabilities: the softmax over slots of mask_pred
+    (..., H, W, N) weighting the class softmax of mask_cls (N, C+1) without
+    void. Returns (..., H, W, C) f32."""
+    cls_prob = F.softmax(mask_cls.float(), -1)[..., :-1]
+    mask_prob = F.softmax(mask_pred.float(), -1)
+    return torch.einsum("...n,nc->...c", mask_prob, cls_prob)
+
+
+def instance_inference(mask_cls, mask_pred, thing_class_mask, topk: int,
+                       pixel_confidence_threshold: float = 0.4) -> dict:
+    """Top-k (slot, class) pairs of the class softmax (without void) of
+    mask_cls (N, C+1), their masks from the softmax over slots of mask_pred
+    (..., H, W, N). Equal scores are taken in the order of their flat index
+    slot * C + class (a stable descending sort), as ``jax.lax.top_k``
+    takes them. Returns {"pred_masks" (k, ..., H, W) bool (probability >
+    the threshold), "scores" (k,) class score times the mean probability
+    inside the mask, "pred_classes" (k,) int32, "is_thing" (k,) bool};
+    non-thing classes are kept, flagged, as in the JAX function."""
+    num_classes = mask_cls.shape[-1] - 1
+    mask_prob = F.softmax(mask_pred.float(), -1)
+    scores = F.softmax(mask_cls.float(), -1)[:, :-1]
+    ranked = torch.sort(scores.reshape(-1), descending=True, stable=True)
+    top_scores, top_index = ranked.values[:topk], ranked.indices[:topk]
+    labels = top_index % num_classes
+    masks = mask_prob.movedim(-1, 0)[top_index // num_classes]
+    binary = masks > pixel_confidence_threshold
+    axes = tuple(range(1, masks.ndim))
+    mask_score = ((masks * binary).sum(axes)
+                  / (binary.sum(axes, dtype=torch.float32) + 1e-6))
+    return {"pred_masks": binary, "scores": top_scores * mask_score,
+            "pred_classes": labels.int(),
+            "is_thing": thing_class_mask[labels]}

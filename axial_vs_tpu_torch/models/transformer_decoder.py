@@ -1,5 +1,5 @@
-"""MaXTron video transformer decoder (counterpart of
-``axial_vs_tpu/models/transformer_decoder.py`` with ``num_frames > 1``).
+"""kMaX / MaXTron transformer decoder (counterpart of
+``axial_vs_tpu/models/transformer_decoder.py``).
 
 The per-frame pixel features (B*T, H, W, C) are folded into the height
 axis, (B, T*H, W, C), so the k-means clustering spans the whole clip, and
@@ -10,6 +10,10 @@ upstream decoder (``_cluster_centers``, ``_kmax_transformer_layers``,
 ``_predictor``, ``_auxiliary_semantic_predictor``). With ``aux_semantic``
 the decoder owns the auxiliary semantic head, which runs in ``train()``
 only and adds ``aux_semantic_pred`` (B, T, H4, W4, K+1) to the outputs.
+
+At ``num_frames`` 1 (the image kMaX-DeepLab) nothing is folded and, as in
+the JAX decoder, the outputs keep the image layout (B, H, W, ...) with no
+T axis and carry no ``pred_mask_embeddings`` or ``cluster_centers``.
 """
 from __future__ import annotations
 
@@ -81,8 +85,9 @@ class KMaXTransformerDecoder(nn.Module):
                                 self._class_embedding_projection(query),
                                 _fold_time(panoptic_features, t))
 
-        def unfold(x):  # (B, T*H, W, K) -> (B, T, H, W, K)
-            return x.reshape(b, t, x.shape[1] // t, *x.shape[2:])
+        def unfold(x):  # (B, T*H, W, K) -> (B, T, H, W, K); none at T = 1
+            return x if t == 1 else x.reshape(b, t, x.shape[1] // t,
+                                              *x.shape[2:])
 
         th, w = final["mask_logits"].shape[1:3]
         align_corners = w % 2 == 1
@@ -100,11 +105,13 @@ class KMaXTransformerDecoder(nn.Module):
             "pred_masks": unfold(final["mask_logits"]),
             "pixel_feature": unfold(final["pixel_feature"]),
             "aux_outputs": aux_outputs,
-            "pred_mask_embeddings": final["mask_embeddings"],  # (B, N, 128)
-            "cluster_centers": query,  # (B, N, 256)
         }
+        if t > 1:  # per-clip outputs for the cross-clip matching
+            out["pred_mask_embeddings"] = final["mask_embeddings"]  # (B, N, 128)
+            out["cluster_centers"] = query  # (B, N, 256)
         if self._auxiliary_semantic_predictor is not None and self.training:
             sem = self._auxiliary_semantic_predictor(*semantic_features,
                                                      generator=generator)
-            out["aux_semantic_pred"] = sem.reshape(b, t, *sem.shape[1:])
+            out["aux_semantic_pred"] = (sem if t == 1 else
+                                        sem.reshape(b, t, *sem.shape[1:]))
         return out

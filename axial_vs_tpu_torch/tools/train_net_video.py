@@ -16,9 +16,12 @@ under ``$AXIALVS_DATASETS``, default ``./datasets``). Training runs
 ``<output_dir>/checkpoints``. ``--eval-only`` evaluates after restoring the
 checkpoint with ``--resume`` or ``model.weights``: a ``ytvis*`` or
 ``ovis*`` test set (or ``--format-only``) through ``evaluate_ytvis``, which
-writes the YTVIS submission JSON to the ``--format-only`` path; any other
-through ``evaluate_vipseg``; the COCO-panoptic evaluator is not ported and
-raises. A Tube-Link VIS config trains and evaluates (YTVIS sets).
+writes the YTVIS submission JSON to the ``--format-only`` path; a
+``coco*``, ``ade20k*`` or ``cityscapes_fine*`` test set through
+``evaluate_coco_panoptic`` (the image kMaX-DeepLab's PQ; it does not train
+here yet: ``Trainer.train`` refuses its COCO mappers); any other through
+``evaluate_vipseg``. A Tube-Link VIS config trains and evaluates (YTVIS
+sets).
 ``--distributed`` raises: the port trains on one card.
 """
 from __future__ import annotations
@@ -27,9 +30,6 @@ import argparse
 import os
 
 import torch
-
-#: test-dataset prefixes of evaluators the port does not have
-_NOT_PORTED_EVAL = ("coco", "ade20k", "cityscapes_fine")
 
 
 def parse_args(argv=None):
@@ -74,9 +74,6 @@ def main(argv=None, eval_kwargs=None):
     if wants_eval and test_name is None:
         raise ValueError("evaluation needs datasets.test (or set "
                          "test.eval_period 0)")
-    if wants_eval and test_name.startswith(_NOT_PORTED_EVAL):
-        raise NotImplementedError(f"the evaluator of {test_name!r} is not "
-                                  "ported (VIPSeg and YTVIS only)")
     trainer = Trainer(cfg, device=torch.device(args.device))
     kwargs = dict(eval_kwargs or {})
     if args.format_only:

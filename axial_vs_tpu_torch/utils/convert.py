@@ -91,11 +91,18 @@ def _depth(tree) -> int:
 
 
 def convnext_block(p) -> dict:
-    return {**_prefix("conv_dw", _conv(p["dwconv"])),
-            **_prefix("norm", _norm(p["norm"])),
-            **_prefix("mlp.fc1", _linear(p["pwconv1"])),
-            **_prefix("mlp.fc2", _linear(p["pwconv2"])),
-            "gamma": np.asarray(p["gamma"])}
+    """A ConvNeXt block; a ConvNeXtV2 block (``grn`` in the tree) has the
+    upstream ``grn.gamma`` / ``grn.beta`` and no layer scale ``gamma``."""
+    sd = {**_prefix("conv_dw", _conv(p["dwconv"])),
+          **_prefix("norm", _norm(p["norm"])),
+          **_prefix("mlp.fc1", _linear(p["pwconv1"])),
+          **_prefix("mlp.fc2", _linear(p["pwconv2"]))}
+    if "grn" in p:
+        sd.update({f"grn.{k}": np.asarray(p["grn"][k]).reshape(-1)
+                   for k in ("gamma", "beta")})
+    else:
+        sd["gamma"] = np.asarray(p["gamma"])
+    return sd
 
 
 def convnext(params) -> dict:

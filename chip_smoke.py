@@ -159,6 +159,23 @@ Phases, in order; any failure exits non-zero before the last line:
                only), every layer's outputs, the launch counts; the image
                on the card against the CPU (1e-3, the card's attention
                masks); K2 on the layer's own first call
+ 13j. coco eval - the image kMaX-DeepLab of configs/coco/
+               kmax_convnext_large.yaml at full width (ConvNeXt-L, the
+               spatial-only WC module, bf16, 1281x1281, 133 classes, 128
+               queries), built by the registry: one image's forward timed
+               (median and spread); ``evaluate_coco_panoptic`` on three
+               synthetic COCO-format 480x640 images, its PQ dict, images/s,
+               the forward's and the panoptic loop's shares, the launch
+               counts (K1 36, K2 2 an image); the first K1 call at each
+               stage's shape and the first K2 call, on their own inputs,
+               against their plain versions
+ 13k. convnextv2 - configs/coco/kmax_convnextv2_large.yaml (GRN blocks on
+               the "dwln" route), its GRN gamma and beta drawn: one image,
+               the launch counts, the forward's time and its GRNs' alone; a
+               GRN block's first K1 call against its plain version
+ 13l. kmax r50 reference - configs/coco/kmax_r50.yaml (the image model
+               without the WC module, f32): one 641x641 image on the card
+               against the CPU (1e-3 of max |ref|); no kernel launches
  14. MSDA bench - ``axial_vs_tpu_torch.tools.bench_msda`` at the WC shape:
                one checking pass over its six formulations (each against
                ``prod``, K2), their launch counts and ms per layer; K6, K7
@@ -407,16 +424,11 @@ def _dwln_chain(F, x, wt, b, lw, lb):
 
 
 def phase_k1(torch, gen):
-    import torch.nn.functional as F
-
-    from axial_vs_tpu_torch.ops.convnext_cuda import (
-        dwconv7x7_layernorm, dwconv7x7_layernorm_plain, dwconv_taps)
-    from axial_vs_tpu_torch.tools.timing import graph_ms
+    from axial_vs_tpu_torch.ops.convnext_cuda import dwconv_taps
 
     dev = torch.device("cuda")
     full_f32(torch)
-    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    times = {torch.bfloat16: [], torch.float32: []}
+    cases = {torch.bfloat16: [], torch.float32: []}
     for dtype in (torch.bfloat16, torch.float32):
         # f32 at the four stage shapes only (the f32 ConvNeXt's), bf16 at all
         shapes = KERNEL_SHAPES_K1 if dtype == torch.bfloat16 else KERNEL_SHAPES_K1[:4]
@@ -428,71 +440,95 @@ def phase_k1(torch, gen):
             x = r(n, h, w, c, dtype=dtype)
             wt = r(c, 1, 7, 7, scale=0.1, dtype=dtype)
             b, lw, lb = r(c, scale=0.1), 1.0 + r(c, scale=0.1), r(c, scale=0.1)
-            taps = dwconv_taps(wt)  # the copy a ConvNeXt block keeps
-            got = dwconv7x7_layernorm(x, wt, b, lw, lb, taps=taps)
-            want = dwconv7x7_layernorm_plain(x, wt, b, lw, lb)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            if dtype == torch.bfloat16:
-                # f32 sums reassociated, both rounded once
-                bound, stated = 2 * bf16_ulp(scale), "2 bf16 ulp"
-            else:
-                bound, stated = f32_bound(want), "F32_REL_BOUND"
-            def kernel():
-                return dwconv7x7_layernorm(x, wt, b, lw, lb, taps=taps)
+            # the tap-major copy a ConvNeXt block keeps
+            cases[dtype].append(_k1_case(
+                torch, "drawn", (x, wt, b, lw, lb),
+                {"eps": 1e-6, "taps": dwconv_taps(wt)}))
+    # per clip: each stage's case times its number of blocks
+    bf16 = _k1_per("bf16 WC clip", cases[torch.bfloat16][:4],
+                   CONVNEXT_L_DEPTHS)
+    bf16["max_abs_err"] = max(c["max_abs_err"]
+                              for c in cases[torch.bfloat16])
+    return {**bf16, "library_ms": None,
+            "f32": _k1_per("f32 WC clip", cases[torch.float32],
+                           CONVNEXT_L_DEPTHS)}
 
-            ms = cuda_ms(torch, kernel)
-            g_ms = graph_ms(kernel, "cuda", 10)
-            plain_ms = cuda_ms(torch, lambda: dwconv7x7_layernorm_plain(
-                x, wt, b, lw, lb))
-            vecs = [t.to(dtype) for t in (b, lw, lb)]
-            chain_ms = cuda_ms(torch, lambda: _dwln_chain(F, x, wt, *vecs))
-            log(f"K1 {str(dtype)[6:]} {(n, h, w, c)}: max_abs_err {err:.6g} "
-                f"(bound {stated} of max|out| {scale:.4g} = {bound:.6g}); "
-                f"kernel {ms:.4f} ms ({g_ms:.4f} in a CUDA graph), plain "
-                f"{plain_ms:.4f} ms, conv2d + layer_norm chain {chain_ms:.4f} ms")
-            if not (err <= bound and got.dtype == dtype):
-                raise AssertionError(f"K1 {dtype} disagrees at {(n, h, w, c)}")
-            worst[dtype] = max(worst[dtype], err)
-            times[dtype].append((ms, plain_ms, chain_ms, g_ms))
-    # per clip: each stage's time times its number of blocks
-    per_clip = {dt: [sum(d * t[i] for d, t in zip(CONVNEXT_L_DEPTHS, ts))
-                     for i in (0, 1, 2, 3)] for dt, ts in times.items()}
-    per_stage = {dt: {f"stage{i}": {"calls": d, "ms": t[0], "graph_ms": t[3],
-                                    "chain_ms": t[2]}
-                      for i, (d, t) in enumerate(zip(CONVNEXT_L_DEPTHS, ts))}
-                 for dt, ts in times.items()}
-    # work per clip: 49 f32 multiply-adds and ~10 LayerNorm operations per
-    # output element on the CUDA cores; x read once, out written once
-    elems = sum(d * math.prod(shape)
-                for d, shape in zip(CONVNEXT_L_DEPTHS, KERNEL_SHAPES_K1))
-    bounds = {}
-    for dt, size in ((torch.bfloat16, 2), (torch.float32, 4)):
-        weights = sum(d * shape[-1] * (49 * size + 3 * 4)
-                      for d, shape in zip(CONVNEXT_L_DEPTHS, KERNEL_SHAPES_K1))
-        bounds[dt] = bound_ms((2 * 49 + 10) * elems, 2 * size * elems + weights,
-                              PEAK_F32)
-        log(f"K1 {str(dt)[6:]} per clip (3/3/27/3 calls at the stage shapes): "
-            f"kernel {per_clip[dt][0]:.4f} ms ({per_clip[dt][3]:.4f} in CUDA "
-            f"graphs), plain {per_clip[dt][1]:.4f} ms, "
-            f"conv2d + layer_norm chain {per_clip[dt][2]:.4f} ms, "
-            f"bound {bounds[dt][0]:.4f} ms ({bounds[dt][1]})")
-    f32 = torch.float32
-    return {"max_abs_err": worst[torch.bfloat16],
-            "ms": per_clip[torch.bfloat16][0],
-            "plain_ms": per_clip[torch.bfloat16][1],
-            "bound_ms": bounds[torch.bfloat16][0],
-            "bound_by": bounds[torch.bfloat16][1], "library_ms": None,
-            "chain_ms": per_clip[torch.bfloat16][2],
-            "graph_ms": per_clip[torch.bfloat16][3],
-            "per": "WC clip (36 calls)",
-            "per_stage": per_stage[torch.bfloat16],
-            "f32": {"max_abs_err": worst[f32], "ms": per_clip[f32][0],
-                    "plain_ms": per_clip[f32][1], "bound_ms": bounds[f32][0],
-                    "bound_by": bounds[f32][1], "chain_ms": per_clip[f32][2],
-                    "graph_ms": per_clip[f32][3],
-                    "per_stage": per_stage[f32]}}
+
+def _k1_per(label: str, cases, depths):
+    """K1's entry per ``label`` (a clip or an image) from one case at each
+    stage's shape (``_k1_case``): each stage's times and work times its
+    number of blocks, the bound from the summed work."""
+    total = {k: sum(d * c[k] for d, c in zip(depths, cases))
+             for k in ("ms", "graph_ms", "plain_ms", "chain_ms", "flops",
+                       "bytes")}
+    bound_t, by = bound_ms(total["flops"], total["bytes"], PEAK_F32)
+    log(f"K1 {label} ({'/'.join(map(str, depths))} calls at the stage "
+        f"shapes): kernel {total['ms']:.4f} ms ({total['graph_ms']:.4f} in "
+        f"CUDA graphs), plain {total['plain_ms']:.4f} ms, conv2d + "
+        f"layer_norm chain {total['chain_ms']:.4f} ms, bound {bound_t:.4f} "
+        f"ms ({by})")
+    return {"per": f"{label} ({sum(depths)} calls)",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": total["ms"], "graph_ms": total["graph_ms"],
+            "plain_ms": total["plain_ms"], "chain_ms": total["chain_ms"],
+            "bound_ms": bound_t, "bound_by": by,
+            "per_stage": {f"stage{i}": {"calls": d, **c}
+                          for i, (d, c) in enumerate(zip(depths, cases))}}
+
+
+def _k1_case(torch, label: str, args, kwargs):
+    """K1 on these arguments (moved to the card; ``kwargs`` holds ``eps``
+    and ``taps``) against its plain version (2 bf16 ulp or F32_REL_BOUND
+    of max|out|), timed eager, in a CUDA graph and plain, beside the
+    conv2d + layer_norm chain and the bound. Returns its entry, with the
+    flops and bytes the bound counts."""
+    import torch.nn.functional as F
+
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        dwconv7x7_layernorm, dwconv7x7_layernorm_plain)
+    from axial_vs_tpu_torch.tools.timing import graph_ms
+
+    dev = torch.device("cuda")
+    args = [a.to(dev) for a in args]
+    kwargs = {k: v.to(dev) if torch.is_tensor(v) else v
+              for k, v in kwargs.items()}
+    x = args[0]
+
+    def kernel():
+        return dwconv7x7_layernorm(*args, **kwargs)
+
+    got = kernel()
+    want = dwconv7x7_layernorm_plain(*args, eps=kwargs["eps"])
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if x.dtype == torch.bfloat16:
+        bound, stated = 2 * bf16_ulp(scale), "2 bf16 ulp"
+    else:
+        bound, stated = f32_bound(want), "F32_REL_BOUND"
+    ms = cuda_ms(torch, kernel)
+    g_ms = graph_ms(kernel, "cuda", 10)
+    plain_ms = cuda_ms(torch, lambda: dwconv7x7_layernorm_plain(
+        *args, eps=kwargs["eps"]))
+    vecs = [v.to(x.dtype) for v in args[2:5]]
+    chain_ms = cuda_ms(torch, lambda: _dwln_chain(F, x, args[1], *vecs))
+    elems, size, c = x.numel(), x.element_size(), x.shape[-1]
+    flops = (2 * 49 + 10) * elems
+    nbytes = 2 * size * elems + c * (49 * args[1].element_size() + 3 * 4)
+    bound_t, by = bound_ms(flops, nbytes, PEAK_F32)
+    log(f"K1 {str(x.dtype)[6:]} {label} {tuple(x.shape)}: max_abs_err "
+        f"{err:.6g} (bound {stated} of max|out| "
+        f"{scale:.4g} = {bound:.6g}); kernel {ms:.4f} ms ({g_ms:.4f} in a "
+        f"CUDA graph), plain {plain_ms:.4f} ms, conv2d + layer_norm chain "
+        f"{chain_ms:.4f} ms, bound {bound_t:.4f} ms ({by})")
+    if not (err <= bound and got.dtype == x.dtype
+            and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"K1 {x.dtype} disagrees on the {label} call "
+                             f"at {tuple(x.shape)}")
+    return {"shape": list(x.shape), "max_abs_err": err, "ms": ms,
+            "graph_ms": g_ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+            "bound_ms": bound_t, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
 
 
 def _msda_inputs(torch, gen, b, shapes, lq, m, d, p, lo, hi,
@@ -3822,6 +3858,296 @@ def phase_image_m2f(torch, card: str):
                      K2_TUBE)
     return launches, k2
 
+
+# ---- image kMaX-DeepLab: COCO eval, ConvNeXtV2, card against CPU ---------
+
+COCO_YAML = "coco/kmax_convnext_large.yaml"      # ConvNeXt-L + spatial WC
+COCO_V2_YAML = "coco/kmax_convnextv2_large.yaml"  # ConvNeXtV2-L (GRN) + WC
+COCO_R50_YAML = "coco/kmax_r50.yaml"              # R50, no WC module
+COCO_IMAGES, COCO_HW = 3, (480, 640)  # the synthetic COCO-format split
+IMAGE_FORWARDS = 5  # timed forwards of one image
+#: the R50 card-against-CPU input, padded as the eval pads: the CPU's f32
+#: R50 at 1281x1281 would take most of the phase
+COCO_REF_SIZE = (641, 641)
+#: the std of the drawn GRN gamma and beta of the ConvNeXtV2 phase (zero at
+#: init, which makes GRN the identity)
+GRN_STD = 0.1
+
+
+@contextlib.contextmanager
+def dwln_calls(box: dict):
+    """While active, the arguments of the first K1 call at each input shape
+    that a ConvNeXt block makes (``models/backbones/convnext.py``) are kept
+    in ``box[shape]`` as (args, kwargs), tensors copied to the host; every
+    call still runs the wrapper, and its launch count."""
+    import torch
+
+    from axial_vs_tpu_torch.models.backbones import convnext
+
+    real = convnext.dwconv7x7_layernorm
+
+    def capture(*args, **kwargs):
+        key = tuple(args[0].shape)
+        if key not in box:
+            box[key] = (tuple(a.detach().cpu() for a in args),
+                        {k: v.detach().cpu() if torch.is_tensor(v) else v
+                         for k, v in kwargs.items()})
+        return real(*args, **kwargs)
+
+    convnext.dwconv7x7_layernorm = capture
+    try:
+        yield
+    finally:
+        convnext.dwconv7x7_layernorm = real
+
+
+def _image_forward_ms(torch, model, x, n: int = IMAGE_FORWARDS):
+    """Device ms of each of ``n`` forwards of one image (CUDA events)."""
+    times = []
+    with torch.inference_mode():
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    return times
+
+
+def phase_coco_eval(torch, root: str, card: str):
+    """The image kMaX-DeepLab of ``COCO_YAML`` at full width (ConvNeXt-L,
+    the spatial-only WC module, bf16, 1281x1281, 133 classes, 128 queries),
+    random weights from seed 0, built by the registry: the forward of one
+    image timed (CUDA events, ``IMAGE_FORWARDS`` runs: median and spread);
+    ``evaluate_coco_panoptic`` on ``COCO_IMAGES`` synthetic COCO-format
+    images of 480x640 (``data/synthetic.py::write_coco_panoptic``), its PQ
+    dict finite and in [0, 1], images/s, the forward's share (CUDA events
+    around each forward) and the panoptic loop's (host clock), peak memory
+    and the launch counts (K1 36 and K2 2 an image); the first K1 call at each stage's shape and the first K2
+    call of the model, on their own inputs, against their plain versions.
+    Returns the launch counts and K1's and K2's entries."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.data.coco import register_coco_panoptic
+    from axial_vs_tpu_torch.data.synthetic import write_coco_panoptic
+    from axial_vs_tpu_torch.engine.evaluator_loop import evaluate_coco_panoptic
+    from axial_vs_tpu_torch.models import postprocess
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    laps = Laps("coco eval")
+    dev = torch.device("cuda")
+    name = "coco_chip_smoke_val"
+    register_coco_panoptic(name, *write_coco_panoptic(
+        os.path.join(root, "coco"), COCO_IMAGES, COCO_HW))
+    cfg = load_config(COCO_YAML, ["datasets.test", [name]])
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    size = tuple(cfg.input.image_size)
+    depths = tuple(cfg.model.backbone.convnext.depths)
+    x = torch.randn(1, *size, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    k1_calls, captured = {}, {}
+    with torch.inference_mode(), dwln_calls(k1_calls), first_msda_call(
+            captured, "K2"):
+        out = model(x)  # warm-up, not counted
+    torch.cuda.synchronize()
+    k, q = cfg.model.num_classes, cfg.model.kmax.trans_dec.num_object_queries
+    # the image layout: (1, H/4, W/4, queries) masks (320x320 at 1281 from
+    # the VALID stem), no T axis
+    logits, masks = out["pred_logits"], out["pred_masks"]
+    if not (tuple(logits.shape) == (1, q, k + 1) and masks.ndim == 4
+            and masks.shape[0] == 1 and masks.shape[-1] == q
+            and torch.isfinite(logits.float()).all()
+            and torch.isfinite(masks.float()).all()):
+        raise AssertionError(f"coco eval outputs {tuple(logits.shape)} "
+                             f"{tuple(masks.shape)}")
+    log(f"coco eval: outputs (1, {q}, {k + 1}) logits and "
+        f"{tuple(masks.shape)} masks, finite")
+    del out, logits, masks
+    laps("built and warmed up")
+    times = _image_forward_ms(torch, model, x)
+    log(f"coco eval: forward of one {size[0]}x{size[1]} image (bf16, "
+        f"ConvNeXt-L + spatial WC): median {statistics.median(times):.3f} ms, "
+        f"min {min(times):.3f}, max {max(times):.3f} over {len(times)} runs "
+        f"(CUDA events); {card}")
+
+    spans, loop_s = [], []
+    model.forward = cuda_spans(torch, spans, model.forward)
+    real_loop = postprocess.panoptic_inference
+
+    def timed_loop(*args, **kwargs):  # host clock, synchronized
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_loop(*args, **kwargs)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t)
+        return out
+
+    postprocess.panoptic_inference = timed_loop
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        pq = evaluate_coco_panoptic(cfg, model)
+        torch.cuda.synchronize()
+    finally:
+        postprocess.panoptic_inference = real_loop
+        del model.forward
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    forward_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expect(K1=CONVNEXT_L_BLOCKS * COCO_IMAGES,
+                  K2=K2_WC_CALLS * COCO_IMAGES)
+    log(f"coco eval: evaluate_coco_panoptic on {COCO_IMAGES} {COCO_HW[0]}x"
+        f"{COCO_HW[1]} images in {wall:.3f} s ({COCO_IMAGES / wall:.3f} "
+        f"images/s), the forwards {forward_s:.3f} s of it ({forward_s / wall:.3f};"
+        f" CUDA events), the panoptic loops {sum(loop_s):.3f} s "
+        f"({sum(loop_s) / wall:.3f}; host clock, synchronized), peak memory "
+        f"{peak:.3f} GiB; PQ "
+        + json.dumps({p: pq[p] for p in ("all", "things", "stuff")})
+        + f"; launches {launches} (want {want}); {card}")
+    if launches != want or len(spans) != COCO_IMAGES:
+        raise AssertionError(f"coco eval launch counts {launches}")
+    for part in ("all", "things", "stuff"):
+        for key in ("pq", "sq", "rq"):
+            v = pq[part][key]
+            if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+                raise AssertionError(f"coco eval {part} {key} = {v}")
+    laps("evaluate_coco_panoptic")
+    if len(k1_calls) != len(depths):
+        raise AssertionError(f"coco eval: K1 at {len(k1_calls)} shapes")
+    k1 = _k1_per(f"bf16 {size[0]}x{size[1]} image", [
+        _k1_case(torch, f"coco stage{i}, the block's own inputs", *call)
+        for i, call in enumerate(k1_calls.values())], depths)
+    value, shapes, _, loc, weights = captured["K2"]
+    _, k2 = _k2_case(torch, f"coco {size[0]}x{size[1]} image model inputs",
+                     value.to(dev), shapes, loc.to(dev), weights.to(dev),
+                     K2_WC_CALLS)
+    laps("K1 and K2 on the model's inputs")
+    return launches, k1, k2
+
+
+def phase_convnextv2(torch, card: str):
+    """The image kMaX-DeepLab of ``COCO_V2_YAML`` at full width
+    (ConvNeXtV2-L: every block's GRN after its GELU, no layer scale; the
+    spatial-only WC module, bf16, 1281x1281), random weights from seed 0,
+    its GRN gamma and beta drawn N(0, ``GRN_STD``^2) so that GRN is not the
+    identity: one image, finite outputs, the launch counts (K1 36, K2 2),
+    the forward's time (``IMAGE_FORWARDS`` runs) and the 36 GRNs' alone;
+    the first K1 call of a GRN block on its own inputs against its plain
+    version. Returns the launch counts and K1's entry."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.backbones.convnext import GRN
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    dev = torch.device("cuda")
+    cfg = load_config(COCO_V2_YAML)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    grns = [m for m in model.modules() if isinstance(m, GRN)]
+    draw = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for m in grns:
+            m.gamma.normal_(0.0, GRN_STD, generator=draw)
+            m.beta.normal_(0.0, GRN_STD, generator=draw)
+    if len(grns) != CONVNEXT_L_BLOCKS or any(
+            b.block_kernel != "dwln" for s in model.backbone.stages
+            for b in s.blocks):
+        raise AssertionError(f"convnextv2: {len(grns)} GRN blocks")
+    size = tuple(cfg.input.image_size)
+    x = torch.randn(1, *size, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.inference_mode():
+        model(x)  # warm-up
+    torch.cuda.synchronize()
+    k1_calls = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode(), dwln_calls(k1_calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model(x)
+        end.record()
+    end.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expect(K1=CONVNEXT_L_BLOCKS, K2=K2_WC_CALLS)
+    finite = all(torch.isfinite(out[k].float()).all()
+                 for k in ("pred_logits", "pred_masks"))
+    log(f"convnextv2: one {size[0]}x{size[1]} image through ConvNeXtV2-L "
+        f"({len(grns)} GRN blocks, gamma and beta N(0, {GRN_STD}^2)) + "
+        f"spatial WC, bf16: {start.elapsed_time(end):.3f} ms (CUDA events), "
+        f"outputs finite {finite}, peak memory {peak:.3f} GiB, launches "
+        f"{launches} (want {want}); {card}")
+    if launches != want or not finite:
+        raise AssertionError(f"convnextv2 launch counts {launches}")
+    del out
+    times = _image_forward_ms(torch, model, x)
+    # GRN alone (plain ops) at each stage's 4C hidden shape, times its blocks
+    depths = cfg.model.backbone.convnext.depths
+    grn_ms = 0.0
+    for stage, (n, h, w, c), d in zip(model.backbone.stages, k1_calls,
+                                      depths):
+        grn = stage.blocks[0].grn
+        y = torch.randn(n, h, w, 4 * c, device=dev, generator=draw).bfloat16()
+        with torch.inference_mode():
+            grn_ms += d * cuda_ms(torch, lambda: grn(y), launches=5,
+                                  repeats=3)
+        del y
+    log(f"convnextv2: forward median {statistics.median(times):.3f} ms, min "
+        f"{min(times):.3f}, max {max(times):.3f} over {len(times)} runs (CUDA "
+        f"events); its {len(grns)} GRNs alone (plain ops, at each stage's 4C hidden "
+        f"shape times its blocks) {grn_ms:.3f} ms; {card}")
+    first = next(iter(k1_calls.values()))
+    k1 = _k1_case(torch, "convnextv2 GRN block, its own inputs", *first)
+    return launches, k1
+
+
+def phase_kmax_r50_reference(torch, card: str):
+    """The image kMaX-DeepLab of ``COCO_R50_YAML`` (R50 without the WC
+    module, f32, 133 classes, 128 queries) at full width, random weights
+    from seed 0: one ``COCO_REF_SIZE`` image on the card (no kernel of the
+    port runs on this path: every launch count 0) and on the CPU from the
+    same weights, logits and masks within ``CARD_CPU_BOUND`` of max |ref|.
+    Returns the launch counts."""
+    import copy
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    dev = torch.device("cuda")
+    full_f32(torch)
+    cfg = load_config(COCO_R50_YAML)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    if model.sem_seg_head.wc_module is not None or model.dtype is not None:
+        raise AssertionError("kmax r50: expected the f32 model without WC")
+    x = torch.randn(1, *COCO_REF_SIZE, 3,
+                    generator=torch.Generator().manual_seed(4))
+    reset_counts()
+    with torch.inference_mode():
+        card_out = model(x.to(dev))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        cpu_out = cpu_model(x)
+    errs = {k: rel_err(card_out[k], cpu_out[k])
+            for k in ("pred_logits", "pred_masks")}
+    log(f"kmax r50 card vs CPU ({COCO_REF_SIZE[0]}x{COCO_REF_SIZE[1]}, f32 "
+        f"both, no WC module): max |diff| / max |ref| "
+        + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + f" (bound {CARD_CPU_BOUND}); launches {launches}; {card}")
+    if max(errs.values()) > CARD_CPU_BOUND or launches != expect():
+        raise AssertionError("kmax r50 card vs CPU disagree")
+    return launches
+
 #: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
 #: of max|prod|. K2 rounds nothing before its f32 sum; the table variants
 #: round each slot weight (bilinear times attention weight) to bf16, and
@@ -4493,6 +4819,18 @@ def main() -> int:
         "cc vis", phase_cc_vis, torch, card)
     paths["image_m2f_1_image"], results["K2"]["image_m2f_f32"] = timed_phase(
         "image m2f", phase_image_m2f, torch, card)
+    torch.cuda.empty_cache()
+    (paths["coco_eval_3_images"], results["K1"]["coco_image"],
+     results["K2"]["coco_image"]) = timed_phase(
+        "coco eval", in_temp_dir, "chip_smoke_coco_",
+        lambda root: phase_coco_eval(torch, root, card))
+    torch.cuda.empty_cache()
+    (paths["convnextv2_1_image"],
+     results["K1"]["convnextv2_grn_block"]) = timed_phase(
+        "convnextv2", phase_convnextv2, torch, card)
+    torch.cuda.empty_cache()
+    paths["kmax_r50_reference"] = timed_phase(
+        "kmax r50 reference", phase_kmax_r50_reference, torch, card)
     torch.cuda.empty_cache()
     paths["msda_bench"], reduces, variant_ms = timed_phase(
         "msda bench", phase_msda_bench, torch, gen)

@@ -326,6 +326,49 @@ def test_convnext_block_fused_kernel(gen, shape):
     assert convnext_block_fused.launches == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 320, 320, 192), (1, 80, 80, 768),  # ConvNeXtV2-L stages 0, 2 at 1281
+    (2, 9, 13, 48)])
+def test_grn_block_dwln_route(gen, full_f32, monkeypatch, shape, dtype):
+    """A ConvNeXtV2 (GRN) block in eval on the ``"dwln"`` route, its GRN
+    gamma and beta drawn (zero at init: the identity): K1 launched once a
+    call, the output against the same block with K1's plain version in its
+    place (2 bf16 ulp or F32_REL_BOUND of max|out|: the rest of the block
+    is the same ops on both sides); the ``"mlp"`` (K5) and ``"block"``
+    (K4) routes refuse a GRN block."""
+    from axial_vs_tpu_torch.models.backbones import convnext
+    from axial_vs_tpu_torch.models.kmax import materialize
+    from axial_vs_tpu_torch.ops.convnext_cuda import (
+        dwconv7x7_layernorm, dwconv7x7_layernorm_plain)
+
+    c = shape[-1]
+    block = materialize(
+        convnext.ConvNeXtBlock(c, use_grn=True, device=torch.device("meta")),
+        torch.device("cuda"), gen,
+        torch.bfloat16 if dtype == torch.bfloat16 else None)
+    with torch.no_grad():
+        block.grn.gamma.normal_(0.0, 0.5, generator=gen)
+        block.grn.beta.normal_(0.0, 0.5, generator=gen)
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    before = dwconv7x7_layernorm.launches
+    with torch.inference_mode():
+        got = block(x)
+    assert dwconv7x7_layernorm.launches == before + 1
+    monkeypatch.setattr(
+        convnext, "dwconv7x7_layernorm",
+        lambda *args, eps, taps: dwconv7x7_layernorm_plain(*args, eps=eps))
+    with torch.inference_mode():
+        want = block(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= _bound(want)
+    for route in ("mlp", "block"):
+        with pytest.raises(NotImplementedError, match="GRN"):
+            convnext.ConvNeXtBlock(c, use_grn=True, block_kernel=route,
+                                   device=torch.device("meta"))
+
+
 def traj_inputs(gen, b, f, n, c=256, dtype=torch.bfloat16):
     """q, k, v (b, f*n, c) ~ N(0, 1) and the stage-2 Linear parameters at
     their xavier-uniform / U(+-1/sqrt(c)) scales, matrices in ``dtype``."""

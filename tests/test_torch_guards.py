@@ -39,6 +39,7 @@ from axial_vs_tpu_torch.tools import bench_pallas_bw as probe_bw
 from axial_vs_tpu_torch.tools import exp_dwconv_variants as probe_dw
 from axial_vs_tpu_torch.tools import exp_vmem_gather as probe_gather
 from axial_vs_tpu_torch.utils.convert import convert_variables
+from fixtures_coco import write_tiny_coco
 from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -736,13 +737,38 @@ def test_tube_link_trainer_refuses_to_train(tmp_path):
     assert trainer.step == 0
 
 
-def test_cli_refuses_coco_evaluation():
-    """``train_net_video --eval-only`` evaluates VIPSeg and YTVIS/OVIS test
-    sets; the COCO-panoptic evaluator is not ported and raises before any
-    model is built."""
+def test_cli_refuses_coco_evaluation(tmp_path, monkeypatch):
+    """``train_net_video --eval-only`` on a COCO-format panoptic test set
+    (``configs/coco/kmax_r50.yaml`` cut to an R18 at small widths) builds
+    the image model with its COCO mapper and sends the set through
+    ``Trainer.evaluate`` to ``evaluate_coco_panoptic``: its PQ dict. The
+    same config without ``--eval-only`` refuses to train, naming the
+    mapper: image training is not ported."""
+    from axial_vs_tpu_torch.engine import evaluator_loop
     from axial_vs_tpu_torch.tools import train_net_video
 
-    with pytest.raises(NotImplementedError, match="coco"):
-        train_net_video.main([
-            "--config-file", "coco/kmax_r50.yaml", "--eval-only",
-            "--device", "cpu"])
+    name = write_tiny_coco(tmp_path, "coco_guards_tiny")
+    calls = []
+    real = evaluator_loop.evaluate_coco_panoptic
+
+    def counted(cfg, model, **kwargs):
+        calls.append(type(model).__name__)
+        return real(cfg, model, **kwargs)
+
+    monkeypatch.setattr(evaluator_loop, "evaluate_coco_panoptic", counted)
+    argv = ["--config-file", "coco/kmax_r50.yaml", "--device", "cpu",
+            "--opts", "model.backbone.name", "resnet18",
+            "model.backbone.resnet.depth", "18", "model.num_classes", "2",
+            "model.kmax.pixel_dec.dec_layers", "[1,1,1,1]",
+            "model.kmax.pixel_dec.dec_channels", "[32,16,16,16]",
+            "model.kmax.trans_dec.dec_layers", "[1,1,1]",
+            "model.kmax.trans_dec.num_object_queries", "8",
+            "input.image_size", "[33,33]", "datasets.train", f"[{name}]",
+            "datasets.test", f"[{name}]", "output_dir", str(tmp_path / "out")]
+    res = train_net_video.main(["--eval-only"] + argv)
+    assert calls == ["KMaXSegmenter"]
+    assert set(res) == {"all", "things", "stuff", "per_class"}
+    assert res["all"]["n"] == 2 and 0.0 <= res["all"]["pq"] <= 1.0
+    with pytest.raises(NotImplementedError, match="coco_panoptic"):
+        train_net_video.main(argv)
+    assert calls == ["KMaXSegmenter"]

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from fixtures_coco import write_tiny_coco
 from fixtures_vipseg import synthesize_vipseg_videos
 from test_torch_parity import torch_threads  # noqa: F401 (autouse)
 
@@ -123,7 +124,7 @@ def test_eval_hook_follows_the_dynamic_intervals(registered, tmp_path):
 def test_cli_trains_evaluates_and_resumes(registered, tmp_path):
     """``train_net_video.main``: 2 steps with the VIPSeg eval hook at step
     2 (one video), then ``--resume`` to step 3; ``--eval-only`` returns
-    VPQ; unsupported flags and evaluators raise."""
+    VPQ; ``--distributed`` and a COCO-format training set raise."""
     from axial_vs_tpu_torch.engine import evaluator_loop
     from axial_vs_tpu_torch.tools import train_net_video
 
@@ -152,9 +153,12 @@ def test_cli_trains_evaluates_and_resumes(registered, tmp_path):
         evaluator_loop.evaluate_vipseg = real
     with pytest.raises(NotImplementedError):
         train_net_video.main(["--distributed"] + base + _flat(_opts(tmp_path)))
-    with pytest.raises(NotImplementedError, match="coco"):
+    # a COCO-format training set: the trainer builds its COCO mapper and
+    # refuses to train, naming it (image training is not ported)
+    coco = write_tiny_coco(tmp_path / "coco", "coco_trainer_tiny")
+    with pytest.raises(NotImplementedError, match="coco_panoptic"):
         train_net_video.main(base + _flat(_opts(
-            tmp_path, datasets__test=["coco_2017_val_panoptic"],
+            tmp_path, datasets__train=[coco], datasets__test=[coco],
             test__eval_period=5)))
 
 
