@@ -23,20 +23,26 @@ from ..ops.norm import BatchNorm, LayerNorm
 
 class Linear(nn.Module):
     """Dense layer on the last axis. Default inits are the JAX package's
-    ``_dense``: xavier-uniform weight, torch's U(+-1/sqrt(fan_in)) bias."""
+    ``_dense``: xavier-uniform weight, torch's U(+-1/sqrt(fan_in)) bias;
+    ``bias=False`` drops the bias."""
 
     def __init__(self, in_features: int, out_features: int,
-                 weight_init=("xavier_uniform",), bias_init=None, device=None):
+                 weight_init=("xavier_uniform",), bias_init=None,
+                 bias: bool = True, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device))
-        self._inits = {"weight": weight_init,
-                       "bias": bias_init or ("uniform",
-                                             1.0 / math.sqrt(in_features))}
+        self._inits = {"weight": weight_init}
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_features, device=device))
+            self._inits["bias"] = bias_init or ("uniform",
+                                                1.0 / math.sqrt(in_features))
+        else:
+            self.bias = None
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class Conv(nn.Module):

@@ -15,8 +15,10 @@ MaXTron's temporal attention (``model.tube_link.use_temporal_attn``);
 (``cc_detector.py::build_tube_link_video_vis``) and ``ImageMask2Former``
 (``image_mask2former.py::build_image_mask2former``), the panoptic ones
 splitting ``model.num_classes`` by ``model.num_things`` (all things where it
-is unset). Any other architecture raises ``NotImplementedError`` naming
-itself.
+is unset). A Tube-Link model built for training is f32 throughout (its
+weights and its compute), as JAX's registry builds it; for inference it
+keeps the yaml's ``model.dtype``. Any other architecture raises
+``NotImplementedError`` naming itself.
 """
 from __future__ import annotations
 
@@ -90,6 +92,11 @@ def build_model_and_criterion(cfg, train: bool = True,
         raise NotImplementedError(f"meta-architecture {arch!r} is not ported")
     tube_link = _tube_link_builders().get(arch)
     if tube_link is not None:
+        if train:
+            # JAX's registry builds the Tube-Link models without a dtype:
+            # they train with f32 weights and f32 compute, whatever the yaml
+            cfg = cfg.clone()
+            cfg.model.dtype = "float32"
         model = tube_link(cfg, device, generator)
         return model.train(train), _tube_criterion(cfg)
     if arch == "MaXTronCCDeepLab":

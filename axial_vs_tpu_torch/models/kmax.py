@@ -7,8 +7,8 @@ and padded. Submodule names follow the upstream detectron2 checkpoint:
 ``backbone``, ``sem_seg_head.wc_module``, ``sem_seg_head.pixel_decoder``,
 ``sem_seg_head.predictor``. The within-clip (WC) video model and the image
 kMaX-DeepLab (T = 1, with the spatial-only WC module of the ``kmax_wc_*``
-yamls or without any) are ported, with a ResNet, ConvNeXt or ConvNeXtV2
-backbone (no Swin or other backbones).
+yamls or without any) are ported, with a ResNet, ConvNeXt, ConvNeXtV2,
+Swin or STDC backbone.
 """
 from __future__ import annotations
 
@@ -19,6 +19,10 @@ from ..ops.init import cast_for_inference, init_parameters
 from .backbones.convnext import ConvNeXt
 from .backbones.resnet import ResNet
 from .backbones.resnet import out_channels as resnet_channels
+from .backbones.stdc import STDC_LAYERS, STDCNet
+from .backbones.stdc import out_channels as stdc_channels
+from .backbones.swin import SwinTransformer
+from .backbones.swin import out_channels as swin_channels
 from .pixel_decoder import KMaXPixelDecoder
 from .transformer_decoder import KMaXTransformerDecoder
 from .wc_module import WithinClipTrackingModule
@@ -63,19 +67,32 @@ class KMaXSegmenter(nn.Module):
 
 
 def build_backbone(cfg, device=None, *, block_kernel: str = "dwln"):
-    """(backbone, {res*: channels}) for a ``resnet*`` or ``convnext*``
-    backbone config (``convnext.use_grn``: ConvNeXtV2). ``block_kernel`` is
-    the ConvNeXt blocks' route at inference (``"dwln"``, ``"mlp"`` or
-    ``"block"``, see ``backbones/convnext.py``; GRN blocks take ``"dwln"``
-    only); a ResNet has no such blocks. A ConvNeXt takes the config's
-    ``drop_path_rate`` and ``backbone.remat`` (both act in ``train()``
-    only)."""
+    """(backbone, {res*: channels}) for a ``resnet*``, ``convnext*``,
+    ``swin*`` or ``stdc1``/``stdc2`` backbone config (``convnext.use_grn``:
+    ConvNeXtV2). ``block_kernel`` is the ConvNeXt blocks' route at
+    inference (``"dwln"``, ``"mlp"`` or ``"block"``, see
+    ``backbones/convnext.py``; GRN blocks take ``"dwln"`` only); the other
+    backbones have no such blocks. A ConvNeXt takes the config's
+    ``drop_path_rate`` and ``backbone.remat``, a Swin its
+    ``drop_path_rate`` (both act in ``train()`` only)."""
     name = cfg.model.backbone.name
     out_features = tuple(cfg.model.backbone.out_features)
     if name.startswith("resnet"):
         depth = cfg.model.backbone.resnet.depth
         return (ResNet(depth, out_features, device=device),
                 resnet_channels(depth))
+    if name.startswith("swin"):
+        s = cfg.model.backbone.swin
+        return (SwinTransformer(
+            embed_dim=s.embed_dim, depths=tuple(s.depths),
+            num_heads=tuple(s.num_heads), window_size=s.window_size,
+            mlp_ratio=s.mlp_ratio, qkv_bias=s.qkv_bias,
+            drop_path_rate=s.drop_path_rate, patch_norm=s.patch_norm,
+            out_features=out_features, device=device),
+            swin_channels(s.embed_dim))
+    if name.startswith("stdc"):
+        return (STDCNet(STDC_LAYERS[name], out_features=out_features,
+                        device=device), stdc_channels())
     if not name.startswith("convnext"):
         raise NotImplementedError(f"backbone {name!r} is not ported yet")
     c = cfg.model.backbone.convnext

@@ -76,10 +76,10 @@ class TubeLinkVIS(nn.Module):
         Q, K+1)] per layer, "mask_preds": [(B, T, Q, H/4, W/4)], and with
         ``return_query`` "query" (B, Q, C) and "mask_features"}. In
         ``train()`` the backbone's BatchNorm uses the batch's statistics and
-        updates its running ones. ``generator``, the training step's, goes
-        unused: the model has no stochastic layer."""
+        updates its running ones. ``generator``, the training step's, draws
+        the backbone's drop-path masks (Swin) in ``train()``."""
         x = images if self.dtype is None else images.to(self.dtype)
-        return self.head(self.backbone(x), return_query=return_query)
+        return self.head(self.backbone(x, generator), return_query=return_query)
 
 
 class TubeLinkVISInference:

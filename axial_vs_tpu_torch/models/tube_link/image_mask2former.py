@@ -32,9 +32,9 @@ class ImageMask2Former(nn.Module):
         """images (B, H, W, 3) -> {"cls_preds": [(B, Q, K+1)],
         "mask_preds": [(B, Q, H/4, W/4)]} per decoder layer (and the final
         "query" and "mask_features" with ``return_query``). ``generator``
-        goes unused: no stochastic layer."""
+        draws the backbone's drop-path masks (Swin) in ``train()``."""
         x = images if self.dtype is None else images.to(self.dtype)
-        out = self.head(self.backbone(x), return_query=return_query)
+        out = self.head(self.backbone(x, generator), return_query=return_query)
         out["mask_preds"] = [m[:, 0] for m in out["mask_preds"]]
         return out
 

@@ -108,9 +108,10 @@ class TubeLinkVPS(nn.Module):
         the linked thing queries that the next window takes as
         ``pre_thing_query``; "thing_query_raw", the unlinked ones;
         "track_embeds" of the linked and "track_embeds_raw" of the unlinked
-        queries. ``generator`` goes unused: no stochastic layer."""
+        queries. ``generator`` draws the backbone's drop-path masks (Swin)
+        in ``train()``."""
         x = images if self.dtype is None else images.to(self.dtype)
-        out = self.head(self.backbone(x), return_query=True)
+        out = self.head(self.backbone(x, generator), return_query=True)
         thing_query = out["query"][:, :self.num_thing_queries]
         linked = self.thing_link(thing_query, pre_thing_query)
         out["thing_query"] = linked

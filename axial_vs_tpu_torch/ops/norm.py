@@ -5,7 +5,7 @@ names are torch's (``weight``, ``bias``, ``running_mean``, ``running_var``).
 The statistics and affines follow the JAX package's formulas, so the two
 agree to f32 rounding:
 
-- BatchNorm (eps 1e-3): in ``eval()`` the running stats are folded into an
+- BatchNorm (eps 1e-3 unless given): in ``eval()`` the running stats are folded into an
   f32 affine, applied in the input dtype; in ``train()`` the batch
   statistics normalize in f32 (the biased variance, E[x^2] - E[x]^2) and
   the running stats take momentum 0.01 of the new statistic, the variance
@@ -31,8 +31,10 @@ class BatchNorm(nn.Module):
     """BatchNorm over the last axis (every leading axis is reduced in
     training); ``scale_init`` sets gamma."""
 
-    def __init__(self, features: int, scale_init: float = 1.0, device=None):
+    def __init__(self, features: int, scale_init: float = 1.0,
+                 eps: float = BN_EPS, device=None):
         super().__init__()
+        self.eps = eps
         self.weight = _vector(features, device)
         self.bias = _vector(features, device)
         self.register_buffer("running_mean", torch.empty(
@@ -46,7 +48,7 @@ class BatchNorm(nn.Module):
 
     def folded(self):
         """(s, b) in f32 with BN(x) = x * s + b."""
-        s = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        s = torch.rsqrt(self.running_var + self.eps) * self.weight
         return s, self.bias - self.running_mean * s
 
     def forward(self, x):
@@ -66,7 +68,7 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
             self.running_var.mul_(1 - BN_MOMENTUM).add_(
                 BN_MOMENTUM * var * correction)
-        y = (xf - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
 

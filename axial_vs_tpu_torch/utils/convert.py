@@ -4,8 +4,10 @@
 ``axial_vs_tpu.models.kmax.build_segmenter`` as nested dicts of numpy arrays
 and returns the ``state_dict`` of ``axial_vs_tpu_torch.models.kmax``'s
 segmenter (the upstream torch layout). It is the inverse of
-``axial_vs_tpu/utils/torch_convert.py::convert_maxtron_wc``; ``resnet`` is
-the inverse of its ``convert_torchvision_resnet``. ``tube_link_vis`` maps
+``axial_vs_tpu/utils/torch_convert.py::convert_maxtron_wc``; ``resnet``,
+``swin`` and ``stdc`` are the inverses of its ``convert_torchvision_resnet``,
+``convert_swin`` and ``convert_stdc``, and ``backbone`` picks one of them
+(or ``convnext``) by the tree's keys. ``tube_link_vis`` maps
 ``axial_vs_tpu.models.tube_link.detector.TubeLinkVIS``'s variables, whose
 names the port mirrors (``layer{i}_attn`` -> ``layers.{i}.attn``), and
 ``tube_link_vps``, ``tube_link_video_vis`` and ``image_mask2former`` those
@@ -154,6 +156,88 @@ def resnet(params, stats) -> dict:
                       else convbn(f"{pre}.conv{i}", f"{pre}.bn{i}", cp,
                                   stats[key][name]))
     return sd
+
+
+def swin_block(p) -> dict:
+    """A Swin block: ``norm1``, ``attn`` (``qkv``, ``proj``, the bias
+    table), ``norm2``, ``mlp_fc1`` / ``mlp_fc2`` -> ``mlp.fc1`` /
+    ``mlp.fc2``."""
+    attn = p["attn"]
+    return {**_prefix("norm1", _norm(p["norm1"])),
+            **_prefix("norm2", _norm(p["norm2"])),
+            **_prefix("attn.qkv", _linear(attn["qkv"])),
+            **_prefix("attn.proj", _linear(attn["proj"])),
+            "attn.relative_position_bias_table": np.asarray(
+                attn["relative_position_bias_table"]),
+            **_prefix("mlp.fc1", _linear(p["mlp_fc1"])),
+            **_prefix("mlp.fc2", _linear(p["mlp_fc2"]))}
+
+
+def swin(params) -> dict:
+    """``params["backbone"]`` of a Swin Transformer -> the upstream Swin
+    names (the inverse of ``torch_convert.py::convert_swin``)."""
+    sd = _prefix("patch_embed.proj", _conv(params["patch_embed"]))
+    if "patch_norm" in params:
+        sd.update(_prefix("patch_embed.norm", _norm(params["patch_norm"])))
+    for key, p in params.items():
+        m = re.fullmatch(r"stage(\d)_block(\d+)", key)
+        if m:
+            sd.update(_prefix(f"layers.{m.group(1)}.blocks.{m.group(2)}",
+                              swin_block(p)))
+            continue
+        m = re.fullmatch(r"(merge_norm|merge_reduction|out_norm)(\d)", key)
+        if m:
+            kind, i = m.groups()
+            sd.update(_prefix(
+                f"norm{i}" if kind == "out_norm"
+                else f"layers.{i}.downsample.norm" if kind == "merge_norm"
+                else f"layers.{i}.downsample.reduction",
+                _linear(p) if kind == "merge_reduction" else _norm(p)))
+    return sd
+
+
+def stdc(params, stats) -> dict:
+    """``params/batch_stats["backbone"]`` of an STDC net -> the upstream
+    names (the inverse of ``torch_convert.py::convert_stdc``): the stems
+    ``x2.0.0`` / ``x4.0.1``, block j of stage i under ``x{8 << i}.0.{k}``
+    with k counting the blocks from 2 across stages."""
+    def convx(p, s):
+        return {**_prefix("conv", _conv(p["conv"])),
+                **_prefix("bn", _bn(p["bn"], s["bn"]))}
+
+    def dw_norm(pre, p, s):
+        return {**_prefix(f"{pre}.0", _conv(p["conv"])),
+                **_prefix(f"{pre}.1", _bn(p["bn"], s["bn"]))}
+
+    sd = {**_prefix("x2.0.0", convx(params["stem0"], stats["stem0"])),
+          **_prefix("x4.0.1", convx(params["stem1"], stats["stem1"]))}
+    blocks = sorted((tuple(map(int, m.groups())), key) for key in params
+                    for m in [re.fullmatch(r"stage(\d)_block(\d+)", key)] if m)
+    for k, ((i, _), key) in enumerate(blocks, 2):
+        p, s = params[key], stats[key]
+        pre = f"x{8 << i}.0.{k}"
+        for name in p:
+            if name.startswith("conv"):
+                sd.update(_prefix(f"{pre}.conv_list.{name[4:]}",
+                                  convx(p[name], s[name])))
+        if "avd" in p:
+            sd.update(_prefix(pre, dw_norm("avd_layer", p["avd"], s["avd"])))
+        if "skip_dw" in p:
+            sd.update(_prefix(pre, dw_norm("skip", p["skip_dw"], s["skip_dw"])))
+            sd.update(_prefix(f"{pre}.skip.2", _conv(p["skip_pw"])))
+            sd.update(_prefix(f"{pre}.skip.3", _bn(p["skip_bn"], s["skip_bn"])))
+    return sd
+
+
+def backbone(params, stats) -> dict:
+    """Any ported backbone's ``params/batch_stats["backbone"]``: a ResNet
+    (``stem``), an STDC net (``stem0``), a Swin (``patch_embed``) or a
+    ConvNeXt."""
+    if "stem" in params:
+        return resnet(params, stats)
+    if "stem0" in params:
+        return stdc(params, stats)
+    return swin(params) if "patch_embed" in params else convnext(params)
 
 
 # ---- within-clip module ---------------------------------------------------
@@ -360,9 +444,8 @@ def convert_variables(variables) -> dict:
     arrays; ``load_state_dict`` copies them into the model's dtypes)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    backbone = params["backbone"]
-    sd = _prefix("backbone", resnet(backbone, stats["backbone"])
-                 if "stem" in backbone else convnext(backbone))
+    sd = _prefix("backbone", backbone(params["backbone"],
+                                      stats.get("backbone", {})))
     if "wc_module" in params:
         sd.update(_prefix("sem_seg_head.wc_module",
                           wc_module(params["wc_module"])))
@@ -560,11 +643,12 @@ def tube_link_head(p) -> dict:
 
 
 def _tube_link_detector(variables, head: str = "head") -> tuple:
-    """(params, the state_dict of the ResNet backbone and of the tube head
-    under ``head``) of a Tube-Link model's variables."""
+    """(params, the state_dict of the backbone and of the tube head under
+    ``head``) of a Tube-Link model's variables."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     return params, {
-        **_prefix("backbone", resnet(params["backbone"], stats["backbone"])),
+        **_prefix("backbone", backbone(params["backbone"],
+                                       stats.get("backbone", {}))),
         **_prefix(head, tube_link_head(params[head]))}
 
 
@@ -581,7 +665,7 @@ def _norm_or_linear(name, p) -> dict:
 
 def tube_link_vis(variables) -> dict:
     """``TubeLinkVIS`` variables {"params", "batch_stats"} -> port
-    state_dict (ResNet backbone)."""
+    state_dict."""
     return _tube_link_detector(variables)[1]
 
 
@@ -598,7 +682,7 @@ def thing_query_link(p) -> dict:
 
 
 def tube_link_vps(variables) -> dict:
-    """``TubeLinkVPS`` variables -> port state_dict (ResNet backbone): the
+    """``TubeLinkVPS`` variables -> port state_dict: the
     detector's, ``thing_link`` (``link_attn``, ``norm1``, ``ffn1``,
     ``ffn2``, ``norm2``) and, unless ``mlp_only``, ``track_head`` (``fc0``,
     ``fc_out``)."""
@@ -611,8 +695,7 @@ def tube_link_vps(variables) -> dict:
 
 
 def tube_link_video_vis(variables) -> dict:
-    """``TubeLinkVideoVIS`` variables -> port state_dict (ResNet backbone):
-    the frozen detector's (its head ``wc_head_wrapper``), ``cc_layers``
+    """``TubeLinkVideoVIS`` variables -> port state_dict: the frozen detector's (its head ``wc_head_wrapper``), ``cc_layers``
     (``trajectory_attn{i}``, ``attn_norm{i}``, ``aspp{i}``,
     ``conv_norm{i}``) and the heads ``activation_proj``, ``cls_embed``,
     ``mask_embed{1,2,3}``."""

@@ -176,6 +176,36 @@ Phases, in order; any failure exits non-zero before the last line:
  13l. kmax r50 reference - configs/coco/kmax_r50.yaml (the image model
                without the WC module, f32): one 641x641 image on the card
                against the CPU (1e-3 of max |ref|); no kernel launches
+ 13m. swin-l vis - the main path of the Swin slice: configs/ytvis21/
+               tube_link_maxtron_wc_swin_l.yaml as it stands (Swin-L 192,
+               2/2/18/2, heads 6-48, window 12; bf16; 100 queries; temporal
+               attention), built by the registry: a 15-frame 360x640 video
+               in tubes of 5 through ``run_video`` (K2 18 / K3 72), ms a
+               tube (median and spread), peak memory; K2's and K3's first
+               calls (bf16) against their plain versions; ``evaluate_ytvis``
+               on 13a's two synthetic videos: AP/AR finite, frames/s, the
+               forward's share, the launch counts
+ 13n. swin-l vis train - 3 ``train_step``s of the same yaml built for
+               training (f32 throughout, as JAX's registry trains Tube-Link;
+               drop path 0.3; the auction at m = 100) on 3 tubes of 5 at
+               512x512 (the yaml's 8 outgrow the card), one batch and one
+               seed a step: finite losses and gradients, the loss not
+               rising, K2 6 / K3 24 a step, ms a step, the matching's share,
+               peak memory
+ 13o. tube-link vps backbones - configs/vipseg/tube_link_vps_{stdc1,stdc2,
+               swin_b}.yaml at full width: a synthetic 15-frame video at
+               512x512 in 3 windows of ``process_window`` each (zero
+               thresholds): the id convention, the launch counts, the
+               window forward's ms
+ 13p. swin-l images - configs/coco/kmax_instance_swin_large.yaml (one
+               1281x1281 bf16 image, SAME-padded patch embed, no kernel
+               launch; ``instance_inference``) and configs/image/
+               mask2former_swin_l_384_in21k_coco_panoptic_100e.yaml (one
+               1024x1024 bf16 image, K2 6; panoptic fusion): ms a forward,
+               peak memory
+ 13q. swin/stdc reference - the Swin-L backbone on a 513x513 frame and the
+               STDC2 backbone on a 512x512 frame, f32, the card against the
+               CPU within 1e-4 of max |ref|
  14. MSDA bench - ``axial_vs_tpu_torch.tools.bench_msda`` at the WC shape:
                one checking pass over its six formulations (each against
                ``prod``, K2), their launch counts and ms per layer; K6, K7
@@ -3631,11 +3661,12 @@ def phase_vps(torch, card: str):
 
 
 def _k3_model_case(torch, label: str, args):
-    """K3 on a layer's own inputs (f32; ``args`` as ``traj_calls`` keeps
-    them) against its plain version within F32_REL_BOUND of max|out|,
-    timed eager, in a CUDA graph and plain, beside its bound. Returns its
-    entry."""
-    from axial_vs_tpu_torch.ops.traj import (trajectory_attention_core,
+    """K3 on a layer's own inputs (``args`` as ``traj_calls`` keeps them)
+    against its plain version within F32_REL_BOUND of max|out| in f32 or
+    ``TRAJ_ULPS`` bf16 ulp in bf16, timed eager, in a CUDA graph and plain,
+    beside its bound. Returns its entry."""
+    from axial_vs_tpu_torch.ops.traj import (TRAJ_ULPS,
+                                             trajectory_attention_core,
                                              trajectory_attention_core_plain)
     from axial_vs_tpu_torch.tools.timing import graph_ms
 
@@ -3644,8 +3675,10 @@ def _k3_model_case(torch, label: str, args):
     got = trajectory_attention_core(*args)
     want = trajectory_attention_core_plain(*args)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    bound = f32_bound(want)
+    err = (got.float() - want.float()).abs().max().item()
+    bf16 = got.dtype == torch.bfloat16
+    bound = (TRAJ_ULPS * bf16_ulp(want.float().abs().max().item()) if bf16
+             else f32_bound(want))
 
     def kernel():
         return trajectory_attention_core(*args)
@@ -3655,11 +3688,12 @@ def _k3_model_case(torch, label: str, args):
     plain_ms = cuda_ms(torch, lambda: trajectory_attention_core_plain(*args),
                        launches=3)
     b, nt, c = args[0].shape
-    flops, nbytes = _traj_work(b, f, nt // f, c, size=4)
-    bound_t, by = bound_ms(flops, nbytes, PEAK_F32)
-    log(f"K3 f32 {label}, the layer's own inputs (B'={b}, f={f}, "
-        f"n={nt // f}, {heads} heads of {c // heads}): max_abs_err "
-        f"{err:.6g} (bound F32_REL_BOUND of max|out| = {bound:.6g}); "
+    flops, nbytes = _traj_work(b, f, nt // f, c, size=2 if bf16 else 4)
+    bound_t, by = bound_ms(flops, nbytes, PEAK_BF16 if bf16 else PEAK_F32)
+    log(f"K3 {str(got.dtype)[6:]} {label}, the layer's own inputs (B'={b}, "
+        f"f={f}, n={nt // f}, {heads} heads of {c // heads}): max_abs_err "
+        f"{err:.6g} (bound {f'{TRAJ_ULPS} bf16 ulp' if bf16 else 'F32_REL_BOUND'}"
+        f" of max|out| = {bound:.6g}); "
         f"kernel {ms:.4f} ms ({g_ms:.4f} in a CUDA graph), plain "
         f"{plain_ms:.4f} ms, bound {bound_t:.4f} ms ({by}: "
         f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
@@ -4147,6 +4181,495 @@ def phase_kmax_r50_reference(torch, card: str):
     if max(errs.values()) > CARD_CPU_BOUND or launches != expect():
         raise AssertionError("kmax r50 card vs CPU disagree")
     return launches
+
+# ---- Swin and STDC: Swin-L Tube-Link VIS, its training, VPS, images -----
+
+SWIN_VIS_YAML = "ytvis21/tube_link_maxtron_wc_swin_l.yaml"
+#: the Swin-L training phase's tubes a step: the yaml's
+#: ``solver.ims_per_batch`` is 8; in f32 on an NVIDIA H100 80GB HBM3 5
+#: tubes ran out of memory (77.41 GiB allocated), 4 peaked at 76.154 GiB
+#: when run alone, 3 at 59.256: 3 leave the whole run's allocator room
+SWIN_TRAIN_BATCH = 3
+SWIN_TRAIN_STEPS = 3
+VPS_BACKBONE_YAMLS = ("vipseg/tube_link_vps_stdc1.yaml",
+                      "vipseg/tube_link_vps_stdc2.yaml",
+                      "vipseg/tube_link_vps_swin_b.yaml")
+KMAX_SWIN_YAML = "coco/kmax_instance_swin_large.yaml"
+M2F_SWIN_YAML = "image/mask2former_swin_l_384_in21k_coco_panoptic_100e.yaml"
+#: the backbone references' inputs: Swin-L at a side off a multiple of 4
+#: and of the window (12), STDC2 at the VPS yaml's size
+SWIN_REF_HW, STDC_REF_HW = (513, 513), (512, 512)
+#: bound on max |card - CPU| / max |CPU| of the backbones in f32 (TF32 off)
+BACKBONE_REF_BOUND = 1e-4
+
+
+#: the std of the Swin backbone's biases drawn for the training phase
+SWIN_BIAS_STD = 0.02
+
+
+def wake_swin_biases(torch, backbone, std: float = SWIN_BIAS_STD):
+    """Draw every bias of a Swin backbone (zero at the upstream init, as
+    JAX's) from N(0, std^2), as a trained checkpoint's are non-zero. At
+    zero biases each padded patch of a crop is the zero vector in every
+    layer's LayerNorm, whose backward at a zero-variance row multiplies by
+    1 / sqrt(eps) = 316: a 512x512 crop padded from a smaller frame then
+    takes the f32 gradient past its range within a few blocks (the CPU
+    rehearsal: 1e18 at the patch embed, inf in the global norm, so the
+    clipped update was 0), in both packages, which share the formula."""
+    gen = torch.Generator(device=next(backbone.parameters()).device)
+    gen.manual_seed(2)
+    with torch.no_grad():
+        for name, p in backbone.named_parameters():
+            if name.endswith(".bias"):
+                p.normal_(0.0, std, generator=gen)
+
+
+def swin_l_vis_config(opts=()):
+    """``SWIN_VIS_YAML`` as it stands (with ``opts``), checked to be the
+    paper's Swin-L MaXTron Tube-Link VIS: Swin-L (192; 2/2/18/2; heads
+    6-48; window 12), bf16, 100 queries, 40 classes, temporal attention."""
+    from axial_vs_tpu_torch.config import load_config
+
+    cfg = load_config(SWIN_VIS_YAML, list(opts))
+    s, tl = cfg.model.backbone.swin, cfg.model.tube_link
+    if not (cfg.model.backbone.name == "swin_large" and s.embed_dim == 192
+            and list(s.depths) == [2, 2, 18, 2]
+            and list(s.num_heads) == [6, 12, 24, 48] and s.window_size == 12
+            and cfg.model.dtype == "bfloat16" and tl.num_queries == 100
+            and tl.use_temporal_attn and cfg.model.num_classes == 40
+            and tl.clip_len == TL_T):
+        raise AssertionError(f"not the Swin-L VIS yaml: {cfg.model}")
+    return cfg
+
+
+def _ms_stats(times) -> str:
+    return (f"median {statistics.median(times):.2f} ms, min {min(times):.2f},"
+            f" max {max(times):.2f} ({len(times)} runs, CUDA events)")
+
+
+def phase_swin_vis(torch, root: str, card: str):
+    """The main path of the Swin slice: ``SWIN_VIS_YAML`` as it stands
+    (Swin-L, bf16, 100 queries, temporal attention), random weights from
+    seed 0, built by the registry. A 15-frame 360x640 video in tubes of 5
+    through ``TubeLinkVISInference.run_video``: 30 instances, finite,
+    distinct labels in range, and the launch counts; ms a tube (CUDA
+    events around each forward), peak memory. K2's and K3's first calls
+    (bf16, the warm-up tube) against their plain versions. Then
+    ``evaluate_ytvis`` on the two synthetic 720x1280 videos phase 13a
+    writes (15 and 36 frames): finite AP/AR, frames/s, the forward's share
+    and the launch counts. Returns the launch counts of the video and of
+    the eval, and K2's and K3's entries."""
+    import axial_vs_tpu_torch.data.ytvis as ytvis
+    from axial_vs_tpu_torch.data.synthetic import write_ytvis_videos
+    from axial_vs_tpu_torch.engine import evaluator_loop
+    from axial_vs_tpu_torch.models.backbones.swin import SwinTransformer
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.tube_link.detector import (
+        TubeLinkVISInference, video_split)
+
+    laps = Laps("swin-l vis")
+    dev = torch.device("cuda")
+    name = "ytvis_chip_smoke_swin_val"
+    cfg = swin_l_vis_config(["input.image_size", [TL_H, TL_W],
+                             "datasets.test", [name]])
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    if not (isinstance(model.backbone, SwinTransformer)
+            and model.dtype == torch.bfloat16 and not model.training):
+        raise AssertionError("swin-l vis: not the bf16 Swin-L model")
+    tl = cfg.model.tube_link
+    pipeline = TubeLinkVISInference(model, clip_len=tl.clip_len,
+                                    overlap=tl.overlap, topk=tl.test_topk)
+    video = torch.randn(TL_VIDEO, TL_H, TL_W, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    captured = {}
+    with (torch.inference_mode(), first_msda_call(captured, "swin"),
+          traj_calls(captured, lambda a: "swin K3")):
+        model(video[:TL_T])  # warm-up tube (kernel selection, allocator)
+    torch.cuda.synchronize()
+    laps(f"built ({sum(p.numel() for p in model.parameters())} parameters) "
+         f"and warmed up")
+    spans = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model.forward = cuda_spans(torch, spans, model.forward)
+    try:
+        res = pipeline.run_video(video)
+    finally:
+        del model.forward
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tube_ms = [a.elapsed_time(b) for a, b in spans]
+    n_inst = tl.test_topk
+    want_shape = (n_inst, TL_VIDEO) + TL_MASK_HW
+    labels, scores = res["labels"], res["scores"]
+    if (res["masks"].shape != want_shape or not np.isfinite(res["masks"]).all()
+            or labels.shape != (n_inst,) or labels.min() < 0
+            or labels.max() >= cfg.model.num_classes
+            or not np.isfinite(scores).all()
+            or not np.all(scores[:-1] >= scores[1:])):
+        raise AssertionError(f"swin-l vis: masks {res['masks'].shape}, "
+                             f"labels {labels}, scores {scores}")
+    want = expect(K2=K2_TUBE * 3, K3=K3_TUBE * 3)
+    log(f"swin-l vis: {TL_VIDEO}x{TL_H}x{TL_W} video in 3 tubes of {TL_T}, "
+        f"bf16: {n_inst} instances, masks {want_shape} finite; a tube's "
+        f"forward {_ms_stats(tube_ms)}; peak memory {peak:.3f} GiB; launches "
+        f"{launches} (want {want}); {card}")
+    if launches != want:
+        raise AssertionError(f"swin-l vis launch counts {launches}")
+    value, shapes, _, loc, weights = captured["swin"]
+    _, k2 = _k2_case(torch, "swin-l vis tube model inputs", value.to(dev),
+                     shapes, loc.to(dev), weights.to(dev), K2_TUBE)
+    k3 = _k3_model_case(torch, "swin-l vis tube", captured["swin K3"])
+    del captured
+    laps("the video and the kernels' checks")
+
+    meta = ytvis.register_ytvis(name, *write_ytvis_videos(
+        root, len(YTVIS_VIDEOS), YTVIS_VIDEOS, hw=YTVIS_HW, compress_level=0))
+    meta.contiguous_to_dataset_id = list(range(1, cfg.model.num_classes + 1))
+    tubes = sum(len(video_split(v, TL_T)) for v in YTVIS_VIDEOS)
+    frames = sum(YTVIS_VIDEOS)
+    spans.clear()
+    real = TubeLinkVISInference.tube_forward
+    reset_counts()
+    t0 = time.perf_counter()
+    TubeLinkVISInference.tube_forward = cuda_spans(torch, spans, real)
+    try:
+        ev = evaluator_loop.evaluate_ytvis(
+            cfg, model, format_only_path=os.path.join(root, "swin.json"))
+    finally:
+        TubeLinkVISInference.tube_forward = real
+    wall = time.perf_counter() - t0
+    eval_launches = read_counts()
+    fwd = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    want = expect(K2=K2_TUBE * tubes, K3=K3_TUBE * tubes)
+    fields = {k: v for k, v in ev.items()
+              if k not in ("results_json", "per_category_AP")}
+    log(f"swin-l vis ytvis eval: {frames} frames in {tubes} tubes, "
+        f"{wall:.2f} s, {frames / wall:.3f} frames/s; forward {fwd:.2f} s "
+        f"({fwd / wall:.3f} of the wall, CUDA events); launches "
+        f"{eval_launches} (want {want}); AP/AR " + json.dumps(fields))
+    if (eval_launches != want or ev["num_videos"] != len(YTVIS_VIDEOS)
+            or ev["num_predictions"] != n_inst * len(YTVIS_VIDEOS)
+            or not all(math.isfinite(v) for v in fields.values()
+                       if isinstance(v, float))):
+        raise AssertionError(f"swin-l vis ytvis eval: {ev}")
+    laps("ytvis eval")
+    return launches, eval_launches, k2, k3
+
+
+def phase_train_swin_vis(torch, root: str, card: str,
+                         batch: int = SWIN_TRAIN_BATCH,
+                         steps: int = SWIN_TRAIN_STEPS):
+    """``steps`` steps of ``train_step`` on ``SWIN_VIS_YAML`` built for
+    training by the registry: f32 weights and compute (the yaml is bf16;
+    JAX's registry trains Tube-Link in f32), drop path 0.3, AdamW with the
+    yaml's clip, the auction at m = 100; ``batch`` tubes of 5 frames at
+    512x512 a step (the yaml's 8 outgrow the card) that the YTVIS mapper
+    cuts from two synthetic 720x1280 videos; the backbone's biases drawn
+    (``wake_swin_biases``). Every step takes the same
+    batch and a generator seeded alike (the drop-path masks, the sampled
+    points), so that the loss moves with the weights alone: it must not
+    rise over the steps. Checks finite losses and gradients, the launches
+    (K2 and K3 a step, f32 under autograd), every parameter f32 and most
+    of them moved. Logs ms a step, the matching's share and peak memory.
+    Returns the launch counts."""
+    from axial_vs_tpu_torch.data.build import build_mapper
+    from axial_vs_tpu_torch.data.catalog import DatasetCatalog
+    from axial_vs_tpu_torch.data.loader import ClipDataLoader, to_device
+    from axial_vs_tpu_torch.data.synthetic import write_ytvis_videos
+    from axial_vs_tpu_torch.data.ytvis import register_ytvis
+    from axial_vs_tpu_torch.engine.lr_schedule import tf2_warmup_poly_lr
+    from axial_vs_tpu_torch.engine.optim import build_optimizer
+    from axial_vs_tpu_torch.engine.train_step import train_step
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    laps = Laps("swin-l vis train")
+    dev = torch.device("cuda")
+    full_f32(torch)
+    name = f"ytvis_chip_smoke_swin_train_{batch}"
+    register_ytvis(name, *write_ytvis_videos(
+        root, len(TL_TRAIN_VIDEOS), TL_TRAIN_VIDEOS, hw=YTVIS_HW,
+        compress_level=0))
+    cfg = swin_l_vis_config(["datasets.train", [name], "datasets.test", [],
+                             "output_dir", root])
+    sol = cfg.solver
+    if not (sol.ims_per_batch == 8 and list(cfg.input.image_size) == [512, 512]
+            and cfg.input.num_video_frames == TL_T
+            and cfg.model.backbone.swin.drop_path_rate > 0):
+        raise AssertionError(f"not the yaml's training config: {cfg.input}")
+    sol.ims_per_batch = batch
+    model, criterion = build_model_and_criterion(
+        cfg, train=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    wake_swin_biases(torch, model.backbone)
+    dtypes = {p.dtype for p in model.parameters()}
+    if (criterion.exact_matching or not model.training
+            or model.dtype is not None or dtypes != {torch.float32}):
+        raise AssertionError(f"swin-l vis train: want the f32 model in "
+                             f"train() and the auction, got {dtypes}")
+    optimizer, scheduler = build_optimizer(cfg, model, tf2_warmup_poly_lr(
+        sol.base_lr, sol.max_iter, warmup_iters=sol.warmup_iters,
+        power=sol.poly_power))
+    loader = ClipDataLoader(DatasetCatalog.get(name), build_mapper(cfg),
+                            batch_size=batch, num_workers=0)
+    data = to_device(next(iter(loader)), dev)
+    laps(f"built ({sum(p.numel() for p in model.parameters())} f32 "
+         f"parameters), images {list(data['images'].shape)}, "
+         f"{int(data['targets']['valid'].sum())} valid GTs")
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    want = expect(K2=TL_TRAIN_K2, K3=TL_TRAIN_K3)
+    totals = {k: 0 for k in counted_kernels()}
+    ms, match_ms, losses_by_step = [], [], []
+    for step in range(steps):
+        spans, marks = [], []
+
+        def mark(what):
+            marks.append((what, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+
+        reset_counts()
+        with matching_spans(torch, spans):
+            mark("start")
+            losses = train_step(model, criterion, optimizer, scheduler, data,
+                                torch.Generator(device=dev).manual_seed(1),
+                                mark=mark)
+            marks[-1][1].synchronize()
+        ms.append(marks[0][1].elapsed_time(marks[-1][1]))
+        match_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+        launches = read_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        finite = bool(torch.stack([p.grad.isfinite().all()
+                                   for p in model.parameters()]).all())
+        losses_by_step.append(losses["total_loss"])
+        names = sorted(k for k in losses if k != "total_loss")
+        log(f"swin-l vis train step {step}: total_loss "
+            f"{losses['total_loss']:.8g}, lr {scheduler.get_last_lr()[0]:.4g}"
+            f"; launches {launches} (want {want}); gradients finite "
+            f"{finite}; {len(spans)} assignments, {match_ms[-1]:.2f} ms of "
+            f"{ms[-1]:.2f} ms")
+        if (names != TL_LOSS_NAMES or launches != want or not finite
+                or not all(math.isfinite(v) for v in losses.values())):
+            raise AssertionError(f"swin-l vis train step {step}: {losses}")
+    moved = sum(not torch.equal(p, params0[n])
+                for n, p in model.named_parameters())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = statistics.median(m / s for m, s in zip(match_ms, ms))
+    log(f"swin-l vis train ({card}): {steps} steps of {batch} tubes of "
+        f"{TL_T} frames at 512x512, f32, one batch and one seed a step: "
+        f"total_loss {', '.join(f'{v:.8g}' for v in losses_by_step)}; ms a "
+        f"step {', '.join(f'{t:.2f}' for t in ms)} (median "
+        f"{statistics.median(ms):.2f}, CUDA events, eager), matching "
+        f"{', '.join(f'{t:.2f}' for t in match_ms)} ms (share {share:.4f}); "
+        f"peak memory {peak:.3f} GiB; {moved} of {len(params0)} parameter "
+        f"tensors moved")
+    if not (all(b <= a for a, b in zip(losses_by_step, losses_by_step[1:]))
+            and 2 * moved >= len(params0)):
+        raise AssertionError("swin-l vis train: the loss rose or the "
+                             "parameters did not move")
+    del model, optimizer, params0, data
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_vps_backbones(torch, card: str):
+    """The Tube-Link VPS models of ``VPS_BACKBONE_YAMLS`` (STDC1 and STDC2
+    in f32, Swin-B in bf16, each at full width, random weights from seed
+    0, built by the registry): a synthetic 15-frame 720x1280 video
+    preprocessed to the yaml's 512x512, streamed in 3 windows of 5 by
+    ``TubeLinkVPSInference.process_window`` at zero thresholds. Checks the
+    id maps' shape and convention and the launch counts; logs the window
+    forward's ms (CUDA events around ``model.forward``) and peak memory.
+    Returns the launch counts."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.tube_link.vps import (
+        TubeLinkVPSInference, num_things_split)
+    from axial_vs_tpu_torch.models.video_inference import preprocess_frames
+
+    dev = torch.device("cuda")
+    frames = vipseg_like_video(VPS_FRAMES, VPS_SOURCE_HW, 0)
+    totals = {k: 0 for k in counted_kernels()}
+    for yaml in VPS_BACKBONE_YAMLS:
+        cfg = load_config(yaml)
+        num_things, num_stuff = num_things_split(cfg)
+        t = cfg.input.num_clip_frames
+        model, _ = build_model_and_criterion(
+            cfg, train=False, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        images, _, _ = preprocess_frames(frames, cfg.input.pixel_mean,
+                                         cfg.input.pixel_std,
+                                         cfg.input.image_size)
+        windows = [torch.from_numpy(images[i:i + t]).to(dev)
+                   for i in range(0, VPS_FRAMES, t)]
+        pipe = TubeLinkVPSInference(model, clip_len=t,
+                                    num_things_classes=num_things,
+                                    num_stuff_classes=num_stuff, **VPS_ZERO)
+        pipe.window_forward(windows[0])  # warm-up
+        torch.cuda.synchronize()
+        spans = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        model.forward = cuda_spans(torch, spans, model.forward)
+        try:
+            pipe.init_memory()
+            maps = [pipe.process_window(w, i) for i, w in enumerate(windows)]
+        finally:
+            del model.forward
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = expect(K2=K2_TUBE * len(windows), K3=K3_TUBE * len(windows))
+        check_vps_ids(maps, pipe, yaml)
+        hw = tuple(s // 4 for s in cfg.input.image_size)
+        segments = [len(np.unique(m[m != pipe.num_classes])) for m in maps]
+        log(f"vps backbones {yaml} ({cfg.model.backbone.name}, "
+            f"{cfg.model.dtype}, {sum(p.numel() for p in model.parameters())}"
+            f" parameters): {len(windows)} windows of {t}, id maps "
+            f"{[m.shape for m in maps][0]}, segments a window {segments}; the "
+            f"window forward {_ms_stats([a.elapsed_time(b) for a, b in spans])}"
+            f"; peak memory {peak:.3f} GiB; launches {launches} (want "
+            f"{want}); {card}")
+        if launches != want or any(m.shape != (t,) + hw for m in maps):
+            raise AssertionError(f"vps backbones {yaml}: {launches}")
+        for k, v in launches.items():
+            totals[k] += v
+        del model, pipe, windows
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_swin_images(torch, card: str):
+    """One image each through two Swin-L image models at full width,
+    random weights from seed 0, built by the registry: ``KMAX_SWIN_YAML``
+    (kMaX-DeepLab, bf16, 1281x1281: the patch embed pads SAME by (1, 2);
+    no kernel of the port runs on this path) and its instance inference;
+    ``M2F_SWIN_YAML`` (Mask2Former, bf16, 1024x1024: K2) and its panoptic
+    fusion at zero thresholds. Checks shapes, finite values and the launch
+    counts; logs each forward's ms (CUDA events; a warm-up first) and peak
+    memory. Returns the launch counts."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.postprocess import instance_inference
+    from axial_vs_tpu_torch.models.tube_link.fusion import (INSTANCE_OFFSET,
+                                                            panoptic_fusion)
+    from axial_vs_tpu_torch.models.tube_link.vps import num_things_split
+
+    dev = torch.device("cuda")
+    totals = {k: 0 for k in counted_kernels()}
+    for yaml, k2 in ((KMAX_SWIN_YAML, 0), (M2F_SWIN_YAML, K2_TUBE)):
+        cfg = load_config(yaml)
+        hw = tuple(cfg.input.image_size)
+        model, _ = build_model_and_criterion(
+            cfg, train=False, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        if model.dtype != torch.bfloat16 or not cfg.model.backbone.name.startswith(
+                "swin_large"):
+            raise AssertionError(f"swin-l images {yaml}: not bf16 Swin-L")
+        x = torch.randn(1, *hw, 3, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        with torch.inference_mode():
+            model(x)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        spans = []
+        with torch.inference_mode():
+            out = cuda_spans(torch, spans, model)(x)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        if yaml == KMAX_SWIN_YAML:
+            classes = cfg.model.num_classes
+            with torch.inference_mode():
+                inst = instance_inference(
+                    out["pred_logits"][0], out["pred_masks"][0],
+                    torch.ones(classes, dtype=torch.bool, device=dev),
+                    cfg.model.kmax.test.test_topk_per_image)
+            torch.cuda.synchronize()
+            k = cfg.model.kmax.test.test_topk_per_image
+            ok = (tuple(inst["pred_masks"].shape)
+                  == (k,) + tuple(out["pred_masks"].shape[1:3])
+                  and bool(torch.isfinite(inst["scores"]).all())
+                  and int(inst["pred_classes"].max()) < classes)
+            what = (f"instance_inference: {k} instances, masks "
+                    f"{tuple(inst['pred_masks'].shape)}")
+        else:
+            num_things, _ = num_things_split(cfg)
+            pan, _ = panoptic_fusion(
+                "with_query", out["cls_preds"][-1][0].float().cpu().numpy(),
+                out["mask_preds"][-1][0].float().cpu().numpy(), num_things,
+                cfg.model.num_classes, object_mask_thr=0.0, iou_thr=0.0)
+            ok = (pan.shape == (hw[0] // 4, hw[1] // 4)
+                  and bool(((pan >= 0) & (pan <= cfg.model.num_classes)
+                            | (pan % INSTANCE_OFFSET < num_things)).all()))
+            what = (f"panoptic fusion: map {pan.shape}, "
+                    f"{len(np.unique(pan))} segments")
+        post_s = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(v.float()).all()) for v in (
+            [out["pred_logits"], out["pred_masks"]] if "pred_logits" in out
+            else out["cls_preds"] + out["mask_preds"]))
+        want = expect(K2=k2)
+        log(f"swin-l images {yaml} ({hw[0]}x{hw[1]}, bf16): forward "
+            f"{spans[0][0].elapsed_time(spans[0][1]):.2f} ms (CUDA events, "
+            f"after a warm-up), outputs finite {finite}; {what} in "
+            f"{post_s:.3f} s; peak memory {peak:.3f} GiB; launches "
+            f"{launches} (want {want}); {card}")
+        if not (ok and finite and launches == want):
+            raise AssertionError(f"swin-l images {yaml}")
+        for key, v in launches.items():
+            totals[key] += v
+        del model, out
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_backbone_reference(torch, card: str):
+    """The Swin-L backbone of ``SWIN_VIS_YAML`` on one ``SWIN_REF_HW``
+    frame and the STDC2 backbone of ``VPS_BACKBONE_YAMLS[1]`` on one
+    ``STDC_REF_HW`` frame, in f32 (TF32 off), random weights from seed 0:
+    the card against a CPU copy, each output within
+    ``BACKBONE_REF_BOUND`` of max |ref|. No kernel of the port runs here.
+    Returns the launch counts."""
+    import copy
+
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.kmax import build_backbone, materialize
+
+    dev = torch.device("cuda")
+    full_f32(torch)
+    reset_counts()
+    for yaml, hw in ((SWIN_VIS_YAML, SWIN_REF_HW),
+                     (VPS_BACKBONE_YAMLS[1], STDC_REF_HW)):
+        cfg = load_config(yaml)
+        backbone, channels = build_backbone(cfg, device=torch.device("meta"))
+        backbone = materialize(backbone, dev, torch.Generator(
+            device=dev).manual_seed(0), None)
+        x = torch.randn(1, *hw, 3, generator=torch.Generator().manual_seed(4))
+        with torch.inference_mode():
+            card_out = backbone(x.to(dev))
+            cpu_out = copy.deepcopy(backbone).cpu()(x)
+        errs = {k: rel_err(card_out[k], cpu_out[k]) for k in cpu_out}
+        log(f"backbone reference {cfg.model.backbone.name} ({hw[0]}x{hw[1]}, "
+            f"f32 both): outputs " + ", ".join(
+                f"{k} {tuple(v.shape)}" for k, v in cpu_out.items())
+            + "; max |diff| / max |ref| " + ", ".join(
+                f"{k} {v:.4g}" for k, v in errs.items())
+            + f" (bound {BACKBONE_REF_BOUND}); {card}")
+        if not (max(errs.values()) <= BACKBONE_REF_BOUND
+                and list(cpu_out) == list(channels)):
+            raise AssertionError(f"backbone reference {yaml} disagrees")
+        del backbone, card_out, cpu_out
+    launches = read_counts()
+    if launches != expect():
+        raise AssertionError(f"backbone reference launches {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
 
 #: bounds of the MSDA bench's variants against ``prod`` (K2), in bf16 ulps
 #: of max|prod|. K2 rounds nothing before its f32 sum; the table variants
@@ -4831,6 +5354,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["kmax_r50_reference"] = timed_phase(
         "kmax r50 reference", phase_kmax_r50_reference, torch, card)
+    torch.cuda.empty_cache()
+    (paths["swin_l_vis_3_tubes"], paths["swin_l_ytvis_eval_2_videos"],
+     results["K2"]["swin_l_vis_tube"],
+     results["K3"]["swin_l_vis_tube"]) = timed_phase(
+        "swin-l vis", in_temp_dir, "chip_smoke_swin_",
+        lambda root: phase_swin_vis(torch, root, card))
+    torch.cuda.empty_cache()
+    paths["train_swin_l_vis_3_steps"] = timed_phase(
+        "swin-l vis train", in_temp_dir, "chip_smoke_swin_train_",
+        lambda root: phase_train_swin_vis(torch, root, card))
+    paths["vps_stdc1_stdc2_swin_b_9_windows"] = timed_phase(
+        "tube-link vps backbones", phase_vps_backbones, torch, card)
+    paths["swin_l_images"] = timed_phase("swin-l images", phase_swin_images,
+                                         torch, card)
+    paths["swin_stdc_reference"] = timed_phase(
+        "swin/stdc reference", phase_backbone_reference, torch, card)
     torch.cuda.empty_cache()
     paths["msda_bench"], reduces, variant_ms = timed_phase(
         "msda bench", phase_msda_bench, torch, gen)

@@ -125,7 +125,8 @@ def test_port_imports_without_jax():
                    "models.tube_link.cc_detector",
                    "models.tube_link.image_mask2former",
                    "trackers.quasi_dense", "evaluation.dstq",
-                   "evaluation.vspw_metrics"):
+                   "evaluation.vspw_metrics", "models.backbones.swin",
+                   "models.backbones.stdc"):
         assert f"axial_vs_tpu_torch.{module}" in names, module
 
 

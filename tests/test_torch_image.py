@@ -241,9 +241,9 @@ def test_image_segmenter_wc(rng):
 
 @pytest.mark.parametrize("yaml", IMAGE_YAMLS)
 def test_builder_on_image_yamls(yaml):
-    """``build_model_and_criterion`` builds every image yaml whose backbone
-    the port has (ResNet, ConvNeXt, ConvNeXtV2) at small widths, the image
-    layout out of one forward; Swin raises, naming itself."""
+    """``build_model_and_criterion`` builds every image yaml (ResNet,
+    ConvNeXt, ConvNeXtV2 and Swin backbones) at small widths, the image
+    layout out of one forward."""
     from axial_vs_tpu_torch.config import load_config
     from axial_vs_tpu_torch.models.build import build_model_and_criterion
 
@@ -260,13 +260,13 @@ def test_builder_on_image_yamls(yaml):
     elif name.startswith("resnet"):
         opts += ["model.backbone.name", "resnet18",
                  "model.backbone.resnet.depth", 18]
+    elif name.startswith("swin"):
+        opts += ["model.backbone.swin.embed_dim", 32,
+                 "model.backbone.swin.depths", [2, 2, 2, 2],
+                 "model.backbone.swin.num_heads", [1, 2, 4, 8]]
     cfg = load_config(yaml, opts)
     kw = dict(train=False, device=torch.device("cpu"),
               generator=torch.Generator().manual_seed(0))
-    if name.startswith("swin"):
-        with pytest.raises(NotImplementedError, match="swin"):
-            build_model_and_criterion(cfg, **kw)
-        return
     model, _ = build_model_and_criterion(cfg, **kw)
     assert (model.sem_seg_head.wc_module is not None) == cfg.model.maxtron.wc.enable
     grn = [m for m in model.modules() if type(m).__name__ == "GRN"]
