@@ -3498,6 +3498,68 @@ def recorded_forwards(pipe, box: list):
     return pipe
 
 
+def build_vps(torch, yaml: str, dev):
+    """The Tube-Link VPS model of ``yaml`` at full width for inference,
+    random weights from seed 0, built by the registry, and a synthetic
+    ``VPS_FRAMES``-frame 720x1280 video preprocessed to the yaml's size in
+    windows of its clip length on ``dev``. Returns (cfg, model, the
+    pipeline's keywords, windows)."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+    from axial_vs_tpu_torch.models.tube_link.vps import num_things_split
+    from axial_vs_tpu_torch.models.video_inference import preprocess_frames
+
+    cfg = load_config(yaml)
+    num_things, num_stuff = num_things_split(cfg)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    t = cfg.input.num_clip_frames
+    images, _, _ = preprocess_frames(
+        vipseg_like_video(VPS_FRAMES, VPS_SOURCE_HW, 0), cfg.input.pixel_mean,
+        cfg.input.pixel_std, cfg.input.image_size)
+    windows = [torch.from_numpy(images[i:i + t]).to(dev)
+               for i in range(0, VPS_FRAMES, t)]
+    return cfg, model, dict(clip_len=t, num_things_classes=num_things,
+                            num_stuff_classes=num_stuff), windows
+
+
+def counted_run(torch, model, fn):
+    """``fn()`` once, the kernels' counts set to 0 just before and read just
+    after, peak memory from 0, CUDA events around each call of
+    ``model.forward``. Returns (fn's result, launches, each forward's ms,
+    peak GiB, wall s)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spans = []
+    reset_counts()
+    t0 = time.perf_counter()
+    model.forward = cuda_spans(torch, spans, model.forward)
+    try:
+        out = fn()
+    finally:
+        del model.forward
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    return (out, launches, [a.elapsed_time(b) for a, b in spans],
+            torch.cuda.max_memory_allocated() / 2**30, wall)
+
+
+def image_forward(torch, model, x, capture=None):
+    """One warm-up forward of ``x`` (inside the context ``capture`` if
+    given), then one forward through ``counted_run``, both in inference
+    mode."""
+    with torch.inference_mode(), capture or contextlib.nullcontext():
+        model(x)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+
+    return counted_run(torch, model, forward)
+
+
 def phase_vps(torch, card: str):
     """The Tube-Link VPS R50 of ``VPS_YAML`` at full width (58 thing + 66
     stuff classes, 100 + 66 queries, f32, windows of 5), random weights
@@ -3518,45 +3580,25 @@ def phase_vps(torch, card: str):
     (f32). Returns the launch counts and K2's and K3's entries."""
     import copy
 
-    from axial_vs_tpu_torch.config import load_config
-    from axial_vs_tpu_torch.models.build import build_model_and_criterion
-    from axial_vs_tpu_torch.models.tube_link.vps import (
-        TubeLinkVPSInference, num_things_split)
-    from axial_vs_tpu_torch.models.video_inference import preprocess_frames
+    from axial_vs_tpu_torch.models.tube_link.vps import TubeLinkVPSInference
 
     laps = Laps("tube-link vps")
     dev = torch.device("cuda")
-    cfg = load_config(VPS_YAML)
-    num_things, num_stuff = num_things_split(cfg)
-    model, _ = build_model_and_criterion(
-        cfg, train=False, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(0))
+    cfg, model, kw, windows = build_vps(torch, VPS_YAML, dev)
     wake_tube_head(torch, model.head)
-    t, q = cfg.input.num_clip_frames, cfg.model.tube_link.num_queries
-    kw = dict(clip_len=t, num_things_classes=num_things,
-              num_stuff_classes=num_stuff)
-    frames = vipseg_like_video(VPS_FRAMES, VPS_SOURCE_HW, 0)
-    images, _, _ = preprocess_frames(frames, cfg.input.pixel_mean,
-                                     cfg.input.pixel_std, cfg.input.image_size)
-    windows = [torch.from_numpy(images[i:i + t]).to(dev)
-               for i in range(0, VPS_FRAMES, t)]
+    t, q = kw["clip_len"], cfg.model.tube_link.num_queries
+    num_things, num_stuff = kw["num_things_classes"], kw["num_stuff_classes"]
     laps(f"built ({num_things} + {num_stuff} classes, {q} + {num_stuff} "
          f"queries, {sum(p.numel() for p in model.parameters())} "
          f"parameters), {VPS_FRAMES} frames preprocessed to "
-         f"{tuple(images.shape)}")
+         f"{len(windows)} windows of {tuple(windows[0].shape)}")
     captured = {}
     with first_msda_call(captured, "vps"), traj_calls(
             captured, lambda a: "vps K3"):  # warm-up window
         TubeLinkVPSInference(model, **kw).window_forward(windows[0])
-    torch.cuda.synchronize()
 
-    spans, runs = [], {}
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    # the model's forward alone, without the window's copy to the host
-    model.forward = cuda_spans(torch, spans, model.forward)
-    try:
+    def streams():
+        runs = {}
         for label, extra in (("defaults", {}), ("zero thresholds", VPS_ZERO)):
             pipe = TubeLinkVPSInference(model, **kw, **extra)
             pipe.init_memory()
@@ -3573,12 +3615,10 @@ def phase_vps(torch, card: str):
             inst = [pipe.process_window_instance(w, i, score_thr=thr)
                     for i, w in enumerate(windows)]
             runs[label] = (maps, started, carried, inst, pan_s)
-    finally:
-        del model.forward
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    fwd_ms = [a.elapsed_time(b) for a, b in spans]
+        return runs
+
+    # the model's forward alone, without the window's copy to the host
+    runs, launches, fwd_ms, peak, wall = counted_run(torch, model, streams)
     n_fwd = 4 * len(windows)
     want = expect(K2=K2_TUBE * n_fwd, K3=K3_TUBE * n_fwd)
     mask_hw = tuple(s // 4 for s in cfg.input.image_size)
@@ -3818,6 +3858,22 @@ def phase_cc_vis(torch, card: str):
     return launches, k2, k3
 
 
+def build_image_model(torch, yaml: str, dev):
+    """The image model of ``yaml`` at full width for inference, random
+    weights from seed 0, built by the registry, and one random image of the
+    yaml's size on ``dev``. Returns (cfg, model, image)."""
+    from axial_vs_tpu_torch.config import load_config
+    from axial_vs_tpu_torch.models.build import build_model_and_criterion
+
+    cfg = load_config(yaml)
+    model, _ = build_model_and_criterion(
+        cfg, train=False, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn(1, *cfg.input.image_size, 3, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    return cfg, model, x
+
+
 def phase_image_m2f(torch, card: str):
     """The image Mask2Former R50 of ``IMAGE_YAML`` at full width (80 thing +
     53 stuff classes, 100 queries, f32), random weights from seed 0, built
@@ -3828,32 +3884,12 @@ def phase_image_m2f(torch, card: str):
     and K2's entry."""
     import copy
 
-    from axial_vs_tpu_torch.config import load_config
-    from axial_vs_tpu_torch.models.build import build_model_and_criterion
-
     dev = torch.device("cuda")
-    cfg = load_config(IMAGE_YAML)
-    model, _ = build_model_and_criterion(
-        cfg, train=False, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(0))
+    cfg, model, x = build_image_model(torch, IMAGE_YAML, dev)
     hw = tuple(cfg.input.image_size)
-    x = torch.randn(1, *hw, 3, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(3))
     captured = {}
-    with torch.inference_mode(), first_msda_call(captured, "image"):
-        model(x)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with torch.inference_mode():
-        start.record()
-        out = model(x)
-        end.record()
-    end.synchronize()
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    out, launches, (fwd_ms,), peak, _ = image_forward(
+        torch, model, x, first_msda_call(captured, "image"))
     want = expect(K2=K2_TUBE)
     classes = cfg.model.num_classes + 1
     q = cfg.model.tube_link.num_queries
@@ -3865,7 +3901,7 @@ def phase_image_m2f(torch, card: str):
                 raise AssertionError(f"image m2f {name} {tuple(y.shape)}")
     log(f"image m2f: one {hw[0]}x{hw[1]} image, {len(out['cls_preds'])} "
         f"layers of (1, {q}, {classes}) logits and (1, {q}, {hw[0] // 4}, "
-        f"{hw[1] // 4}) masks, finite; {start.elapsed_time(end):.2f} ms (CUDA "
+        f"{hw[1] // 4}) masks, finite; {fwd_ms:.2f} ms (CUDA "
         f"events); launches {launches} (want {want}); peak memory "
         f"{peak:.3f} GiB; {card}")
     if launches != want:
@@ -4212,10 +4248,9 @@ def wake_swin_biases(torch, backbone, std: float = SWIN_BIAS_STD):
     JAX's) from N(0, std^2), as a trained checkpoint's are non-zero. At
     zero biases each padded patch of a crop is the zero vector in every
     layer's LayerNorm, whose backward at a zero-variance row multiplies by
-    1 / sqrt(eps) = 316: a 512x512 crop padded from a smaller frame then
-    takes the f32 gradient past its range within a few blocks (the CPU
-    rehearsal: 1e18 at the patch embed, inf in the global norm, so the
-    clipped update was 0), in both packages, which share the formula."""
+    1 / sqrt(eps) = 316, block after block: in both packages alike, as
+    ``tests/test_torch_backbones.py::test_swin_gradients_at_padded_patches``
+    pins (5.5e4x at 8 blocks of width 32; Swin-L has 24)."""
     gen = torch.Generator(device=next(backbone.parameters()).device)
     gen.manual_seed(2)
     with torch.no_grad():
@@ -4290,18 +4325,8 @@ def phase_swin_vis(torch, root: str, card: str):
     torch.cuda.synchronize()
     laps(f"built ({sum(p.numel() for p in model.parameters())} parameters) "
          f"and warmed up")
-    spans = []
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    model.forward = cuda_spans(torch, spans, model.forward)
-    try:
-        res = pipeline.run_video(video)
-    finally:
-        del model.forward
-    torch.cuda.synchronize()
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    tube_ms = [a.elapsed_time(b) for a, b in spans]
+    res, launches, tube_ms, peak, _ = counted_run(
+        torch, model, lambda: pipeline.run_video(video))
     n_inst = tl.test_topk
     want_shape = (n_inst, TL_VIDEO) + TL_MASK_HW
     labels, scores = res["labels"], res["scores"]
@@ -4331,7 +4356,7 @@ def phase_swin_vis(torch, root: str, card: str):
     meta.contiguous_to_dataset_id = list(range(1, cfg.model.num_classes + 1))
     tubes = sum(len(video_split(v, TL_T)) for v in YTVIS_VIDEOS)
     frames = sum(YTVIS_VIDEOS)
-    spans.clear()
+    spans = []
     real = TubeLinkVISInference.tube_forward
     reset_counts()
     t0 = time.perf_counter()
@@ -4485,43 +4510,21 @@ def phase_vps_backbones(torch, card: str):
     id maps' shape and convention and the launch counts; logs the window
     forward's ms (CUDA events around ``model.forward``) and peak memory.
     Returns the launch counts."""
-    from axial_vs_tpu_torch.config import load_config
-    from axial_vs_tpu_torch.models.build import build_model_and_criterion
-    from axial_vs_tpu_torch.models.tube_link.vps import (
-        TubeLinkVPSInference, num_things_split)
-    from axial_vs_tpu_torch.models.video_inference import preprocess_frames
+    from axial_vs_tpu_torch.models.tube_link.vps import TubeLinkVPSInference
 
     dev = torch.device("cuda")
-    frames = vipseg_like_video(VPS_FRAMES, VPS_SOURCE_HW, 0)
     totals = {k: 0 for k in counted_kernels()}
     for yaml in VPS_BACKBONE_YAMLS:
-        cfg = load_config(yaml)
-        num_things, num_stuff = num_things_split(cfg)
-        t = cfg.input.num_clip_frames
-        model, _ = build_model_and_criterion(
-            cfg, train=False, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(0))
-        images, _, _ = preprocess_frames(frames, cfg.input.pixel_mean,
-                                         cfg.input.pixel_std,
-                                         cfg.input.image_size)
-        windows = [torch.from_numpy(images[i:i + t]).to(dev)
-                   for i in range(0, VPS_FRAMES, t)]
-        pipe = TubeLinkVPSInference(model, clip_len=t,
-                                    num_things_classes=num_things,
-                                    num_stuff_classes=num_stuff, **VPS_ZERO)
+        cfg, model, kw, windows = build_vps(torch, yaml, dev)
+        t = kw["clip_len"]
+        pipe = TubeLinkVPSInference(model, **kw, **VPS_ZERO)
         pipe.window_forward(windows[0])  # warm-up
-        torch.cuda.synchronize()
-        spans = []
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        model.forward = cuda_spans(torch, spans, model.forward)
-        try:
+
+        def stream():
             pipe.init_memory()
-            maps = [pipe.process_window(w, i) for i, w in enumerate(windows)]
-        finally:
-            del model.forward
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
+            return [pipe.process_window(w, i) for i, w in enumerate(windows)]
+
+        maps, launches, fwd_ms, peak, _ = counted_run(torch, model, stream)
         want = expect(K2=K2_TUBE * len(windows), K3=K3_TUBE * len(windows))
         check_vps_ids(maps, pipe, yaml)
         hw = tuple(s // 4 for s in cfg.input.image_size)
@@ -4530,7 +4533,7 @@ def phase_vps_backbones(torch, card: str):
             f"{cfg.model.dtype}, {sum(p.numel() for p in model.parameters())}"
             f" parameters): {len(windows)} windows of {t}, id maps "
             f"{[m.shape for m in maps][0]}, segments a window {segments}; the "
-            f"window forward {_ms_stats([a.elapsed_time(b) for a, b in spans])}"
+            f"window forward {_ms_stats(fwd_ms)}"
             f"; peak memory {peak:.3f} GiB; launches {launches} (want "
             f"{want}); {card}")
         if launches != want or any(m.shape != (t,) + hw for m in maps):
@@ -4551,8 +4554,6 @@ def phase_swin_images(torch, card: str):
     fusion at zero thresholds. Checks shapes, finite values and the launch
     counts; logs each forward's ms (CUDA events; a warm-up first) and peak
     memory. Returns the launch counts."""
-    from axial_vs_tpu_torch.config import load_config
-    from axial_vs_tpu_torch.models.build import build_model_and_criterion
     from axial_vs_tpu_torch.models.postprocess import instance_inference
     from axial_vs_tpu_torch.models.tube_link.fusion import (INSTANCE_OFFSET,
                                                             panoptic_fusion)
@@ -4561,27 +4562,12 @@ def phase_swin_images(torch, card: str):
     dev = torch.device("cuda")
     totals = {k: 0 for k in counted_kernels()}
     for yaml, k2 in ((KMAX_SWIN_YAML, 0), (M2F_SWIN_YAML, K2_TUBE)):
-        cfg = load_config(yaml)
+        cfg, model, x = build_image_model(torch, yaml, dev)
         hw = tuple(cfg.input.image_size)
-        model, _ = build_model_and_criterion(
-            cfg, train=False, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(0))
         if model.dtype != torch.bfloat16 or not cfg.model.backbone.name.startswith(
                 "swin_large"):
             raise AssertionError(f"swin-l images {yaml}: not bf16 Swin-L")
-        x = torch.randn(1, *hw, 3, device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(3))
-        with torch.inference_mode():
-            model(x)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        spans = []
-        with torch.inference_mode():
-            out = cuda_spans(torch, spans, model)(x)
-        torch.cuda.synchronize()
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        out, launches, (fwd_ms,), peak, _ = image_forward(torch, model, x)
         t0 = time.perf_counter()
         if yaml == KMAX_SWIN_YAML:
             classes = cfg.model.num_classes
@@ -4615,7 +4601,7 @@ def phase_swin_images(torch, card: str):
             else out["cls_preds"] + out["mask_preds"]))
         want = expect(K2=k2)
         log(f"swin-l images {yaml} ({hw[0]}x{hw[1]}, bf16): forward "
-            f"{spans[0][0].elapsed_time(spans[0][1]):.2f} ms (CUDA events, "
+            f"{fwd_ms:.2f} ms (CUDA events, "
             f"after a warm-up), outputs finite {finite}; {what} in "
             f"{post_s:.3f} s; peak memory {peak:.3f} GiB; launches "
             f"{launches} (want {want}); {card}")
